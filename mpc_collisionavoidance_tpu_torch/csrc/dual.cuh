@@ -1,0 +1,160 @@
+// Forward-mode dual numbers for the model forms of the linearization kernel.
+//
+// Dual<T, ND> carries a value and ND tangents.  The model functions in
+// csrc/models/*.cuh are templates over a scalar type S and call only the
+// arithmetic operators and the m_* functions below, so one text runs on
+// plain T (values) and on Dual<T, ND> (values + ND directional
+// derivatives in one pass).
+#pragma once
+
+#include <cuda_runtime.h>
+
+namespace nmpc {
+
+template <typename T, int ND>
+struct Dual {
+  T v;
+  T d[ND];
+  __device__ __forceinline__ Dual() {}
+  __device__ __forceinline__ Dual(T value) : v(value) {  // NOLINT: implicit
+#pragma unroll
+    for (int i = 0; i < ND; ++i) d[i] = T(0);
+  }
+};
+
+// scalar_t<S>: the underlying floating type of S
+template <typename S>
+struct scalar_of {
+  using type = S;
+};
+template <typename T, int ND>
+struct scalar_of<Dual<T, ND>> {
+  using type = T;
+};
+template <typename S>
+using scalar_t = typename scalar_of<S>::type;
+
+// ---- plain scalar math (explicit float / double overloads) ----
+__device__ __forceinline__ float m_sin(float a) { return sinf(a); }
+__device__ __forceinline__ double m_sin(double a) { return ::sin(a); }
+__device__ __forceinline__ float m_cos(float a) { return cosf(a); }
+__device__ __forceinline__ double m_cos(double a) { return ::cos(a); }
+__device__ __forceinline__ float m_sqrt(float a) { return sqrtf(a); }
+__device__ __forceinline__ double m_sqrt(double a) { return ::sqrt(a); }
+__device__ __forceinline__ float m_atan2(float y, float x) {
+  return atan2f(y, x);
+}
+__device__ __forceinline__ double m_atan2(double y, double x) {
+  return ::atan2(y, x);
+}
+
+// ---- dual arithmetic ----
+template <typename T, int ND>
+__device__ __forceinline__ Dual<T, ND> operator+(const Dual<T, ND>& a,
+                                                 const Dual<T, ND>& b) {
+  Dual<T, ND> r;
+  r.v = a.v + b.v;
+#pragma unroll
+  for (int i = 0; i < ND; ++i) r.d[i] = a.d[i] + b.d[i];
+  return r;
+}
+template <typename T, int ND>
+__device__ __forceinline__ Dual<T, ND> operator+(const Dual<T, ND>& a, T b) {
+  Dual<T, ND> r = a;
+  r.v = a.v + b;
+  return r;
+}
+template <typename T, int ND>
+__device__ __forceinline__ Dual<T, ND> operator+(T a, const Dual<T, ND>& b) {
+  return b + a;
+}
+template <typename T, int ND>
+__device__ __forceinline__ Dual<T, ND> operator-(const Dual<T, ND>& a) {
+  Dual<T, ND> r;
+  r.v = -a.v;
+#pragma unroll
+  for (int i = 0; i < ND; ++i) r.d[i] = -a.d[i];
+  return r;
+}
+template <typename T, int ND>
+__device__ __forceinline__ Dual<T, ND> operator-(const Dual<T, ND>& a,
+                                                 const Dual<T, ND>& b) {
+  Dual<T, ND> r;
+  r.v = a.v - b.v;
+#pragma unroll
+  for (int i = 0; i < ND; ++i) r.d[i] = a.d[i] - b.d[i];
+  return r;
+}
+template <typename T, int ND>
+__device__ __forceinline__ Dual<T, ND> operator-(const Dual<T, ND>& a, T b) {
+  Dual<T, ND> r = a;
+  r.v = a.v - b;
+  return r;
+}
+template <typename T, int ND>
+__device__ __forceinline__ Dual<T, ND> operator*(const Dual<T, ND>& a,
+                                                 const Dual<T, ND>& b) {
+  Dual<T, ND> r;
+  r.v = a.v * b.v;
+#pragma unroll
+  for (int i = 0; i < ND; ++i) r.d[i] = a.d[i] * b.v + a.v * b.d[i];
+  return r;
+}
+template <typename T, int ND>
+__device__ __forceinline__ Dual<T, ND> operator*(T a, const Dual<T, ND>& b) {
+  Dual<T, ND> r;
+  r.v = a * b.v;
+#pragma unroll
+  for (int i = 0; i < ND; ++i) r.d[i] = a * b.d[i];
+  return r;
+}
+template <typename T, int ND>
+__device__ __forceinline__ Dual<T, ND> operator/(const Dual<T, ND>& a, T b) {
+  Dual<T, ND> r;
+  r.v = a.v / b;
+#pragma unroll
+  for (int i = 0; i < ND; ++i) r.d[i] = a.d[i] / b;
+  return r;
+}
+
+// ---- dual elementary functions ----
+template <typename T, int ND>
+__device__ __forceinline__ Dual<T, ND> m_sin(const Dual<T, ND>& a) {
+  Dual<T, ND> r;
+  r.v = m_sin(a.v);
+  const T c = m_cos(a.v);
+#pragma unroll
+  for (int i = 0; i < ND; ++i) r.d[i] = c * a.d[i];
+  return r;
+}
+template <typename T, int ND>
+__device__ __forceinline__ Dual<T, ND> m_cos(const Dual<T, ND>& a) {
+  Dual<T, ND> r;
+  r.v = m_cos(a.v);
+  const T s = m_sin(a.v);
+#pragma unroll
+  for (int i = 0; i < ND; ++i) r.d[i] = -s * a.d[i];
+  return r;
+}
+template <typename T, int ND>
+__device__ __forceinline__ Dual<T, ND> m_sqrt(const Dual<T, ND>& a) {
+  Dual<T, ND> r;
+  r.v = m_sqrt(a.v);
+  const T inv2 = T(0.5) / r.v;
+#pragma unroll
+  for (int i = 0; i < ND; ++i) r.d[i] = a.d[i] * inv2;
+  return r;
+}
+// d atan2(y, x) = (x dy - y dx) / (x^2 + y^2)
+template <typename T, int ND>
+__device__ __forceinline__ Dual<T, ND> m_atan2(const Dual<T, ND>& y,
+                                               const Dual<T, ND>& x) {
+  Dual<T, ND> r;
+  r.v = m_atan2(y.v, x.v);
+  const T den = x.v * x.v + y.v * y.v;
+#pragma unroll
+  for (int i = 0; i < ND; ++i) r.d[i] = (x.v * y.d[i] - y.v * x.d[i]) / den;
+  return r;
+}
+
+}  // namespace nmpc

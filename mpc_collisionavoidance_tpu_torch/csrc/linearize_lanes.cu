@@ -1,0 +1,188 @@
+// Fused RTI linearization (K2) for sm_90a.
+//
+// Replaces mpc_collisionavoidance_tpu/kernels/linearize_pallas.py:
+// linearize_lanes_pallas.  Per (stage, lane) it computes
+//   xn = F(x, u; p)         the RK4 map over `integrator_steps` substeps,
+//   J  = dF/d(x, u)         tangents only along f_dep; every other state
+//                           column is written as the exact identity column,
+//                           every other control column as exact zeros,
+//   hbar = h(x, p), C = dh/dx  tangents only along h_dep, zeros elsewhere.
+// The model's f and h (csrc/models/<name>.cuh) run once on a forward-mode
+// dual number with |f_dep| tangents (the rollout's value part is xn) and
+// once on one with |h_dep| tangents (its value part is hbar).
+//
+// Layouts (lane axis L minor-most):
+//   in   xs (nx, N, L), ubar (nu, N, L), params (np, L)
+//   out  xn (nx, N, L), J (N, nx, nx+nu, L), hbar (nh, N, L),
+//        C (N, nh, nx, L)
+// J and C are written straight into the IPM's layout, so the solver needs
+// no transpose.
+//
+// Design: one thread per (stage, lane), threads ordered lane-fastest, so a
+// warp reads and writes 32 neighbouring addresses of every plane.  No stage
+// blocking and no padding: the last block is bounds-masked.
+// What bounds it on the H100: per thread ~2 kFLOP (four model evaluations
+// on 7-wide duals plus the row distances) against ~0.4 kB of traffic, so
+// it is neither HBM- nor FLOP-bound at the flagship's N*L = 51,200 threads
+// (400 blocks of 128 on 132 SMs); the cost is the sin/cos/atan2 latency
+// and the register footprint of the duals (x, k, acc and the stage state:
+// ~4 x 8 x 7 values per thread), which limits occupancy and may spill in
+// float64.  Accepted for bring-up.
+
+#include <cuda_runtime.h>
+
+#include <cstddef>
+
+#include "dual.cuh"
+#include "models/usv_guidance_ca1.cuh"
+
+namespace {
+
+constexpr int kBlock = 128;
+
+// position of coordinate k in the model's f_dep (-1: not read by f)
+template <typename M>
+__device__ __forceinline__ constexpr int f_pos(int k) {
+  int pos = -1;
+  for (int j = 0; j < M::N_FDEP; ++j)
+    if (M::f_dep(j) == k) pos = j;
+  return pos;
+}
+template <typename M>
+__device__ __forceinline__ constexpr int h_pos(int k) {
+  int pos = -1;
+  for (int j = 0; j < M::N_HDEP; ++j)
+    if (M::h_dep(j) == k) pos = j;
+  return pos;
+}
+
+template <typename T, typename M>
+__global__ void __launch_bounds__(kBlock)
+linearize_lanes_kernel(const T* __restrict__ xs, const T* __restrict__ ub,
+                       const T* __restrict__ prm, T* __restrict__ xn,
+                       T* __restrict__ J, T* __restrict__ hbar,
+                       T* __restrict__ C, int N, int L, T half_h, T h,
+                       T sixth_h, int steps) {
+  constexpr int NX = M::NX, NU = M::NU, NXU = M::NX + M::NU;
+  const size_t gid = static_cast<size_t>(blockIdx.x) * blockDim.x +
+                     threadIdx.x;
+  if (gid >= static_cast<size_t>(N) * L) return;
+  const int s = static_cast<int>(gid / L);
+  const int l = static_cast<int>(gid % L);
+  // entry of row i at stage s of an (rows, N, L) plane
+  auto plane = [=](int i) -> size_t {
+    return (static_cast<size_t>(i) * N + s) * L + l;
+  };
+
+  T p[M::NP];
+#pragma unroll
+  for (int i = 0; i < M::NP; ++i) p[i] = prm[static_cast<size_t>(i) * L + l];
+
+  // ---- RK4 rollout with |f_dep| forward tangents ----
+  using DF = nmpc::Dual<T, M::N_FDEP>;
+  DF x[NX], u[NU];
+#pragma unroll
+  for (int i = 0; i < NX; ++i) x[i] = DF(xs[plane(i)]);
+#pragma unroll
+  for (int i = 0; i < NU; ++i) u[i] = DF(ub[plane(i)]);
+#pragma unroll
+  for (int j = 0; j < M::N_FDEP; ++j) {
+    const int k = M::f_dep(j);
+    if (k < NX)
+      x[k].d[j] = T(1);
+    else
+      u[k - NX].d[j] = T(1);
+  }
+  for (int step = 0; step < steps; ++step) {
+    // acc = k1 + 2 k2 + 2 k3 + k4, summed left to right as the reference
+    DF k[NX], acc[NX], tmp[NX];
+    M::f(x, u, p, k);
+#pragma unroll
+    for (int i = 0; i < NX; ++i) {
+      acc[i] = k[i];
+      tmp[i] = x[i] + half_h * k[i];
+    }
+    M::f(tmp, u, p, k);
+#pragma unroll
+    for (int i = 0; i < NX; ++i) {
+      acc[i] = acc[i] + T(2) * k[i];
+      tmp[i] = x[i] + half_h * k[i];
+    }
+    M::f(tmp, u, p, k);
+#pragma unroll
+    for (int i = 0; i < NX; ++i) {
+      acc[i] = acc[i] + T(2) * k[i];
+      tmp[i] = x[i] + h * k[i];
+    }
+    M::f(tmp, u, p, k);
+#pragma unroll
+    for (int i = 0; i < NX; ++i) x[i] = x[i] + sixth_h * (acc[i] + k[i]);
+  }
+#pragma unroll
+  for (int i = 0; i < NX; ++i) {
+    xn[plane(i)] = x[i].v;
+#pragma unroll
+    for (int c = 0; c < NXU; ++c) {
+      const int pos = f_pos<M>(c);
+      const T val = pos >= 0 ? x[i].d[pos >= 0 ? pos : 0]
+                             : (c == i ? T(1) : T(0));
+      J[((static_cast<size_t>(s) * NX + i) * NXU + c) * L + l] = val;
+    }
+  }
+
+  // ---- constraint rows with |h_dep| forward tangents ----
+  using DH = nmpc::Dual<T, M::N_HDEP>;
+  DH xh[NX];
+#pragma unroll
+  for (int i = 0; i < NX; ++i) xh[i] = DH(xs[plane(i)]);
+#pragma unroll
+  for (int j = 0; j < M::N_HDEP; ++j) xh[M::h_dep(j)].d[j] = T(1);
+  DH hv[M::NH];
+  M::h(xh, p, hv);
+#pragma unroll
+  for (int r = 0; r < M::NH; ++r) {
+    hbar[plane(r)] = hv[r].v;
+#pragma unroll
+    for (int c = 0; c < NX; ++c) {
+      const int pos = h_pos<M>(c);
+      C[((static_cast<size_t>(s) * M::NH + r) * NX + c) * L + l] =
+          pos >= 0 ? hv[r].d[pos >= 0 ? pos : 0] : T(0);
+    }
+  }
+}
+
+template <typename T, typename M>
+int launch(int N, int L, double dt_step, int steps, const void* xs,
+           const void* ub, const void* prm, void* xn, void* J, void* hbar,
+           void* C, cudaStream_t stream) {
+  const size_t threads = static_cast<size_t>(N) * L;
+  const int grid = static_cast<int>((threads + kBlock - 1) / kBlock);
+  // the reference scales by Python floats computed in double, then rounds
+  // them to the working type: 0.5*h, h and h/6
+  linearize_lanes_kernel<T, M><<<grid, kBlock, 0, stream>>>(
+      static_cast<const T*>(xs), static_cast<const T*>(ub),
+      static_cast<const T*>(prm), static_cast<T*>(xn), static_cast<T*>(J),
+      static_cast<T*>(hbar), static_cast<T*>(C), N, L,
+      static_cast<T>(0.5 * dt_step), static_cast<T>(dt_step),
+      static_cast<T>(dt_step / 6.0), steps);
+  return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace
+
+// dt_step = dt / integrator_steps.  Returns cudaGetLastError() after the
+// launch (0 = success) or -2 for an empty problem.
+extern "C" int nmpc_linearize_usv_guidance_ca1(int is_double, int N, int L,
+                                               double dt_step, int steps,
+                                               const void* xs, const void* ub,
+                                               const void* prm, void* xn,
+                                               void* J, void* hbar, void* C,
+                                               void* stream) {
+  if (N < 1 || L < 1 || steps < 1) return -2;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (is_double)
+    return launch<double, nmpc::UsvGuidanceCa1>(N, L, dt_step, steps, xs, ub,
+                                                prm, xn, J, hbar, C, st);
+  return launch<float, nmpc::UsvGuidanceCa1>(N, L, dt_step, steps, xs, ub,
+                                             prm, xn, J, hbar, C, st);
+}

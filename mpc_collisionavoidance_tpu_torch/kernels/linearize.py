@@ -1,0 +1,60 @@
+"""Wrapper of the CUDA fused linearization `csrc/linearize_lanes.cu` (K2).
+
+Replaces `mpc_collisionavoidance_tpu/kernels/linearize_pallas.py::
+linearize_lanes_pallas`.  The kernel is model-specific: each model with a
+CUDA form (`csrc/models/<name>.cuh`) has its own C entry, keyed here by
+`model.name`, and the model's dimensions and f_dep/h_dep must match the
+compiled form.  A model with no CUDA form raises `NotImplementedError`.
+The wrapper takes CUDA tensors only; `ops.linearize_lanes.linearize_lanes`
+sends CPU tensors to the plain version.  `launches` counts kernel launches.
+"""
+
+import torch
+
+from mpc_collisionavoidance_tpu_torch.kernels import _build
+
+# model name -> (C entry, nx, nu, np, nh, f_dep, h_dep) of its CUDA form
+CUDA_MODELS = {
+    "usv_guidance_ca1": ("nmpc_linearize_usv_guidance_ca1", 8, 1, 16, 8,
+                         (0, 1, 3, 4, 7, 8), (5, 6)),
+}
+DTYPES = (torch.float32, torch.float64)
+
+launches = 0
+
+
+def linearize_lanes_cuda(xs, ubar, params, *, model, dt, integrator_steps=1):
+    """xs (nx, N, L), ubar (nu, N, L), params (np, L) CUDA tensors ->
+    (xn (nx, N, L), J (N, nx, nx+nu, L), hbar (nh, N, L),
+    C (N, nh, nx, L))."""
+    global launches
+    if model.name not in CUDA_MODELS:
+        raise NotImplementedError(model.name)
+    entry, nx, nu, np_, nh, f_dep, h_dep = CUDA_MODELS[model.name]
+    declared = (model.nx, model.nu, model.np_, model.nh,
+                tuple(model.f_dep), tuple(model.h_dep))
+    if declared != (nx, nu, np_, nh, f_dep, h_dep):
+        raise ValueError(f"linearize kernel: model {model.name} declares "
+                         f"{declared}, its CUDA form is compiled for "
+                         f"{(nx, nu, np_, nh, f_dep, h_dep)}")
+    N, L = xs.shape[1], xs.shape[2]
+    _build.check_inputs(
+        "linearize kernel", dict(xs=xs, ubar=ubar, params=params),
+        {"xs": (nx, N, L), "ubar": (nu, N, L), "params": (np_, L)}, DTYPES)
+    if N < 1 or L < 1 or integrator_steps < 1:
+        raise ValueError(f"linearize kernel: empty problem N={N}, L={L}, "
+                         f"integrator_steps={integrator_steps}")
+
+    lib = _build.library()
+    opts = dict(dtype=xs.dtype, device=xs.device)
+    xn = torch.empty((nx, N, L), **opts)
+    J = torch.empty((N, nx, nx + nu, L), **opts)
+    hbar = torch.empty((nh, N, L), **opts)
+    C = torch.empty((N, nh, nx, L), **opts)
+    code = getattr(lib, entry)(
+        int(xs.dtype == torch.float64), N, L, dt / integrator_steps,
+        integrator_steps,
+        *_build.launch_args(xs.device, xs, ubar, params, xn, J, hbar, C))
+    _build.check(code, f"linearize_lanes[{model.name}]")
+    launches += 1
+    return xn, J, hbar, C

@@ -1,0 +1,22 @@
+"""Registry of the ported model variants (counterpart of
+`mpc_collisionavoidance_tpu/models/registry.py`; flagship only so far)."""
+
+from typing import Callable, Dict
+
+from mpc_collisionavoidance_tpu_torch.models import variants
+from mpc_collisionavoidance_tpu_torch.models.base import Model
+
+_BUILDERS: Dict[str, Callable[[], Model]] = {
+    "usv_guidance_ca1": variants.usv_guidance_ca1,
+}
+
+
+def names():
+    return sorted(_BUILDERS)
+
+
+def get(name: str) -> Model:
+    try:
+        return _BUILDERS[name]()
+    except KeyError:
+        raise KeyError(f"unknown model '{name}'; known: {names()}") from None

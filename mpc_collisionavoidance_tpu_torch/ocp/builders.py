@@ -1,0 +1,64 @@
+"""Per-variant OCP builders (counterpart of
+`mpc_collisionavoidance_tpu/ocp/builders.py`; flagship only so far).
+
+The LINEAR_LS selection layout is identical across all variants: Vx stacks
+the identity over the states, Vu appends one row per control (reference
+scripts/usv_guidance_ca1/acados_settings.py:92-103).
+"""
+
+import numpy as np
+
+from mpc_collisionavoidance_tpu_torch.models import registry
+from mpc_collisionavoidance_tpu_torch.ocp.spec import (LinearLSCost, OCPSpec,
+                                                       SoftPenalty)
+
+
+def _linear_ls(nx, nu, q_diag, r_diag, qe_diag, yref=None, yref_e=None):
+    ny = nx + nu
+    Vx = np.zeros((ny, nx))
+    Vx[:nx, :nx] = np.eye(nx)
+    Vu = np.zeros((ny, nu))
+    Vu[nx:, :] = np.eye(nu)
+    W = np.diag(np.concatenate([np.asarray(q_diag, float),
+                                np.asarray(r_diag, float)]))
+    Vx_e = np.eye(nx)
+    W_e = np.diag(np.asarray(qe_diag, float))
+    return LinearLSCost(
+        Vx=Vx, Vu=Vu, W=W,
+        yref=np.zeros(ny) if yref is None else np.asarray(yref, float),
+        Vx_e=Vx_e, W_e=W_e,
+        yref_e=np.zeros(nx) if yref_e is None else np.asarray(yref_e, float),
+    )
+
+
+def usv_guidance_ca1(Tf: float = 5.0, N: int = 100) -> OCPSpec:
+    """Flagship OCP (reference scripts/usv_guidance_ca1/acados_settings.py).
+
+    Q = diag(0,0,0.05,0.01,0,0,0,0), R = 0.2, Qe = diag(0,0,0.1,0.05,0,0,0,0)
+    (:75-90); all 8 distance rows softened with zl = zu = 1, Zl = Zu = 0
+    (:105-108), lsh = -0.2, ush = 0 (:154-178); |psied_dot| <= 0.5 (:118-120);
+    Tf = 5, N = 100 (main.py:54-55).
+    """
+    m = registry.get("usv_guidance_ca1")
+    cost = _linear_ls(
+        m.nx, m.nu,
+        q_diag=[0, 0, 0.05, 0.01, 0, 0, 0, 0],
+        r_diag=[0.2],
+        qe_diag=[0, 0, 0.1, 0.05, 0, 0, 0, 0],
+    )
+    soft = SoftPenalty(
+        idxsh=np.arange(8),
+        zl=np.ones(8), Zl=np.zeros(8),
+        zu=np.ones(8), Zu=np.zeros(8),
+        lsh=np.full(8, -0.2), ush=np.zeros(8),
+    )
+    return OCPSpec(model=m, N=N, Tf=Tf, cost=cost, soft=soft)
+
+
+BUILDERS = {
+    "usv_guidance_ca1": usv_guidance_ca1,
+}
+
+
+def build(name: str, **kw) -> OCPSpec:
+    return BUILDERS[name](**kw)

@@ -1,0 +1,375 @@
+"""Lane-batched primal-dual interior point (counterpart of
+`mpc_collisionavoidance_tpu/ops/ipm_lanes.py`).
+
+Path-following with slack/dual elimination, one Riccati sweep per
+iteration (`ops.riccati_lanes.lqr_solve_lanes`: the CUDA kernel for CUDA
+tensors, the plain sweep for CPU tensors), per-lane fraction-to-boundary,
+convergence freeze and status.  The instance batch rides the minor-most
+lane axis; step size, duality gap, freeze mask and status are per-lane
+(L,) vectors.  All ten slack/dual families are carried: control box
+(lo/hi), state box (lo/hi), hard h rows (lo/hi), soft rows (sl/su) and
+the slack bounds (bsl/bsu).
+
+Ported: fixed and adaptive centering, `mu0="auto"`, the dtype-aware gap
+floor / status tolerance, the freeze rule, stall escalation and the status
+rules.  Not ported yet (raise `NotImplementedError`): `mehrotra`
+centering, control-coupled rows `Dh`/`Ds` from partial condensing, and
+`return_gap_trace`.
+
+Stall escalation is a Python loop that tests `(gap > stall).any()` on the
+host before each extra iteration: one device->host sync per escalation
+iteration, which keeps the iteration count identical to the reference's
+`lax.while_loop`.
+"""
+
+from typing import NamedTuple, Optional, Tuple
+
+import torch
+
+from mpc_collisionavoidance_tpu_torch.ops import lanes as ln
+from mpc_collisionavoidance_tpu_torch.ops.riccati_lanes import (
+    LaneLQR, lqr_solve_lanes)
+
+
+class LaneQP(NamedTuple):
+    # dynamics
+    A: torch.Tensor       # (N, nx, nx, L)
+    B: torch.Tensor       # (N, nx, nu, L)
+    c: torch.Tensor       # (N, nx, L)
+    dx0: torch.Tensor     # (nx, L)
+    # static cost blocks, already dt-scaled
+    Qc: torch.Tensor      # (nx, nx)
+    QN: torch.Tensor      # (nx, nx)
+    Sc: torch.Tensor      # (nu, nx)
+    Rc: torch.Tensor      # (nu, nu)
+    qx: torch.Tensor      # (N+1, nx, L)
+    qu: torch.Tensor      # (N, nu, L)
+    # control box rows (gl form): du_sel - ub_lo >= 0 ; -du_sel - ub_hi >= 0
+    ub_lo: torch.Tensor   # (N, nbu, L)
+    ub_hi: torch.Tensor   # (N, nbu, L)
+    # state box rows, stage 0 masked via xmask
+    xb_lo: torch.Tensor   # (N, nbx, L)
+    xb_hi: torch.Tensor   # (N, nbx, L)
+    xmask: torch.Tensor   # (N, 1, 1) 0/1
+    # hard h rows
+    Ch: torch.Tensor      # (N, nHh, nx, L)
+    hh_lo: torch.Tensor   # (N, nHh, L)   = lh_hard - hbar
+    hh_hi: torch.Tensor   # (N, nHh, L)   = hbar - uh_hard
+    # soft rows
+    Cs: torch.Tensor      # (N, nS, nx, L)
+    hofs: torch.Tensor    # (N, nS, L)
+    slh: torch.Tensor     # (N, nS, L)
+    suh: torch.Tensor     # (N, nS, L)
+    zl: torch.Tensor      # (nS, 1)
+    Zl: torch.Tensor      # (nS, 1)
+    zu: torch.Tensor      # (nS, 1)
+    Zu: torch.Tensor      # (nS, 1)
+    lsh: torch.Tensor     # (nS, 1)
+    ush: torch.Tensor     # (nS, 1)
+    # control coupling of h/soft rows (partially condensed QPs) — not
+    # ported; must be None
+    Dh: Optional[torch.Tensor] = None
+    Ds: Optional[torch.Tensor] = None
+
+
+class LaneIPMSolution(NamedTuple):
+    dx: torch.Tensor      # (N+1, nx, L)
+    du: torch.Tensor      # (N, nu, L)
+    gap: torch.Tensor     # (L,)
+    eq_res: torch.Tensor  # (L,)
+    status: torch.Tensor  # (L,) int32
+
+
+def _lanes_sum(x):
+    """Sum over every leading axis -> (L,)."""
+    return x.reshape(-1, x.shape[-1]).sum(0)
+
+
+def _min_ratio(z, Dz):
+    """Per-lane fraction-to-boundary ratio over all leading axes."""
+    neg = Dz < 0
+    r = torch.where(neg, -z / torch.where(neg, Dz, -torch.ones_like(Dz)),
+                    torch.full_like(z, float("inf")))
+    return r.reshape(-1, r.shape[-1]).amin(0)
+
+
+def _all_finite(x):
+    """(N, n, L) -> (L,) bool: every entry of the lane finite."""
+    return torch.isfinite(x).reshape(-1, x.shape[-1]).all(0)
+
+
+def _gap(lam, t, n_total):
+    return sum(_lanes_sum(li * ti) for li, ti in zip(lam, t)) / n_total
+
+
+def ipm_solve_lanes(qp: LaneQP,
+                    idxbu: Tuple[int, ...],
+                    idxbx: Tuple[int, ...],
+                    iters: int = 12,
+                    tau: float = 0.995,
+                    sigma: float = 0.1,
+                    tol: float = 1e-7,
+                    mu0=1.0,
+                    centering: str = "fixed",
+                    extra_iters: int = 0,
+                    stall_tol: Optional[float] = None,
+                    return_gap_trace: bool = False) -> LaneIPMSolution:
+    """`centering="adaptive"` replaces the fixed sigma with the per-lane
+    heuristic sigma_k = clip((1 - alpha_{k-1})^3, 1e-3, 0.5) driven by the
+    previous fraction-to-boundary step.  `extra_iters` > 0 enables stall
+    escalation: after the `iters` fixed iterations, up to `extra_iters`
+    more run while any lane's duality gap is above `stall_tol` (default:
+    the dtype-aware status tolerance)."""
+    if centering == "mehrotra":
+        raise NotImplementedError("mehrotra centering is not ported yet")
+    if centering not in ("fixed", "adaptive"):
+        raise ValueError(f"unknown centering '{centering}'")
+    if qp.Dh is not None or qp.Ds is not None:
+        raise NotImplementedError("control-coupled rows (Dh/Ds, partial "
+                                  "condensing) are not ported yet")
+    if return_gap_trace:
+        raise NotImplementedError("return_gap_trace is not ported yet")
+    N, nx, nu, L = qp.B.shape[0], qp.A.shape[1], qp.B.shape[2], qp.B.shape[-1]
+    nbu, nbx = len(idxbu), len(idxbx)
+    nHh = qp.Ch.shape[1]
+    nS = qp.Cs.shape[1]
+    dtype, device = qp.A.dtype, qp.A.device
+    opts = dict(dtype=dtype, device=device)
+    f64 = dtype == torch.float64
+    n_total = max(N * (2 * nbu + 2 * nbx + 2 * nHh + 4 * nS), 1)
+    gap_floor = 1e-13 if f64 else 3e-7
+    eff_tol = tol if f64 else max(tol, 5e-7)
+    iu = torch.as_tensor(tuple(int(i) for i in idxbu), dtype=torch.long,
+                         device=device)
+    ix = torch.as_tensor(tuple(int(i) for i in idxbx), dtype=torch.long,
+                         device=device)
+
+    def du_sel(du):
+        return du[:, iu, :]
+
+    def dx_sel(dx_path):
+        return dx_path[:, ix, :]
+
+    def g_families(dx, du):
+        dxp = dx[:-1]
+        g_ulo = du_sel(du) - qp.ub_lo
+        g_uhi = -du_sel(du) - qp.ub_hi
+        g_xlo = qp.xmask * dx_sel(dxp) - qp.xb_lo
+        g_xhi = -qp.xmask * dx_sel(dxp) - qp.xb_hi
+        hv = ln.srows_mv(qp.Ch, dxp)
+        g_hlo = hv - qp.hh_lo
+        g_hhi = -hv - qp.hh_hi
+        gv = qp.hofs + ln.srows_mv(qp.Cs, dxp)
+        return g_ulo, g_uhi, g_xlo, g_xhi, g_hlo, g_hhi, gv
+
+    # ---------------- initialization ----------------
+    dx = torch.zeros((N + 1, nx, L), **opts)
+    du = torch.zeros((N, nu, L), **opts)
+    g0 = g_families(dx, du)
+    gv0 = g0[6]
+    s_margin = 0.1
+    sl = torch.maximum(qp.slh - gv0, qp.lsh) + s_margin
+    su = torch.maximum(gv0 - qp.suh, qp.ush) + s_margin
+    t_min = torch.tensor(0.1, **opts)
+    all_t = tuple(torch.maximum(g, t_min) for g in g0[:6]) + (
+        torch.maximum(gv0 - qp.slh + sl, t_min),
+        torch.maximum(qp.suh - gv0 + su, t_min),
+        torch.maximum(sl - qp.lsh, t_min),
+        torch.maximum(su - qp.ush, t_min))
+    if isinstance(mu0, str):
+        # "auto": per-lane gradient-proportional initial barrier weight,
+        # clipped to [1e-3, 1e6]
+        if mu0 != "auto":
+            raise ValueError(f"unknown mu0 '{mu0}'")
+        g_scale = torch.maximum(qp.qx.abs().reshape(-1, L).amax(0),
+                                qp.qu.abs().reshape(-1, L).amax(0))
+        mu0 = torch.clamp(0.01 * g_scale, 1e-3, 1e6)[None, None, :]
+    all_l = tuple(mu0 / t for t in all_t)
+
+    # static cost blocks broadcast over (stage, lane); Sc4 is materialized
+    # once, since the Riccati sweep reads it unchanged every iteration
+    Qc4 = qp.Qc[None, :, :, None].expand(N, nx, nx, L)
+    QN4 = qp.QN[None, :, :, None].expand(1, nx, nx, L)
+    Sc4 = qp.Sc[None, :, :, None].expand(N, nu, nx, L).contiguous()
+    Rc4 = qp.Rc[None, :, :, None].expand(N, nu, nu, L)
+    eye_x = torch.eye(nx, **opts)[None, :, :, None]
+    eye_u = torch.eye(nu, **opts)[None, :, :, None]
+
+    def body(carry):
+        (dx, du, sl, su), t, lam, sigma_l = carry
+        (t_ulo, t_uhi, t_xlo, t_xhi, t_hlo, t_hhi,
+         t_sl, t_su, t_bsl, t_bsu) = t
+        (l_ulo, l_uhi, l_xlo, l_xhi, l_hlo, l_hhi,
+         l_sl, l_su, l_bsl, l_bsu) = lam
+
+        g_ulo, g_uhi, g_xlo, g_xhi, g_hlo, g_hhi, gv = g_families(dx, du)
+        r_ulo, r_uhi = g_ulo - t_ulo, g_uhi - t_uhi
+        r_xlo, r_xhi = g_xlo - t_xlo, g_xhi - t_xhi
+        r_hlo, r_hhi = g_hlo - t_hlo, g_hhi - t_hhi
+        r_sl = (gv - qp.slh + sl) - t_sl
+        r_su = (qp.suh - gv + su) - t_su
+        r_bsl = (sl - qp.lsh) - t_bsl
+        r_bsu = (su - qp.ush) - t_bsu
+
+        gap = _gap(lam, t, n_total)
+        muv = (sigma_l * gap)[None, None, :]
+
+        a_ulo, a_uhi = l_ulo / t_ulo, l_uhi / t_uhi
+        a_xlo, a_xhi = l_xlo / t_xlo, l_xhi / t_xhi
+        a_hlo, a_hhi = l_hlo / t_hlo, l_hhi / t_hhi
+        a_sl, a_su = l_sl / t_sl, l_su / t_su
+        a_bsl, a_bsu = l_bsl / t_bsl, l_bsu / t_bsu
+
+        # mu-independent soft elimination scalars
+        beta_l = qp.Zl + a_sl + a_bsl
+        beta_u = qp.Zu + a_su + a_bsu
+        abar_l = a_sl * (qp.Zl + a_bsl) / beta_l
+        abar_u = a_su * (qp.Zu + a_bsu) / beta_u
+
+        # ---- modified Hessians ----
+        Qbar = Qc4
+        if nbx:
+            diag = torch.zeros((N, nx, L), **opts)
+            diag[:, ix, :] += qp.xmask * (a_xlo + a_xhi)
+            Qbar = Qbar + diag[:, :, None, :] * eye_x
+        if nHh:
+            Qbar = Qbar + ln.sgram_rows(qp.Ch, a_hlo + a_hhi)
+        if nS:
+            Qbar = Qbar + ln.sgram_rows(qp.Cs, abar_l + abar_u)
+        Q_all = torch.cat([Qbar, QN4], dim=0)
+        Rbar = Rc4
+        if nbu:
+            diag_u = torch.zeros((N, nu, L), **opts)
+            diag_u[:, iu, :] += a_ulo + a_uhi
+            Rbar = Rbar + diag_u[:, :, None, :] * eye_u
+
+        # ---- mu-independent gradient bases + dynamics residuals ----
+        dxp, dxN = dx[:-1], dx[-1]
+        qx_base = (qp.qx[:-1]
+                   + torch.einsum("ij,kjl->kil", qp.Qc, dxp)
+                   + torch.einsum("ui,kul->kil", qp.Sc, du))
+        qx_N = qp.qx[-1] + torch.einsum("ij,jl->il", qp.QN, dxN)
+        qu_base = (qp.qu
+                   + torch.einsum("ui,kil->kul", qp.Sc, dxp)
+                   + torch.einsum("uv,kvl->kul", qp.Rc, du))
+        cbar = ln.smv(qp.A, dxp) + ln.smv(qp.B, du) + qp.c - dx[1:]
+        ddx0 = qp.dx0 - dx[0]
+
+        # ---- Newton direction for the centering target muv ----
+        k_l = muv / t_sl + muv / t_bsl - qp.zl - qp.Zl * sl \
+            - a_sl * r_sl - a_bsl * r_bsl
+        k_u = muv / t_su + muv / t_bsu - qp.zu - qp.Zu * su \
+            - a_su * r_su - a_bsu * r_bsu
+        qtil_l = muv / t_sl - a_sl * r_sl - a_sl * k_l / beta_l
+        qtil_u = muv / t_su - a_su * r_su - a_su * k_u / beta_u
+
+        qx_path = qx_base
+        if nbx:
+            vec = qp.xmask * ((muv / t_xlo - a_xlo * r_xlo)
+                              - (muv / t_xhi - a_xhi * r_xhi))
+            qx_path = qx_path.clone()
+            qx_path[:, ix, :] += -vec
+        v_hlo = muv / t_hlo - a_hlo * r_hlo
+        v_hhi = muv / t_hhi - a_hhi * r_hhi
+        if nHh:
+            qx_path = qx_path - ln.srows_tv(qp.Ch, v_hlo)
+            qx_path = qx_path + ln.srows_tv(qp.Ch, v_hhi)
+        if nS:
+            qx_path = qx_path - ln.srows_tv(qp.Cs, qtil_l) \
+                + ln.srows_tv(qp.Cs, qtil_u)
+        qx_all = torch.cat([qx_path, qx_N[None]], dim=0)
+
+        qu_bar = qu_base
+        if nbu:
+            vec_u = (muv / t_ulo - a_ulo * r_ulo) \
+                - (muv / t_uhi - a_uhi * r_uhi)
+            qu_bar = qu_bar.clone()
+            qu_bar[:, iu, :] += -vec_u
+
+        # ---- Newton step via the lane Riccati sweep (the kernel takes
+        # contiguous tensors; einsum may return permuted strides) ----
+        Ddx, Ddu = lqr_solve_lanes(LaneLQR(*(
+            t.contiguous() for t in (qp.A, qp.B, cbar, Q_all, Sc4, Rbar,
+                                     qx_all, qu_bar, ddx0))))
+        Ddxp = Ddx[:-1]
+
+        # ---- recover slack/dual steps ----
+        Dgv = ln.srows_mv(qp.Cs, Ddxp) if nS else gv
+        Dsl = (k_l - a_sl * Dgv) / beta_l if nS else sl
+        Dsu = (k_u + a_su * Dgv) / beta_u if nS else su
+        Dhv = ln.srows_mv(qp.Ch, Ddxp) if nHh else r_hlo * 0
+        Dt = (
+            du_sel(Ddu) + r_ulo,
+            -du_sel(Ddu) + r_uhi,
+            qp.xmask * dx_sel(Ddxp) + r_xlo,
+            -qp.xmask * dx_sel(Ddxp) + r_xhi,
+            Dhv + r_hlo,
+            -Dhv + r_hhi,
+            Dgv + Dsl + r_sl,
+            -Dgv + Dsu + r_su,
+            Dsl + r_bsl,
+            Dsu + r_bsu,
+        )
+        Dlam = tuple((muv - li * ti) / ti - (li / ti) * Dti
+                     for li, ti, Dti in zip(lam, t, Dt))
+
+        # ---- per-lane fraction-to-boundary ----
+        alpha = torch.ones((L,), **opts)
+        for z, Dz in zip(t + lam, Dt + Dlam):
+            if z.numel() == 0:
+                continue
+            alpha = torch.minimum(alpha, tau * _min_ratio(z, Dz))
+
+        step_ok = (torch.isfinite(alpha) & _all_finite(Ddx)
+                   & _all_finite(Ddu))
+        keep = (gap <= gap_floor) | ~step_ok
+        alpha = torch.where(keep, torch.zeros_like(alpha), alpha)
+        av = alpha[None, None, :]
+
+        new_primal = (dx + av * Ddx, du + av * Ddu,
+                      (sl + av * Dsl) if nS else sl,
+                      (su + av * Dsu) if nS else su)
+        new_t = tuple(ti + av * Dti for ti, Dti in zip(t, Dt))
+        new_l = tuple(li + av * Dli for li, Dli in zip(lam, Dlam))
+        if centering == "adaptive":
+            one_m = 1.0 - torch.where(keep, torch.ones_like(alpha), alpha)
+            new_sigma = torch.clamp(one_m * one_m * one_m, 1e-3, 0.5)
+        else:
+            new_sigma = sigma_l
+        return new_primal, new_t, new_l, new_sigma
+
+    # fixed centering keeps the historical constant; adaptive starts
+    # cautious (0.5) and lets the first step's alpha take over
+    sigma0 = torch.full((L,), sigma if centering == "fixed" else 0.5, **opts)
+    carry = ((dx, du, sl, su), all_t, all_l, sigma0)
+    for _ in range(iters):
+        carry = body(carry)
+
+    if extra_iters:
+        # stall escalation: the same body, run only while some lane is
+        # still above the gate (bounded by extra_iters); non-finite lanes
+        # are dead (status 2) and never escalate.  One host sync per test.
+        stall = eff_tol if stall_tol is None else stall_tol
+        for _ in range(extra_iters):
+            g = _gap(carry[2], carry[1], n_total)
+            g = torch.where(torch.isfinite(g), g, torch.zeros_like(g))
+            if not bool((g > stall).any()):
+                break
+            carry = body(carry)
+
+    (dx, du, sl, su), t, lam, _ = carry
+    gap = _gap(lam, t, n_total)
+    cbar = ln.smv(qp.A, dx[:-1]) + ln.smv(qp.B, du) + qp.c - dx[1:]
+    eq_res = cbar.abs().reshape(-1, L).amax(0)
+    eq_res = torch.maximum(eq_res, (qp.dx0 - dx[0]).abs().amax(0))
+
+    # eq_res participates: a NaN-poisoned lane can freeze at a finite
+    # iterate while its residual is NaN — that lane reports status 2
+    finite = (torch.isfinite(gap) & torch.isfinite(eq_res)
+              & _all_finite(dx) & _all_finite(du))
+    converged = (gap < eff_tol) & (eq_res < 1e3 * eff_tol)
+    status = torch.where(finite,
+                         torch.where(converged, 0, 1),
+                         2).to(torch.int32)
+    return LaneIPMSolution(dx=dx, du=du, gap=gap, eq_res=eq_res,
+                           status=status)

@@ -1,0 +1,54 @@
+"""Scenario library (copy of the flagship part of
+`mpc_collisionavoidance_tpu/sim/scenarios.py`, pure numpy).
+
+`guidance_ca1_default` reproduces the flagship closed-loop experiment of
+reference scripts/usv_guidance_ca1/main.py:73-113: a straight 30 m path
+x = 4 from (4,-5) to (4,25), four r = 1.5 obstacles sitting ON the path at
+(4,4), (4,7), (4,12), (4,20), vehicle starting at the origin with u = 0.7,
+4 m of initial cross-track error.  Sentinel obstacles live at (100, 100)
+with radius 0 (reference acados_settings.py:185, main.py:76-77).
+"""
+
+import dataclasses
+
+import numpy as np
+
+SENTINEL_POS = 100.0  # "far away" obstacle placeholder (reference main.py:76)
+
+
+@dataclasses.dataclass(frozen=True)
+class Scenario:
+    name: str
+    x0: np.ndarray          # initial OCP state
+    params: np.ndarray      # flat obstacle table (ox1,oy1,...)
+    lh: np.ndarray          # runtime lower bounds (obstacle radii)
+    n_steps: int
+    ak: float               # path segment angle
+    waypoints: np.ndarray   # (n_wp, 2) for guidance-level sims
+    yref: np.ndarray = None    # runtime stage reference (None = builder's)
+    yref_e: np.ndarray = None
+
+
+def guidance_ca1_default(n_steps: int = 1000) -> Scenario:
+    obsx = np.array([4.0, 4.0, 4.0, 4.0])
+    obsy = np.array([4.0, 7.0, 12.0, 20.0])
+    radius = np.array([1.5, 1.5, 1.5, 1.5, 0, 0, 0, 0])
+    pobs = np.full(16, SENTINEL_POS)
+    robs = np.zeros(8)
+    for i in range(4):
+        pobs[2 * i] = obsx[i]
+        pobs[2 * i + 1] = obsy[i]
+        robs[i] = radius[i]
+
+    x1, y1, x2, y2 = 4.0, -5.0, 4.0, 25.0
+    ak = np.arctan2(y2 - y1, x2 - x1)
+    nedx = nedy = 0.0
+    psi, u, v = 0.0, 0.7, 0.0
+    ye = -(nedx - x1) * np.sin(ak) + (nedy - y1) * np.cos(ak)
+    psie = psi - ak
+    x0 = np.array([u, v, ye, psie, psie, nedx, nedy, psi])
+    return Scenario(
+        name="guidance_ca1_default",
+        x0=x0, params=pobs, lh=robs, n_steps=n_steps, ak=float(ak),
+        waypoints=np.array([[x1, y1], [x2, y2]]),
+    )
