@@ -1,9 +1,12 @@
 """Solver configuration (counterpart of the lane-engine part of
 `mpc_collisionavoidance_tpu/config.py`).
 
-`SolverConfig` holds the IPM schedule of the lane engine.  It has no
-backend switch: the device of the solver's tensors picks the path (the
-CUDA kernels for a CUDA device, their plain PyTorch versions for the CPU).
+`SolverConfig` holds the IPM schedule and backend of the lane engine.
+`riccati` picks the IPM backend: "sweep" (eager iterations, one Riccati
+sweep each; the production path) or "fused" (the whole fixed-sigma IPM in
+one kernel).  The device of the solver's tensors picks kernels or plain
+versions (the CUDA kernels for a CUDA device, their plain PyTorch versions
+for the CPU).
 """
 
 from __future__ import annotations
@@ -11,6 +14,7 @@ from __future__ import annotations
 import dataclasses
 from typing import Optional
 
+from mpc_collisionavoidance_tpu_torch.ops.ipm_lanes import check_schedule
 from mpc_collisionavoidance_tpu_torch.solver.batch import LaneRTISolver
 
 
@@ -18,6 +22,7 @@ from mpc_collisionavoidance_tpu_torch.solver.batch import LaneRTISolver
 class SolverConfig:
     ipm_iters: int = 12
     ipm_tol: float = 1e-7
+    riccati: str = "sweep"        # "sweep" | "fused" (whole-IPM kernel)
     centering: str = "fixed"      # "fixed" | "adaptive"
     mu0: object = 1.0             # initial barrier weight: float | "auto"
     extra_iters: int = 0          # stall-escalation budget: extra IPM
@@ -27,14 +32,8 @@ class SolverConfig:
                                        # aware convergence tolerance)
 
     def __post_init__(self):
-        if self.extra_iters < 0:
-            raise ValueError("extra_iters must be >= 0")
-        if self.centering == "mehrotra":
-            raise NotImplementedError("mehrotra centering is not ported yet")
-        if self.centering not in ("fixed", "adaptive"):
-            raise ValueError(f"unknown centering '{self.centering}'")
-        if isinstance(self.mu0, str) and self.mu0 != "auto":
-            raise ValueError(f"unknown mu0 '{self.mu0}' (float or 'auto')")
+        check_schedule(self.riccati, self.centering, self.mu0,
+                       self.extra_iters)
 
     def build(self, spec, *, device, dtype):
         """Instantiate the lane engine for an OCPSpec on `device`/`dtype`."""

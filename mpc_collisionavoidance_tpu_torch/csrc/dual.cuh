@@ -47,6 +47,12 @@ __device__ __forceinline__ float m_atan2(float y, float x) {
 __device__ __forceinline__ double m_atan2(double y, double x) {
   return ::atan2(y, x);
 }
+// |a| with the JAX rule at 0 (see the dual form below)
+__device__ __forceinline__ float m_abs(float a) { return a >= 0.f ? a : -a; }
+__device__ __forceinline__ double m_abs(double a) { return a >= 0.0 ? a : -a; }
+// the value part of a scalar or a dual (for comparisons and selects)
+__device__ __forceinline__ float value_of(float a) { return a; }
+__device__ __forceinline__ double value_of(double a) { return a; }
 
 // ---- dual arithmetic ----
 template <typename T, int ND>
@@ -92,6 +98,14 @@ __device__ __forceinline__ Dual<T, ND> operator-(const Dual<T, ND>& a, T b) {
   return r;
 }
 template <typename T, int ND>
+__device__ __forceinline__ Dual<T, ND> operator-(T a, const Dual<T, ND>& b) {
+  Dual<T, ND> r;
+  r.v = a - b.v;
+#pragma unroll
+  for (int i = 0; i < ND; ++i) r.d[i] = -b.d[i];
+  return r;
+}
+template <typename T, int ND>
 __device__ __forceinline__ Dual<T, ND> operator*(const Dual<T, ND>& a,
                                                  const Dual<T, ND>& b) {
   Dual<T, ND> r;
@@ -106,6 +120,14 @@ __device__ __forceinline__ Dual<T, ND> operator*(T a, const Dual<T, ND>& b) {
   r.v = a * b.v;
 #pragma unroll
   for (int i = 0; i < ND; ++i) r.d[i] = a * b.d[i];
+  return r;
+}
+template <typename T, int ND>
+__device__ __forceinline__ Dual<T, ND> operator*(const Dual<T, ND>& a, T b) {
+  Dual<T, ND> r;
+  r.v = a.v * b;
+#pragma unroll
+  for (int i = 0; i < ND; ++i) r.d[i] = a.d[i] * b;
   return r;
 }
 template <typename T, int ND>
@@ -144,6 +166,15 @@ __device__ __forceinline__ Dual<T, ND> m_sqrt(const Dual<T, ND>& a) {
 #pragma unroll
   for (int i = 0; i < ND; ++i) r.d[i] = a.d[i] * inv2;
   return r;
+}
+// JAX's derivative of |x|: +dx where x >= 0 (at 0 too), -dx below
+template <typename T, int ND>
+__device__ __forceinline__ Dual<T, ND> m_abs(const Dual<T, ND>& a) {
+  return a.v >= T(0) ? a : -a;
+}
+template <typename T, int ND>
+__device__ __forceinline__ T value_of(const Dual<T, ND>& a) {
+  return a.v;
 }
 // d atan2(y, x) = (x dy - y dx) / (x^2 + y^2)
 template <typename T, int ND>

@@ -27,7 +27,12 @@
 // (400 blocks of 128 on 132 SMs); the cost is the sin/cos/atan2 latency
 // and the register footprint of the duals (x, k, acc and the stage state:
 // ~4 x 8 x 7 values per thread), which limits occupancy and may spill in
-// float64.  Accepted for bring-up.
+// float64.  The hull (usv_pf_ca: nx=14, 9 f tangents) carries ~4 x 14 x 10
+// dual values per thread, above the 255-register cap in both precisions,
+// so it spills to local memory.  Accepted for bring-up.
+//
+// One C entry per model form (csrc/models/<name>.cuh): flagship
+// usv_guidance_ca1 and hull usv_pf_ca.
 
 #include <cuda_runtime.h>
 
@@ -35,6 +40,7 @@
 
 #include "dual.cuh"
 #include "models/usv_guidance_ca1.cuh"
+#include "models/usv_pf_ca.cuh"
 
 namespace {
 
@@ -168,21 +174,38 @@ int launch(int N, int L, double dt_step, int steps, const void* xs,
   return static_cast<int>(cudaGetLastError());
 }
 
+template <typename M>
+int entry(int is_double, int N, int L, double dt_step, int steps,
+          const void* xs, const void* ub, const void* prm, void* xn, void* J,
+          void* hbar, void* C, void* stream) {
+  if (N < 1 || L < 1 || steps < 1) return -2;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (is_double)
+    return launch<double, M>(N, L, dt_step, steps, xs, ub, prm, xn, J, hbar,
+                             C, st);
+  return launch<float, M>(N, L, dt_step, steps, xs, ub, prm, xn, J, hbar, C,
+                          st);
+}
+
 }  // namespace
 
-// dt_step = dt / integrator_steps.  Returns cudaGetLastError() after the
-// launch (0 = success) or -2 for an empty problem.
+// dt_step = dt / integrator_steps.  Each returns cudaGetLastError() after
+// the launch (0 = success) or -2 for an empty problem.
 extern "C" int nmpc_linearize_usv_guidance_ca1(int is_double, int N, int L,
                                                double dt_step, int steps,
                                                const void* xs, const void* ub,
                                                const void* prm, void* xn,
                                                void* J, void* hbar, void* C,
                                                void* stream) {
-  if (N < 1 || L < 1 || steps < 1) return -2;
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (is_double)
-    return launch<double, nmpc::UsvGuidanceCa1>(N, L, dt_step, steps, xs, ub,
-                                                prm, xn, J, hbar, C, st);
-  return launch<float, nmpc::UsvGuidanceCa1>(N, L, dt_step, steps, xs, ub,
-                                             prm, xn, J, hbar, C, st);
+  return entry<nmpc::UsvGuidanceCa1>(is_double, N, L, dt_step, steps, xs, ub,
+                                     prm, xn, J, hbar, C, stream);
+}
+
+extern "C" int nmpc_linearize_usv_pf_ca(int is_double, int N, int L,
+                                        double dt_step, int steps,
+                                        const void* xs, const void* ub,
+                                        const void* prm, void* xn, void* J,
+                                        void* hbar, void* C, void* stream) {
+  return entry<nmpc::UsvPfCa>(is_double, N, L, dt_step, steps, xs, ub, prm,
+                              xn, J, hbar, C, stream);
 }

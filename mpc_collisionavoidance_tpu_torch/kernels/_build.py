@@ -1,21 +1,24 @@
 """Build and load the port's CUDA kernels; check and pass their wrappers'
 arguments.
 
-Every `csrc/*.cu` file is compiled at first use, in one `nvcc` call, into a
-shared library with a plain C interface (no PyTorch headers, so the build
-takes seconds):
+Every `csrc/*.cu` file is compiled at first use by its own `nvcc`
+process, all started together, and the objects are linked into one shared
+library with a plain C interface (no PyTorch headers):
 
-    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
-         -Xcompiler -fPIC -Xptxas -v -o libnmpc_torch_kernels.so csrc/*.cu
+    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3
+         -Xcompiler -fPIC -Xptxas -v -c -o <name>.o csrc/<name>.cu  (each)
+    nvcc -gencode arch=compute_90a,code=sm_90a -shared
+         -o libnmpc_torch_kernels.so *.o
 
 The library lands in `build/torch_kernels/<hash of sources>/` under the
-repository root (git-ignored), next to the compiler's log
-(`nvcc.log`, with the register / spill report of every kernel).  A build
-from the same sources is reused.  Only sources inside the repository are
-read; nvcc is found through `CUDA_HOME`, `/usr/local/cuda/bin` or `PATH`,
-and a missing nvcc raises.
+repository root (git-ignored), next to the compiler's log (`nvcc.log`:
+each file's command, wall time, and the register / spill report of every
+kernel).  A build from the same sources is reused.  Only sources inside
+the repository are read; nvcc is found through `CUDA_HOME`,
+`/usr/local/cuda/bin` or `PATH`, and a missing nvcc raises.
 """
 
+import concurrent.futures
 import ctypes
 import functools
 import hashlib
@@ -24,6 +27,7 @@ import pathlib
 import shutil
 import subprocess
 import tempfile
+import time
 
 import torch
 
@@ -31,24 +35,35 @@ CSRC = pathlib.Path(__file__).resolve().parent.parent / "csrc"
 REPO_ROOT = CSRC.parent.parent
 BUILD_ROOT = REPO_ROOT / "build" / "torch_kernels"
 LIB_NAME = "libnmpc_torch_kernels.so"
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
+NVCC_FLAGS = ARCH_FLAGS + ("-std=c++17", "-O3", "-Xcompiler", "-fPIC",
+                           "-Xptxas", "-v")
 
 _PTR = ctypes.c_void_p
 _INT = ctypes.c_int
+_DBL = ctypes.c_double
+_LINEARIZE_ARGS = [_INT, _INT, _INT, _DBL, _INT] + [_PTR] * 8
 
-# C entry points: (name, argtypes).  Every entry returns cudaGetLastError()
-# after its launch (0 = cudaSuccess) or a negative code for an argument it
-# has no instance for.
+# C entry points: name -> argtypes.  Every launching entry returns
+# cudaGetLastError() after its launch (0 = cudaSuccess) or a negative code
+# for an argument it has no instance for.
 _ENTRIES = {
     # (is_double, nx, nu, N, L, A, B, c, Q, S, R, qx, qu, dx0,
     #  dx, du, K, k, stream)
     "nmpc_riccati_lanes": [_INT] * 5 + [_PTR] * 14,
     # (is_double, N, L, dt, integrator_steps, xs, ubar, params,
-    #  xn, J, hbar, C, stream)
-    "nmpc_linearize_usv_guidance_ca1": (
-        [_INT, _INT, _INT, ctypes.c_double, _INT] + [_PTR] * 8),
+    #  xn, J, hbar, C, stream), one entry per model form
+    "nmpc_linearize_usv_guidance_ca1": _LINEARIZE_ARGS,
+    "nmpc_linearize_usv_pf_ca": _LINEARIZE_ARGS,
+    # (is_double, nx, nu, nbu, nbx, nHh, nS, N, L, iters, tau, sigma, mu0,
+    #  idxbu, idxbx, pointer array, stream)
+    "nmpc_fused_ipm_lanes": ([_INT] * 10 + [_DBL] * 3
+                             + [ctypes.POINTER(_INT)] * 2
+                             + [ctypes.POINTER(_PTR), _PTR]),
+    # (nx, nu, nbu, nbx, nHh, nS, N) -> scratch slots per lane, or -1
+    "nmpc_fused_ipm_scratch": [_INT] * 7,
 }
+_RESTYPES = {"nmpc_fused_ipm_scratch": ctypes.c_longlong}
 
 
 def find_nvcc() -> str:
@@ -83,6 +98,12 @@ def source_hash() -> str:
     return h.hexdigest()[:16]
 
 
+def _timed_run(cmd):
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    return proc, time.perf_counter() - t0
+
+
 def build() -> pathlib.Path:
     """Compile the kernels if this source hash has no library yet; return
     the library's path."""
@@ -93,19 +114,35 @@ def build() -> pathlib.Path:
     nvcc = find_nvcc()
     out_dir.mkdir(parents=True, exist_ok=True)
     cu, _ = sources()
-    # compile to a temporary name, then rename: a concurrent or killed
-    # build never leaves a half-written library under the final name
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=out_dir)
-    os.close(fd)
-    cmd = [nvcc, *NVCC_FLAGS, "-I", str(CSRC), "-o", tmp,
-           *(str(p) for p in cu)]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    (out_dir / "nvcc.log").write_text(
-        " ".join(cmd) + "\n" + proc.stdout + proc.stderr)
-    if proc.returncode != 0:
-        os.unlink(tmp)
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
-                           f"{proc.stderr[-4000:]}")
+    log = []
+    # build in a temporary directory, then rename the library into place:
+    # a concurrent or killed build never leaves a half-written library
+    # under the final name
+    with tempfile.TemporaryDirectory(dir=out_dir) as tmp_dir:
+        objs = [pathlib.Path(tmp_dir) / (p.stem + ".o") for p in cu]
+        cmds = [[nvcc, *NVCC_FLAGS, "-I", str(CSRC), "-c", "-o", str(obj),
+                 str(src)] for src, obj in zip(cu, objs)]
+        with concurrent.futures.ThreadPoolExecutor(len(cmds)) as pool:
+            results = list(pool.map(_timed_run, cmds))
+        failed = []
+        for cmd, (proc, seconds) in zip(cmds, results):
+            log.append(f"{' '.join(cmd)}\n[{seconds:.1f} s, exit "
+                       f"{proc.returncode}]\n{proc.stdout}{proc.stderr}")
+            if proc.returncode != 0:
+                failed.append(proc.stderr)
+        if not failed:
+            fd, tmp = tempfile.mkstemp(suffix=".so", dir=out_dir)
+            os.close(fd)
+            cmd = [nvcc, *ARCH_FLAGS, "-shared", "-o", tmp,
+                   *(str(o) for o in objs)]
+            proc = subprocess.run(cmd, capture_output=True, text=True)
+            log.append(" ".join(cmd) + "\n" + proc.stdout + proc.stderr)
+            if proc.returncode != 0:
+                os.unlink(tmp)
+                failed.append(proc.stderr)
+    (out_dir / "nvcc.log").write_text("\n".join(log))
+    if failed:
+        raise RuntimeError("nvcc failed:\n" + failed[0][-4000:])
     os.replace(tmp, lib)
     return lib
 
@@ -117,7 +154,7 @@ def library() -> ctypes.CDLL:
     for name, argtypes in _ENTRIES.items():
         fn = getattr(lib, name)
         fn.argtypes = argtypes
-        fn.restype = ctypes.c_int
+        fn.restype = _RESTYPES.get(name, ctypes.c_int)
     return lib
 
 

@@ -17,6 +17,8 @@ from mpc_collisionavoidance_tpu_torch.kernels import _build
 CUDA_MODELS = {
     "usv_guidance_ca1": ("nmpc_linearize_usv_guidance_ca1", 8, 1, 16, 8,
                          (0, 1, 3, 4, 7, 8), (5, 6)),
+    "usv_pf_ca": ("nmpc_linearize_usv_pf_ca", 14, 2, 8, 4,
+                  (0, 3, 4, 5, 9, 12, 13, 14, 15), (10, 11)),
 }
 DTYPES = (torch.float32, torch.float64)
 
@@ -29,7 +31,9 @@ def linearize_lanes_cuda(xs, ubar, params, *, model, dt, integrator_steps=1):
     C (N, nh, nx, L))."""
     global launches
     if model.name not in CUDA_MODELS:
-        raise NotImplementedError(model.name)
+        raise NotImplementedError(
+            f"linearize kernel: model {model.name} has no CUDA form "
+            f"(csrc/models/); CUDA forms exist for {sorted(CUDA_MODELS)}")
     entry, nx, nu, np_, nh, f_dep, h_dep = CUDA_MODELS[model.name]
     declared = (model.nx, model.nu, model.np_, model.nh,
                 tuple(model.f_dep), tuple(model.h_dep))

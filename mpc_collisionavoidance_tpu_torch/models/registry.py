@@ -1,5 +1,6 @@
 """Registry of the ported model variants (counterpart of
-`mpc_collisionavoidance_tpu/models/registry.py`; flagship only so far)."""
+`mpc_collisionavoidance_tpu/models/registry.py`; the variants ported so
+far)."""
 
 from typing import Callable, Dict
 
@@ -8,6 +9,7 @@ from mpc_collisionavoidance_tpu_torch.models.base import Model
 
 _BUILDERS: Dict[str, Callable[[], Model]] = {
     "usv_guidance_ca1": variants.usv_guidance_ca1,
+    "usv_pf_ca": variants.usv_pf_ca,
 }
 
 

@@ -1,18 +1,19 @@
 """OCP model variants in torch (counterpart of
 `mpc_collisionavoidance_tpu/models/variants.py`).
 
-Only the flagship `usv_guidance_ca1` is ported so far.  Its dynamics and
-constraints are written over unpacked state components with broadcasting
-only, so the same text runs on scalars or (N, L) lane tensors and under
-`torch.func.jvp`.  The crab angle uses the native `torch.atan2`; the JAX
-package's polynomial atan2 (`ops/kmath.py`) exists only to lower inside a
-TPU kernel.  The CUDA form of the same model is
-`csrc/models/usv_guidance_ca1.cuh`.
+Ported so far: the flagship `usv_guidance_ca1` and the 14-state hull
+`usv_pf_ca`.  Dynamics and constraints are
+written over unpacked state components with broadcasting only, so the same
+text runs on (N, L) lane tensors and under `torch.func.jvp`.  The crab
+angle uses the native `torch.atan2`; the JAX package's polynomial atan2
+(`ops/kmath.py`) exists only to lower inside a TPU kernel.  The CUDA forms
+of the models are `csrc/models/<name>.cuh`.
 """
 
 import numpy as np
 import torch
 
+from mpc_collisionavoidance_tpu_torch.models import hydro
 from mpc_collisionavoidance_tpu_torch.models.base import Model
 
 
@@ -70,4 +71,75 @@ def usv_guidance_ca1() -> Model:
         lbu=np.array([-0.5]), ubu=np.array([0.5]), idxbu=np.array([0]),
         h=h, nh=8,
         lh=np.full(8, 1.5), uh=np.full(8, 1e6),
+    )
+
+
+def _pf_dynamics(c):
+    """14-state path-following dynamics of the pf family (reference
+    scripts/usv_pf_ca/usv_model.py:137-160; the JAX package shares it
+    between usv_pf and usv_pf_ca).
+
+    x = (psi, sinpsi, cospsi, u, v, r, ye, x1, y1, ak, nedx, nedy, Tport,
+    Tstbd); the (sin, cos) embedding rotates with course angle
+    chi = psi + beta and the frozen segment params (x1, y1, ak) ride along
+    with zero derivative.
+    """
+
+    def f(x, u_ctl, p):
+        psi, _s, _c, u, v, r, _ye, _x1, _y1, ak, _nx, _ny, tport, tstbd = x
+        tu, tr = hydro.thrust_map(tport, tstbd, c)
+        du, dv, dr = hydro.uvr_dot(u, v, r, tu, tr)
+        beta = torch.atan2(v, u + 0.001)
+        chi = psi + beta
+        xned_dot = u * torch.cos(psi) - v * torch.sin(psi)
+        yned_dot = u * torch.sin(psi) + v * torch.cos(psi)
+        return torch.stack([
+            r,
+            torch.cos(chi) * r,
+            -torch.sin(chi) * r,
+            du, dv, dr,
+            -xned_dot * torch.sin(ak) + yned_dot * torch.cos(ak),
+            torch.zeros_like(psi),
+            torch.zeros_like(psi),
+            torch.zeros_like(psi),
+            xned_dot,
+            yned_dot,
+            u_ctl[0],
+            u_ctl[1] / c,
+        ])
+
+    return f
+
+
+_PF_STATE_NAMES = ("psi", "sinpsi", "cospsi", "u", "v", "r", "ye",
+                   "x1", "y1", "ak", "nedx", "nedy", "Tport", "Tstbd")
+_PF_X0 = np.array([0.0, 0.0, 1.0, 0.001, 0.0, 0.0, 0.0,
+                   1.0, -1.0, np.arctan2(3.8 - (-1.0), 1.0 - 1.0), 0.0, 0.0,
+                   0.0, 0.0])
+
+
+def usv_pf_ca() -> Model:
+    """usv_pf + 4 hard obstacle-distance constraints (reference
+    scripts/usv_pf_ca/usv_model.py:122-131,165-168,213).
+
+    p = (ox1, oy1, ..., ox4, oy4); h_i = dist((nedx, nedy), obs_i) with
+    lh = 0 (runtime-raised to the obstacle radii) and uh = 1e6.
+    """
+
+    def h(x, p):
+        return _obstacle_distances(x[10], x[11], p, 4)
+
+    return Model(
+        name="usv_pf_ca", nx=14, nu=2, np_=8, f=_pf_dynamics(c=1.0),
+        f_dep=(0, 3, 4, 5, 9, 12, 13, 14, 15), h_dep=(10, 11),
+        x0=_PF_X0.copy(),
+        state_names=_PF_STATE_NAMES,
+        control_names=("UTportdot", "UTstbddot"),
+        lbu=np.array([-30.0, -30.0]), ubu=np.array([30.0, 30.0]),
+        idxbu=np.array([0, 1]),
+        lbx=np.array([-2.0, -2.0, -10.0, -30.0, -30.0]),
+        ubx=np.array([2.0, 2.0, 10.0, 36.5, 36.5]),
+        idxbx=np.array([3, 4, 5, 12, 13]),
+        h=h, nh=4,
+        lh=np.zeros(4), uh=np.full(4, 1e6),
     )

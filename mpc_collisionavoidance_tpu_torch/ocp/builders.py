@@ -1,5 +1,6 @@
 """Per-variant OCP builders (counterpart of
-`mpc_collisionavoidance_tpu/ocp/builders.py`; flagship only so far).
+`mpc_collisionavoidance_tpu/ocp/builders.py`; the flagship and the
+14-state hull so far).
 
 The LINEAR_LS selection layout is identical across all variants: Vx stacks
 the identity over the states, Vu appends one row per control (reference
@@ -55,8 +56,22 @@ def usv_guidance_ca1(Tf: float = 5.0, N: int = 100) -> OCPSpec:
     return OCPSpec(model=m, N=N, Tf=Tf, cost=cost, soft=soft)
 
 
+def usv_pf_ca(Tf: float = 1.0, N: int = 100) -> OCPSpec:
+    """reference scripts/usv_pf_ca/acados_settings.py:93-167 — hard distance
+    constraints, full hydrodynamic model."""
+    m = registry.get("usv_pf_ca")
+    cost = _linear_ls(
+        m.nx, m.nu,
+        q_diag=[0, 0.3, 0.3, 80.0, 0, 0, 0.8, 0, 0, 0, 0, 0, 0.0001, 0.0001],
+        r_diag=[0.0, 0.0],
+        qe_diag=[0, 0.5, 0.5, 100.0, 0, 0, 1.0, 0, 0, 0, 0, 0, 0.0005, 0.0005],
+    )
+    return OCPSpec(model=m, N=N, Tf=Tf, cost=cost, soft=None)
+
+
 BUILDERS = {
     "usv_guidance_ca1": usv_guidance_ca1,
+    "usv_pf_ca": usv_pf_ca,
 }
 
 

@@ -2,17 +2,26 @@
 `mpc_collisionavoidance_tpu/ops/ipm_lanes.py`).
 
 Path-following with slack/dual elimination, one Riccati sweep per
-iteration (`ops.riccati_lanes.lqr_solve_lanes`: the CUDA kernel for CUDA
-tensors, the plain sweep for CPU tensors), per-lane fraction-to-boundary,
-convergence freeze and status.  The instance batch rides the minor-most
-lane axis; step size, duality gap, freeze mask and status are per-lane
-(L,) vectors.  All ten slack/dual families are carried: control box
-(lo/hi), state box (lo/hi), hard h rows (lo/hi), soft rows (sl/su) and
-the slack bounds (bsl/bsu).
+iteration, per-lane fraction-to-boundary, convergence freeze and status.
+The instance batch rides the minor-most lane axis; step size, duality gap,
+freeze mask and status are per-lane (L,) vectors.  All ten slack/dual
+families are carried: control box (lo/hi), state box (lo/hi), hard h rows
+(lo/hi), soft rows (sl/su) and the slack bounds (bsl/bsu).
 
-Ported: fixed and adaptive centering, `mu0="auto"`, the dtype-aware gap
-floor / status tolerance, the freeze rule, stall escalation and the status
-rules.  Not ported yet (raise `NotImplementedError`): `mehrotra`
+Two backends, picked by `riccati`:
+- "sweep" (default): the iterations run as eager tensor code here, with
+  one Riccati sweep per iteration through `ops.riccati_lanes.
+  lqr_solve_lanes` (the CUDA kernel K1 for CUDA tensors, the plain sweep
+  for CPU tensors).  Fixed and adaptive centering, `mu0="auto"` and stall
+  escalation.
+- "fused": the whole fixed-sigma solve in one launch of the CUDA kernel K3
+  (`kernels/ipm.py`) for CUDA tensors; for CPU tensors its plain version
+  `fused_ipm_lanes_plain`, which is this module's eager iteration at the
+  fixed schedule with the plain sweep.  Fixed sigma, scalar mu0, no
+  escalation, no control-coupled rows (as the JAX package's fused kernel).
+
+Ported: the dtype-aware gap floor / status tolerance, the freeze rule and
+the status rules.  Not ported yet (raise `NotImplementedError`): `mehrotra`
 centering, control-coupled rows `Dh`/`Ds` from partial condensing, and
 `return_gap_trace`.
 
@@ -26,9 +35,10 @@ from typing import NamedTuple, Optional, Tuple
 
 import torch
 
+from mpc_collisionavoidance_tpu_torch.kernels import ipm as ipm_kernel
 from mpc_collisionavoidance_tpu_torch.ops import lanes as ln
 from mpc_collisionavoidance_tpu_torch.ops.riccati_lanes import (
-    LaneLQR, lqr_solve_lanes)
+    LaneLQR, lqr_solve_lanes, lqr_solve_lanes_plain)
 
 
 class LaneQP(NamedTuple):
@@ -102,6 +112,63 @@ def _gap(lam, t, n_total):
     return sum(_lanes_sum(li * ti) for li, ti in zip(lam, t)) / n_total
 
 
+def check_schedule(riccati: str, centering: str, mu0, extra_iters: int):
+    """Raise on an IPM schedule the lane engine cannot run.  The fused
+    whole-IPM kernel bakes fixed sigma, a scalar mu0 and a fixed iteration
+    count (as the JAX package's).  Shared by `ipm_solve_lanes`,
+    `LaneRTISolver` and `SolverConfig`."""
+    if riccati not in ("sweep", "fused"):
+        raise ValueError(f"unknown riccati backend '{riccati}'")
+    if riccati == "fused":
+        if centering != "fixed":
+            raise ValueError(f"{centering} centering is not available in "
+                             "the fused whole-IPM kernel (fixed sigma); use "
+                             "riccati='sweep'")
+        if isinstance(mu0, str):
+            raise ValueError("mu0='auto' is not available in the fused "
+                             "whole-IPM kernel (scalar mu0); use "
+                             "riccati='sweep'")
+        if extra_iters:
+            raise ValueError("stall escalation (extra_iters > 0) is not "
+                             "available in the fused whole-IPM kernel; use "
+                             "riccati='sweep'")
+    if centering == "mehrotra":
+        raise NotImplementedError("mehrotra centering is not ported yet")
+    if centering not in ("fixed", "adaptive"):
+        raise ValueError(f"unknown centering '{centering}'")
+    if isinstance(mu0, str) and mu0 != "auto":
+        raise ValueError(f"unknown mu0 '{mu0}' (float or 'auto')")
+    if extra_iters < 0:
+        raise ValueError("extra_iters must be >= 0")
+
+
+def contiguous_qp(qp: LaneQP) -> LaneQP:
+    """The same QP with every tensor contiguous, as the kernels take them
+    (the QP assembly's einsums, transposes and expands may return other
+    strides; a no-op for tensors that already are)."""
+    return qp._replace(**{k: v.contiguous() for k, v in qp._asdict().items()
+                          if v is not None})
+
+
+def _eff_tol(tol, dtype):
+    """The status-0 gate: `tol` in float64, at least 5e-7 (above the
+    float32 gap floor) otherwise."""
+    return tol if dtype == torch.float64 else max(tol, 5e-7)
+
+
+def lane_status(dx, du, gap, eq_res, tol):
+    """Per-lane status of a solution: 0 converged (gap and eq_res under
+    the dtype-aware tolerance), 1 not converged, 2 non-finite.  eq_res
+    participates: a NaN-poisoned lane can freeze at a finite iterate while
+    its residual is NaN — that lane reports status 2."""
+    eff_tol = _eff_tol(tol, gap.dtype)
+    finite = (torch.isfinite(gap) & torch.isfinite(eq_res)
+              & _all_finite(dx) & _all_finite(du))
+    converged = (gap < eff_tol) & (eq_res < 1e3 * eff_tol)
+    return torch.where(finite, torch.where(converged, 0, 1),
+                       2).to(torch.int32)
+
+
 def ipm_solve_lanes(qp: LaneQP,
                     idxbu: Tuple[int, ...],
                     idxbx: Tuple[int, ...],
@@ -110,25 +177,66 @@ def ipm_solve_lanes(qp: LaneQP,
                     sigma: float = 0.1,
                     tol: float = 1e-7,
                     mu0=1.0,
+                    riccati: str = "sweep",
                     centering: str = "fixed",
                     extra_iters: int = 0,
                     stall_tol: Optional[float] = None,
                     return_gap_trace: bool = False) -> LaneIPMSolution:
-    """`centering="adaptive"` replaces the fixed sigma with the per-lane
-    heuristic sigma_k = clip((1 - alpha_{k-1})^3, 1e-3, 0.5) driven by the
-    previous fraction-to-boundary step.  `extra_iters` > 0 enables stall
-    escalation: after the `iters` fixed iterations, up to `extra_iters`
-    more run while any lane's duality gap is above `stall_tol` (default:
-    the dtype-aware status tolerance)."""
-    if centering == "mehrotra":
-        raise NotImplementedError("mehrotra centering is not ported yet")
-    if centering not in ("fixed", "adaptive"):
-        raise ValueError(f"unknown centering '{centering}'")
+    """`riccati`: "sweep" (eager iterations, one Riccati sweep each) or
+    "fused" (the whole fixed-sigma solve in one kernel launch; module
+    docstring).  `centering="adaptive"` replaces the fixed sigma with the
+    per-lane heuristic sigma_k = clip((1 - alpha_{k-1})^3, 1e-3, 0.5)
+    driven by the previous fraction-to-boundary step.  `extra_iters` > 0
+    enables stall escalation: after the `iters` fixed iterations, up to
+    `extra_iters` more run while any lane's duality gap is above
+    `stall_tol` (default: the dtype-aware status tolerance)."""
+    check_schedule(riccati, centering, mu0, extra_iters)
+    if return_gap_trace:
+        raise NotImplementedError("return_gap_trace is not ported yet")
+    if riccati == "fused":
+        if qp.Dh is not None or qp.Ds is not None:
+            raise ValueError("the fused whole-IPM kernel does not support "
+                             "control-coupled rows (Dh/Ds)")
+        if qp.A.device.type == "cpu":
+            fused = fused_ipm_lanes_plain
+        else:
+            fused, qp = ipm_kernel.fused_ipm_lanes_cuda, contiguous_qp(qp)
+        dx, du, gap, eq_res = fused(qp, idxbu, idxbx, iters=iters, tau=tau,
+                                    sigma=sigma, mu0=mu0)
+        return LaneIPMSolution(dx=dx, du=du, gap=gap, eq_res=eq_res,
+                               status=lane_status(dx, du, gap, eq_res, tol))
+
     if qp.Dh is not None or qp.Ds is not None:
         raise NotImplementedError("control-coupled rows (Dh/Ds, partial "
                                   "condensing) are not ported yet")
-    if return_gap_trace:
-        raise NotImplementedError("return_gap_trace is not ported yet")
+    eff_tol = _eff_tol(tol, qp.A.dtype)
+    dx, du, gap, eq_res = _ipm_iterate(
+        qp, idxbu, idxbx, iters=iters, tau=tau, sigma=sigma, mu0=mu0,
+        centering=centering, extra_iters=extra_iters,
+        stall=eff_tol if stall_tol is None else stall_tol,
+        sweep=lqr_solve_lanes)
+    return LaneIPMSolution(dx=dx, du=du, gap=gap, eq_res=eq_res,
+                           status=lane_status(dx, du, gap, eq_res, tol))
+
+
+def fused_ipm_lanes_plain(qp: LaneQP, idxbu: Tuple[int, ...],
+                          idxbx: Tuple[int, ...], iters: int = 12,
+                          tau: float = 0.995, sigma: float = 0.1,
+                          mu0: float = 1.0):
+    """Plain PyTorch version of the fused whole-IPM kernel K3: the eager
+    iterations at the fixed schedule (fixed sigma, scalar mu0, no
+    escalation), always through the plain Riccati sweep, whatever the
+    device.  Returns (dx (N+1, nx, L), du (N, nu, L), gap (L,),
+    eq_res (L,))."""
+    return _ipm_iterate(qp, idxbu, idxbx, iters=iters, tau=tau, sigma=sigma,
+                        mu0=float(mu0), centering="fixed", extra_iters=0,
+                        stall=None, sweep=lqr_solve_lanes_plain)
+
+
+def _ipm_iterate(qp: LaneQP, idxbu, idxbx, *, iters, tau, sigma, mu0,
+                 centering, extra_iters, stall, sweep):
+    """The eager iterations, with `sweep(LaneLQR) -> (dx, du)` as the
+    Newton step's Riccati solve.  Returns (dx, du, gap, eq_res)."""
     N, nx, nu, L = qp.B.shape[0], qp.A.shape[1], qp.B.shape[2], qp.B.shape[-1]
     nbu, nbx = len(idxbu), len(idxbx)
     nHh = qp.Ch.shape[1]
@@ -138,7 +246,6 @@ def ipm_solve_lanes(qp: LaneQP,
     f64 = dtype == torch.float64
     n_total = max(N * (2 * nbu + 2 * nbx + 2 * nHh + 4 * nS), 1)
     gap_floor = 1e-13 if f64 else 3e-7
-    eff_tol = tol if f64 else max(tol, 5e-7)
     iu = torch.as_tensor(tuple(int(i) for i in idxbu), dtype=torch.long,
                          device=device)
     ix = torch.as_tensor(tuple(int(i) for i in idxbx), dtype=torch.long,
@@ -179,8 +286,6 @@ def ipm_solve_lanes(qp: LaneQP,
     if isinstance(mu0, str):
         # "auto": per-lane gradient-proportional initial barrier weight,
         # clipped to [1e-3, 1e6]
-        if mu0 != "auto":
-            raise ValueError(f"unknown mu0 '{mu0}'")
         g_scale = torch.maximum(qp.qx.abs().reshape(-1, L).amax(0),
                                 qp.qu.abs().reshape(-1, L).amax(0))
         mu0 = torch.clamp(0.01 * g_scale, 1e-3, 1e6)[None, None, :]
@@ -288,7 +393,7 @@ def ipm_solve_lanes(qp: LaneQP,
 
         # ---- Newton step via the lane Riccati sweep (the kernel takes
         # contiguous tensors; einsum may return permuted strides) ----
-        Ddx, Ddu = lqr_solve_lanes(LaneLQR(*(
+        Ddx, Ddu = sweep(LaneLQR(*(
             t.contiguous() for t in (qp.A, qp.B, cbar, Q_all, Sc4, Rbar,
                                      qx_all, qu_bar, ddx0))))
         Ddxp = Ddx[:-1]
@@ -349,7 +454,6 @@ def ipm_solve_lanes(qp: LaneQP,
         # stall escalation: the same body, run only while some lane is
         # still above the gate (bounded by extra_iters); non-finite lanes
         # are dead (status 2) and never escalate.  One host sync per test.
-        stall = eff_tol if stall_tol is None else stall_tol
         for _ in range(extra_iters):
             g = _gap(carry[2], carry[1], n_total)
             g = torch.where(torch.isfinite(g), g, torch.zeros_like(g))
@@ -363,13 +467,4 @@ def ipm_solve_lanes(qp: LaneQP,
     eq_res = cbar.abs().reshape(-1, L).amax(0)
     eq_res = torch.maximum(eq_res, (qp.dx0 - dx[0]).abs().amax(0))
 
-    # eq_res participates: a NaN-poisoned lane can freeze at a finite
-    # iterate while its residual is NaN — that lane reports status 2
-    finite = (torch.isfinite(gap) & torch.isfinite(eq_res)
-              & _all_finite(dx) & _all_finite(du))
-    converged = (gap < eff_tol) & (eq_res < 1e3 * eff_tol)
-    status = torch.where(finite,
-                         torch.where(converged, 0, 1),
-                         2).to(torch.int32)
-    return LaneIPMSolution(dx=dx, du=du, gap=gap, eq_res=eq_res,
-                           status=status)
+    return dx, du, gap, eq_res

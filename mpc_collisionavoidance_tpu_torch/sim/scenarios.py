@@ -1,4 +1,4 @@
-"""Scenario library (copy of the flagship part of
+"""Scenario library (copy of the flagship and hull parts of
 `mpc_collisionavoidance_tpu/sim/scenarios.py`, pure numpy).
 
 `guidance_ca1_default` reproduces the flagship closed-loop experiment of
@@ -7,6 +7,8 @@ x = 4 from (4,-5) to (4,25), four r = 1.5 obstacles sitting ON the path at
 (4,4), (4,7), (4,12), (4,20), vehicle starting at the origin with u = 0.7,
 4 m of initial cross-track error.  Sentinel obstacles live at (100, 100)
 with radius 0 (reference acados_settings.py:185, main.py:76-77).
+`pf_ca_default` is the 14-state hull's experiment (reference
+scripts/usv_pf_ca/main.py:73-133).
 """
 
 import dataclasses
@@ -52,3 +54,26 @@ def guidance_ca1_default(n_steps: int = 1000) -> Scenario:
         x0=x0, params=pobs, lh=robs, n_steps=n_steps, ak=float(ak),
         waypoints=np.array([[x1, y1], [x2, y2]]),
     )
+
+
+def pf_ca_default(n_steps: int = 4000) -> Scenario:
+    """reference scripts/usv_pf_ca/main.py:73-116: 4 obstacles of radius 0.5
+    near the x = 4 path, 14-state hydrodynamic model (T = 40 s, N/Tf = 100)."""
+    obsx = np.array([3.0, 4.0, 3.7, 4.2])
+    obsy = np.array([2.0, 8.0, 16.0, 20.0])
+    pobs = np.concatenate([np.stack([obsx, obsy], axis=1).ravel()])
+    robs = np.full(4, 0.5)
+    x1, y1, x2, y2 = 4.0, -5.0, 4.0, 25.0
+    ak = np.arctan2(y2 - y1, x2 - x1)
+    nedx = nedy = 0.0
+    ye = -(nedx - x1) * np.sin(ak) + (nedy - y1) * np.cos(ak)
+    psi = 0.0
+    x0 = np.array([psi, np.sin(psi), np.cos(psi), 0.001, 0.0, 0.0, ye,
+                   x1, y1, ak, nedx, nedy, 0.0, 0.0])
+    # runtime references the reference sim pushes every tick (reference
+    # scripts/usv_pf_ca/main.py:113-133): head along the segment at 0.7 m/s
+    yref = np.zeros(16)
+    yref[1], yref[2], yref[3] = np.sin(ak), np.cos(ak), 0.7
+    return Scenario("pf_ca_default", x0, pobs, robs, n_steps, float(ak),
+                    np.array([[x1, y1], [x2, y2]]),
+                    yref=yref, yref_e=yref[:14])

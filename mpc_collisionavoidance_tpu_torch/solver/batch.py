@@ -11,11 +11,12 @@ Layouts:
 
 The solver is bound to one device and dtype.  The device picks the
 kernels: on CUDA tensors the tick runs the fused linearization kernel
-once and the Riccati kernel once per IPM iteration; on CPU tensors it runs
-their plain PyTorch versions.
+once, then either the Riccati kernel once per IPM iteration
+(`riccati="sweep"`, the default) or the fused whole-IPM kernel once
+(`riccati="fused"`); on CPU tensors it runs their plain PyTorch versions.
 
-Not ported yet: partial condensing (`condense`), the pscan and fused
-backends, `prepare_fn`/`feedback_fn` and `LaneSolverAdapter`.
+Not ported yet: partial condensing (`condense`), the pscan backend,
+`prepare_fn`/`feedback_fn` and `LaneSolverAdapter`.
 """
 
 from typing import NamedTuple, Optional
@@ -24,8 +25,8 @@ import numpy as np
 import torch
 
 from mpc_collisionavoidance_tpu_torch.ocp.spec import OCPSpec
-from mpc_collisionavoidance_tpu_torch.ops.ipm_lanes import (LaneQP,
-                                                            ipm_solve_lanes)
+from mpc_collisionavoidance_tpu_torch.ops.ipm_lanes import (
+    LaneQP, check_schedule, ipm_solve_lanes)
 from mpc_collisionavoidance_tpu_torch.ops.linearize_lanes import (
     linearize_lanes)
 
@@ -54,30 +55,27 @@ def from_lanes(lane):
 
 class LaneRTISolver:
     def __init__(self, spec: OCPSpec, ipm_iters: int = 12,
-                 ipm_tol: float = 1e-7, centering: str = "fixed",
-                 mu0=1.0, extra_iters: int = 0,
+                 ipm_tol: float = 1e-7, riccati: str = "sweep",
+                 centering: str = "fixed", mu0=1.0, extra_iters: int = 0,
                  stall_tol: Optional[float] = None, *,
                  device, dtype):
-        """`centering`: "fixed" (sigma = 0.1) or "adaptive" (per-lane sigma
+        """`riccati`: "sweep" (eager IPM, one Riccati sweep per iteration —
+        the production path) or "fused" (the whole fixed-sigma IPM in one
+        kernel launch, K3; fixed centering, float mu0, no escalation).
+        `centering`: "fixed" (sigma = 0.1) or "adaptive" (per-lane sigma
         from the previous fraction-to-boundary step); "mehrotra" is not
         ported yet.  `mu0`: float or "auto" (per-lane gradient-scaled).
         `extra_iters` / `stall_tol`: stall escalation (ops/ipm_lanes.py).
         `device`, `dtype`: where and in what precision the solver runs; the
         static cost blocks are moved there once, here."""
-        if centering == "mehrotra":
-            raise NotImplementedError("mehrotra centering is not ported yet")
-        if centering not in ("fixed", "adaptive"):
-            raise ValueError(f"unknown centering '{centering}'")
-        if isinstance(mu0, str) and mu0 != "auto":
-            raise ValueError(f"unknown mu0 '{mu0}' (float or 'auto')")
-        if extra_iters < 0:
-            raise ValueError("extra_iters must be >= 0")
+        check_schedule(riccati, centering, mu0, extra_iters)
         if spec.soft_bx is not None:
             raise NotImplementedError("soft state-box rows are not ported "
                                       "yet")
         self.spec = spec
         self.ipm_iters = int(ipm_iters)
         self.ipm_tol = ipm_tol
+        self.riccati = riccati
         self.centering = centering
         self.mu0 = mu0
         self.extra_iters = int(extra_iters)
@@ -248,6 +246,7 @@ class LaneRTISolver:
     def _solve_qp(self, qp: LaneQP):
         return ipm_solve_lanes(qp, self.idxbu, self.idxbx,
                                iters=self.ipm_iters, tol=self.ipm_tol,
+                               riccati=self.riccati,
                                centering=self.centering, mu0=self.mu0,
                                extra_iters=self.extra_iters,
                                stall_tol=self.stall_tol)
