@@ -41,19 +41,49 @@ fused tick (`riccati="fused"`) of both.  Phases:
    budget at 100 Hz (printed, not gated);
 10. the fused tick of both OCPs at B=512, float32: launch counts (K3 = 1,
     K2 = 1, K1 = 0), a 30-tick closed loop (converged_frac > 0.9 on the
-    flagship; the hull's printed) and B=1 p50/p99.
+    flagship; the hull's printed) and B=1 p50/p99;
+11. the real-time server (`rt/server.py`, float32, 128 lanes, 2 ms
+    window) over a Unix socket, every reply checked (seq echoed, status 0
+    or 1, finite), the launches of every served tick counted on the solve
+    thread and gated:
+    - the flagship at N=100, Tf=5, production schedule (bench.py:413-419):
+      the first served tick against `LaneRTISolver.step_fn` on the same
+      rows on the card (atol 1e-6, same status); B=1 over 200 ticks and
+      an 8-vehicle fleet over 100 lockstep ticks (client-timed p50/p99,
+      the server's device time and its own overhead, printed, not gated);
+      every tick K1 >= 4, K2 = 1, K3 = 0;
+    - the flagship with `centering="mehrotra"`: at the production
+      schedule (K1 even, 8..56 per tick) and at 8 fixed iterations (K1 =
+      16 per tick), 20 ticks each;
+    - the flagship with `riccati="fused"`, 20 ticks: K3 = 1, K2 = 1, K1 = 0;
+    - the hull (N=100, Tf=1) over v2 frames with the scenario's yref and
+      `rti_split`, 50 ticks: the joining tick in full, then feedback ticks
+      (K1 >= 4, K2 = 0) each followed by a preparation (K2 = 1, K1 = 0);
+    - `python -m mpc_collisionavoidance_tpu_torch.rt.server --device cuda`
+      (the flagship, production schedule) as its own process, driven by
+      the unchanged C++ client's `rt_demo` (built with g++ into build/) for
+      the reference's 1000 ticks: exit 0 and final |ye| < 0.5.
 
 Each main path is driven with every launch count set to 0 just before and
-read just after.  Times come from CUDA events.  The line before the last
-is a JSON object with one entry per kernel (per model form for K2, per
-structure for K3); the last line is
+read just after.  Times come from CUDA events (the server's from the
+client's clock).  The line before the last is a JSON object with one entry
+per kernel (per model form for K2, per structure for K3); the last line is
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 float32 matrix products run in full float32 (TF32 off, set below).
 """
 
+import contextlib
+import dataclasses
 import json
+import os
+import pathlib
+import shutil
+import socket
+import struct
 import subprocess
 import sys
+import tempfile
+import threading
 import time
 
 import numpy as np
@@ -63,6 +93,8 @@ DEVICE = "cuda"
 B = 512
 HULL_CPU_B = 130
 FLAGSHIP, HULL = "usv_guidance_ca1", "usv_pf_ca"
+REPO = pathlib.Path(__file__).resolve().parent
+SERVER_LANES = 128                  # the server's default --max-batch
 
 
 def _tick_ms(fn, reps):
@@ -113,9 +145,15 @@ def _reset_counts():
 
 
 def _read_counts():
+    _sync()
+    return _launch_counts()
+
+
+def _launch_counts():
+    """The launch counters as they stand (host-side: a wrapper counts when
+    it launches, so no sync is needed)."""
     from mpc_collisionavoidance_tpu_torch.kernels import (ipm, linearize,
                                                           riccati)
-    _sync()
     return {"riccati_lanes": riccati.launches,
             "linearize_lanes": linearize.launches,
             "fused_ipm_lanes": ipm.launches}
@@ -132,7 +170,8 @@ def environment():
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True, timeout=60)
-    print(smi.stdout.strip().splitlines()[0])
+    card = smi.stdout.strip().splitlines()[0]
+    print(card)
     nvcc = _build.find_nvcc()
     ver = subprocess.run([nvcc, "--version"], capture_output=True,
                          text=True, check=True, timeout=60)
@@ -146,6 +185,7 @@ def environment():
         if "Compiling entry function" in line or "spill" in line \
                 or "Used" in line:
             print("  " + line.strip())
+    return card
 
 
 def _random_lqr(N, nx, nu, L, seed, dtype):
@@ -529,6 +569,368 @@ def mission(ticks=1000):
     return frac
 
 
+# ---- phase 11: the real-time server ----
+
+@contextlib.contextmanager
+def _serving(**kw):
+    """The port's RTServer on a Unix socket, warmed up, its event loop on
+    a background thread; stopped (solve thread included) on exit."""
+    import asyncio
+
+    from mpc_collisionavoidance_tpu_torch.rt.server import RTServer
+    tmp = tempfile.mkdtemp(prefix="nmpc_rt")
+    server = RTServer(os.path.join(tmp, "rt.sock"), device=DEVICE,
+                      max_batch=SERVER_LANES, batch_window_ms=2.0, **kw)
+    server.warmup()
+    loop = asyncio.new_event_loop()
+    thread = threading.Thread(target=loop.run_forever, daemon=True)
+    thread.start()
+    try:
+        asyncio.run_coroutine_threadsafe(server.start(), loop).result(60)
+        yield server
+    finally:
+        asyncio.run_coroutine_threadsafe(server.stop(), loop).result(300)
+        loop.call_soon_threadsafe(loop.stop)
+        thread.join(60)
+        loop.close()
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def _count_phases(server):
+    """Wrap the server's device phases (`_tick`, `_feedback`, `_prepare`)
+    to record the launch counts of every call, read on the solve thread
+    around it; returns {phase: [counts of each call]}."""
+    calls = {}
+    for phase in ("tick", "feedback", "prepare"):
+        def run(*args, fn=getattr(server, "_" + phase),
+                log=calls.setdefault(phase, [])):
+            before = _launch_counts()
+            out = fn(*args)
+            after = _launch_counts()
+            log.append({k: after[k] - before[k] for k in after})
+            return out
+        setattr(server, "_" + phase, run)
+    return calls
+
+
+def _served(label, drive, expect, **kw):
+    """Serve `kw`'s configuration, run `drive(server)` with every launch
+    count set to 0 just before and read just after, and gate each device
+    phase call with `expect[phase]` (a phase not in `expect` must not
+    run).  Returns (the run's launch counts, what `drive` returned)."""
+    with _serving(**kw) as server:
+        calls = _count_phases(server)
+        _reset_counts()
+        result = drive(server)
+        server._executor.submit(int).result()   # a preparation in flight
+        counts = _read_counts()
+    for phase, got in calls.items():
+        want = expect.get(phase)
+        if got:
+            per = {k: [c[k] for c in got] for k in got[0]}
+            print(f"  {label}: {len(got)} {phase} calls, launches per call "
+                  + ", ".join(f"{k} {min(v)}..{max(v)} (mean "
+                              f"{np.mean(v):.2f})" for k, v in per.items()))
+        if (want is None) != (not got) or not all(map(want or bool, got)):
+            raise AssertionError(f"{label}: {phase} launch counts per call "
+                                 f"{got[:4]} (of {len(got)})")
+    print(f"  {label}: launches {counts}")
+    return counts, result
+
+
+def _connect(path):
+    s = socket.socket(socket.AF_UNIX, socket.SOCK_STREAM)
+    s.settimeout(120)
+    s.connect(path)
+    return s
+
+
+def _recv(s, n):
+    buf = b""
+    while len(buf) < n:
+        chunk = s.recv(n - len(buf))
+        if not chunk:
+            raise AssertionError("the server closed the connection")
+        buf += chunk
+    return buf
+
+
+def _checked(resp, seq):
+    """A reply echoes its seq, has status 0 (converged) or 1 (not yet), and
+    finite numbers."""
+    if resp.seq != seq or resp.status not in (0, 1) \
+            or not np.all(np.isfinite(np.r_[resp.u0, resp.x1])):
+        raise AssertionError(f"bad reply to request {seq}: {resp}")
+    return resp
+
+
+def _send1(s, seq, x0, p, lh):
+    from mpc_collisionavoidance_tpu_torch.rt import protocol
+    s.sendall(protocol.pack_request(protocol.Request(
+        seq=seq, x0=tuple(x0), p_obs=p, r_obs=lh)))
+
+
+def _reply1(s, seq):
+    from mpc_collisionavoidance_tpu_torch.rt import protocol
+    return _checked(protocol.unpack_response(_recv(s, protocol.RESP_SIZE)),
+                    seq)
+
+
+def _solve2(s, seq, x0, p, lh, yref, model):
+    from mpc_collisionavoidance_tpu_torch.rt import protocol
+    s.sendall(protocol.pack_request2(protocol.Request2(
+        seq=seq, model_id=protocol.MODEL_IDS[model], x0=tuple(x0), params=p,
+        lh=lh, yref=yref)))
+    hdr = _recv(s, protocol.RESP2_HDR_SIZE)
+    nu, nx = struct.unpack(protocol.RESP2_HDR_FMT, hdr)[3:]
+    return _checked(protocol.unpack_response2(hdr, _recv(s, 4 * (nu + nx))),
+                    seq)
+
+
+def _client_loop(path, ticks, solve, x0):
+    """`ticks` closed-loop requests on one connection (the next x0 is the
+    reply's x1); returns (the replies, client-timed request->reply ms)."""
+    replies, ms = [], []
+    with contextlib.closing(_connect(path)) as s:
+        for seq in range(ticks):
+            t0 = time.perf_counter()
+            replies.append(solve(s, seq, x0))
+            ms.append((time.perf_counter() - t0) * 1e3)
+            x0 = replies[-1].x1
+    return replies, ms
+
+
+def _pcts(ms):
+    return float(np.percentile(ms, 50)), float(np.percentile(ms, 99))
+
+
+def _build_rt_demo():
+    """The unchanged C++ client's closed-loop demo, built with g++ into
+    build/rt_client/ (no cmake: the card's host may lack it)."""
+    gxx = shutil.which("g++")
+    if gxx is None:
+        raise AssertionError("g++ not found: the C++ client phase cannot "
+                             "run")
+    src, out = REPO / "rt_client", REPO / "build" / "rt_client"
+    out.mkdir(parents=True, exist_ok=True)
+    subprocess.run([gxx, "-std=c++17", "-O2", f"-I{src}",
+                    str(src / "rt_demo.cpp"), str(src / "nmpc_rt_client.cpp"),
+                    "-o", str(out / "rt_demo")], check=True, timeout=300)
+    return out / "rt_demo"
+
+
+def _run_rt_demo(demo, path, ticks):
+    """`rt_demo <socket> <ticks>`: exit 0 and final |ye| < 0.5."""
+    proc = subprocess.run([str(demo), path, str(ticks)], capture_output=True,
+                          text=True, timeout=900)
+    last = proc.stdout.strip().splitlines()[-1:] or ["(no output)"]
+    print(f"  rt_demo {ticks} ticks: exit {proc.returncode}, {last[0]}")
+    if proc.returncode != 0 or "final_ye" not in proc.stdout:
+        raise AssertionError(f"rt_demo failed: {proc.stdout[-2000:]}"
+                             f"{proc.stderr[-2000:]}")
+    final_ye = float(proc.stdout.rsplit("final_ye", 1)[1])
+    if abs(final_ye) >= 0.5:
+        raise AssertionError(f"rt_demo final |ye| {abs(final_ye)} >= 0.5")
+
+
+def _flagship_served(card, x0, p, lh, solve1):
+    """The flagship production server: the first tick, B=1 and the fleet
+    of 8.  Returns the first reply."""
+    def drive(server):
+        first = _client_loop(server.path, 1, solve1, x0)[0][0]
+        warm = 5
+        n0 = len(server.solve_ms)
+        _, totals = _client_loop(server.path, 200, solve1, x0)
+        solves = list(server.solve_ms)[n0:]
+        if len(solves) != 200:
+            raise AssertionError(f"B=1: {len(solves)} ticks for 200 requests")
+        over = [t - s for t, s in zip(totals[warm:], solves[warm:])]
+        b1, sv, ov = _pcts(totals[warm:]), _pcts(solves[warm:]), _pcts(over)
+        print(f"served flagship B=1, 200 ticks: rt_b1_p50 {b1[0]:.3f} ms, "
+              f"rt_b1_p99 {b1[1]:.3f} ms, rt_b1_solve_p50 {sv[0]:.3f} ms, "
+              f"rt_b1_overhead_p50 {ov[0]:.3f} ms, rt_b1_overhead_p99 "
+              f"{ov[1]:.3f} ms ({card})")
+        xs, fleet = [x0] * 8, []
+        n0 = len(server.solve_ms)
+        with contextlib.ExitStack() as stack:
+            socks = [stack.enter_context(contextlib.closing(
+                _connect(server.path))) for _ in range(8)]
+            for seq in range(100):
+                t0 = time.perf_counter()
+                for s, x in zip(socks, xs):
+                    _send1(s, seq, x, p, lh)
+                xs = [_reply1(s, seq).x1 for s in socks]
+                fleet.append((time.perf_counter() - t0) * 1e3)
+        f8 = _pcts(fleet[warm:])
+        print(f"served flagship fleet of 8, 100 lockstep ticks: "
+              f"rt_fleet8_p50 {f8[0]:.3f} ms, rt_fleet8_p99 {f8[1]:.3f} ms, "
+              f"{len(server.solve_ms) - n0} server ticks ({card})")
+        return first
+
+    return _served("flagship sweep server", drive,
+                   {"tick": _production_counts}, model=FLAGSHIP, N=100,
+                   Tf=5.0, **_server_engine())
+
+
+def _server_engine(**flags):
+    """The server's engine arguments for the given CLI flags (unset ones:
+    the production schedule)."""
+    from mpc_collisionavoidance_tpu_torch.rt.server import resolve_engine_args
+    return resolve_engine_args(**flags)
+
+
+def server_vs_solver(first, x0, p, lh):
+    """The first served tick of a lane (lane 0 of a fresh server, the other
+    lanes parked) against `LaneRTISolver.step_fn` on the same packed rows
+    on the card."""
+    import torch
+
+    from mpc_collisionavoidance_tpu_torch.ocp import builders
+    from mpc_collisionavoidance_tpu_torch.solver.batch import LaneRTISolver
+    spec = builders.build(FLAGSHIP, Tf=5.0, N=100)
+    nx, ne = spec.model.nx, len(np.asarray(spec.cost.yref_e))
+    solver = LaneRTISolver(spec, **_server_engine(), device=DEVICE,
+                           dtype=torch.float32)
+    L = SERVER_LANES
+    rows = np.concatenate([
+        np.zeros((L, nx), np.float32), np.full((L, len(p)), 100.0, np.float32),
+        np.zeros((L, len(lh)), np.float32),
+        np.broadcast_to(np.asarray(spec.cost.yref, np.float32),
+                        (L, spec.cost.ny))], axis=1)
+    rows[0, :nx + len(p) + len(lh)] = np.r_[x0, p, lh]
+    d = torch.from_numpy(rows).to(DEVICE)
+    xL, pL = d[:, :nx].T, d[:, nx:nx + len(p)].T
+    lhL, yL = d[:, nx + len(p):nx + len(p) + len(lh)].T, \
+        d[:, nx + len(p) + len(lh):].T
+    _, out = solver.step_fn(solver.init_state(rows[:, :nx]), xL, pL, lhL,
+                            yref=yL, yref_e=yL[:ne])
+    err = max(abs(first.u0 - float(out.u0[0, 0])),
+              float(np.abs(np.subtract(first.x1,
+                                       out.x1[:, 0].cpu().numpy())).max()))
+    same = first.status == int(out.status[0])
+    print(f"served flagship first tick vs step_fn on the same rows: max "
+          f"|err| u0/x1 {err:.3e}, status {first.status} vs "
+          f"{int(out.status[0])}")
+    if err > 1e-6 or not same:
+        raise AssertionError("the server's reply differs from step_fn")
+
+
+def _latency_drive(label, ticks, solve, x0, card):
+    def drive(server):
+        _, ms = _client_loop(server.path, ticks, solve, x0)
+        p50, p99 = _pcts(ms[1:])
+        print(f"served {label}, {ticks} ticks: request->reply p50 "
+              f"{p50:.3f} ms, p99 {p99:.3f} ms ({card})")
+    return drive
+
+
+def serving(card):
+    """Phase 11: the port's RT server on the card.  Returns {(model,
+    label): launch counts} of its main-path runs."""
+    from mpc_collisionavoidance_tpu_torch.config import SolverConfig
+    from mpc_collisionavoidance_tpu_torch.sim import scenarios
+    sc = scenarios.guidance_ca1_default()
+    x0, p, lh = (tuple(float(v) for v in np.asarray(a, np.float32))
+                 for a in (sc.x0, sc.params, sc.lh))
+    demo = _build_rt_demo()
+
+    def solve1(s, seq, x):
+        _send1(s, seq, x, p, lh)
+        return _reply1(s, seq)
+
+    counts = {}
+    counts[(FLAGSHIP, "served sweep")], first = _flagship_served(
+        card, x0, p, lh, solve1)
+    server_vs_solver(first, x0, p, lh)
+
+    def k1_per_iteration(iters):
+        return lambda c: (c["riccati_lanes"] == 2 * iters
+                          and c["linearize_lanes"] == 1
+                          and c["fused_ipm_lanes"] == 0)
+
+    def mehrotra_production(c):
+        # 4 fixed + up to 24 escalation iterations, two sweeps each
+        return (c["riccati_lanes"] % 2 == 0
+                and 8 <= c["riccati_lanes"] <= 56
+                and c["linearize_lanes"] == 1 and c["fused_ipm_lanes"] == 0)
+
+    for label, flags, expect in (
+            ("mehrotra", dict(centering="mehrotra"), mehrotra_production),
+            ("mehrotra, 8 iterations",
+             dict(centering="mehrotra", ipm_iters=8, extra_iters=0),
+             k1_per_iteration(8))):
+        counts[(FLAGSHIP, "served " + label)], _ = _served(
+            f"flagship {label} server",
+            _latency_drive(f"flagship {label}", 20, solve1, x0, card),
+            {"tick": expect}, model=FLAGSHIP, N=100, Tf=5.0,
+            **_server_engine(**flags))
+    counts[(FLAGSHIP, "served fused")], _ = _served(
+        "flagship fused server",
+        _latency_drive("flagship fused", 20, solve1, x0, card),
+        {"tick": _fused_counts}, model=FLAGSHIP, N=100, Tf=5.0,
+        **dataclasses.asdict(SolverConfig(riccati="fused")))
+
+    hsc = scenarios.pf_ca_default()
+    hx0, hp, hlh, hy = (tuple(float(v) for v in np.asarray(a, np.float32))
+                        for a in (hsc.x0, hsc.params, hsc.lh, hsc.yref))
+
+    def solve2(s, seq, x):
+        return _solve2(s, seq, x, hp, hlh, hy, HULL)
+
+    def feedback(c):
+        return (c["riccati_lanes"] >= 4 and c["linearize_lanes"] == 0
+                and c["fused_ipm_lanes"] == 0)
+
+    def prepare(c):
+        return (c["linearize_lanes"] == 1 and c["riccati_lanes"] == 0
+                and c["fused_ipm_lanes"] == 0)
+
+    counts[(HULL, "served rti_split")], _ = _served(
+        "hull v2 rti_split server",
+        _latency_drive("hull v2 rti_split", 50, solve2, hx0, card),
+        {"tick": _production_counts, "feedback": feedback,
+         "prepare": prepare}, model=HULL, N=100, Tf=1.0, rti_split=True,
+        **_server_engine())
+    c = counts[(HULL, "served rti_split")]
+    # one joining tick in full, 49 feedback ticks, 50 preparations
+    if c["linearize_lanes"] != 51:
+        raise AssertionError(f"hull rti_split: {c} (K2 = 1 joining tick + "
+                             "50 preparations expected)")
+    served_cli(demo)
+    return counts
+
+
+def served_cli(demo):
+    """`python -m mpc_collisionavoidance_tpu_torch.rt.server --device cuda`
+    in its own process (the entry point a deployment starts), driven by
+    the C++ client's rt_demo for the reference's 1000 ticks, then
+    terminated."""
+    tmp = tempfile.mkdtemp(prefix="nmpc_cli")
+    path = os.path.join(tmp, "rt.sock")
+    t0 = time.perf_counter()
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "mpc_collisionavoidance_tpu_torch.rt.server",
+         path, "--device", DEVICE], cwd=REPO, stdout=subprocess.PIPE,
+        stderr=subprocess.STDOUT, text=True)
+    try:
+        while not os.path.exists(path):
+            if proc.poll() is not None or time.perf_counter() - t0 > 300:
+                raise AssertionError("the server process did not start: "
+                                     f"{proc.communicate(timeout=60)[0]}")
+            time.sleep(0.1)
+        print(f"served from the command line: listening after "
+              f"{time.perf_counter() - t0:.1f} s")
+        _run_rt_demo(demo, path, 1000)
+    finally:
+        proc.terminate()
+        try:
+            proc.wait(60)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            proc.wait(60)
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
 def _production_counts(c):
     return (c["riccati_lanes"] >= 4 and c["linearize_lanes"] == 1
             and c["fused_ipm_lanes"] == 0)
@@ -547,7 +949,7 @@ def main():
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
-    environment()
+    card = environment()
     k1_err32, k1_err64, k1_ms, k1_plain = check_riccati()
     k2 = check_linearize()
     k3 = check_fused_ipm()
@@ -571,6 +973,8 @@ def main():
                                                  _fused_counts)
         closed_loop(name, _fused(), gate=name == FLAGSHIP)
         latency_b1(name, _fused(), 50.0 if name == FLAGSHIP else 10.0)
+    # the real-time server
+    counts.update(serving(card))
 
     def launched(kernel, models=(FLAGSHIP, HULL)):
         return sum(c[kernel] for (m, _), c in counts.items() if m in models)

@@ -23,7 +23,7 @@ class SolverConfig:
     ipm_iters: int = 12
     ipm_tol: float = 1e-7
     riccati: str = "sweep"        # "sweep" | "fused" (whole-IPM kernel)
-    centering: str = "fixed"      # "fixed" | "adaptive"
+    centering: str = "fixed"      # "fixed" | "adaptive" | "mehrotra"
     mu0: object = 1.0             # initial barrier weight: float | "auto"
     extra_iters: int = 0          # stall-escalation budget: extra IPM
                                   # iterations run ONLY while some lane's

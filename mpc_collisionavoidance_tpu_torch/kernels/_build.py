@@ -13,7 +13,9 @@ library with a plain C interface (no PyTorch headers):
 The library lands in `build/torch_kernels/<hash of sources>/` under the
 repository root (git-ignored), next to the compiler's log (`nvcc.log`:
 each file's command, wall time, and the register / spill report of every
-kernel).  A build from the same sources is reused.  Only sources inside
+kernel).  A build from the same sources is reused; one lock serializes
+building and loading, so two threads (a server's solve thread and its
+caller) never start nvcc twice.  Only sources inside
 the repository are read; nvcc is found through `CUDA_HOME`,
 `/usr/local/cuda/bin` or `PATH`, and a missing nvcc raises.
 """
@@ -27,6 +29,7 @@ import pathlib
 import shutil
 import subprocess
 import tempfile
+import threading
 import time
 
 import torch
@@ -64,6 +67,7 @@ _ENTRIES = {
     "nmpc_fused_ipm_scratch": [_INT] * 7,
 }
 _RESTYPES = {"nmpc_fused_ipm_scratch": ctypes.c_longlong}
+_LOCK = threading.RLock()
 
 
 def find_nvcc() -> str:
@@ -107,6 +111,11 @@ def _timed_run(cmd):
 def build() -> pathlib.Path:
     """Compile the kernels if this source hash has no library yet; return
     the library's path."""
+    with _LOCK:
+        return _build()
+
+
+def _build() -> pathlib.Path:
     out_dir = BUILD_ROOT / source_hash()
     lib = out_dir / LIB_NAME
     if lib.is_file():
@@ -147,9 +156,14 @@ def build() -> pathlib.Path:
     return lib
 
 
-@functools.cache
 def library() -> ctypes.CDLL:
     """Build (if needed) and load the kernel library once per process."""
+    with _LOCK:
+        return _load()
+
+
+@functools.cache
+def _load() -> ctypes.CDLL:
     lib = ctypes.CDLL(str(build()))
     for name, argtypes in _ENTRIES.items():
         fn = getattr(lib, name)

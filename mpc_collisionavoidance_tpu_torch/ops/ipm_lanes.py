@@ -2,7 +2,8 @@
 `mpc_collisionavoidance_tpu/ops/ipm_lanes.py`).
 
 Path-following with slack/dual elimination, one Riccati sweep per
-iteration, per-lane fraction-to-boundary, convergence freeze and status.
+iteration (two under Mehrotra centering), per-lane fraction-to-boundary,
+convergence freeze and status.
 The instance batch rides the minor-most lane axis; step size, duality gap,
 freeze mask and status are per-lane (L,) vectors.  All ten slack/dual
 families are carried: control box (lo/hi), state box (lo/hi), hard h rows
@@ -12,8 +13,8 @@ Two backends, picked by `riccati`:
 - "sweep" (default): the iterations run as eager tensor code here, with
   one Riccati sweep per iteration through `ops.riccati_lanes.
   lqr_solve_lanes` (the CUDA kernel K1 for CUDA tensors, the plain sweep
-  for CPU tensors).  Fixed and adaptive centering, `mu0="auto"` and stall
-  escalation.
+  for CPU tensors).  Fixed, adaptive and Mehrotra centering, `mu0="auto"`
+  and stall escalation.
 - "fused": the whole fixed-sigma solve in one launch of the CUDA kernel K3
   (`kernels/ipm.py`) for CUDA tensors; for CPU tensors its plain version
   `fused_ipm_lanes_plain`, which is this module's eager iteration at the
@@ -21,8 +22,8 @@ Two backends, picked by `riccati`:
   escalation, no control-coupled rows (as the JAX package's fused kernel).
 
 Ported: the dtype-aware gap floor / status tolerance, the freeze rule and
-the status rules.  Not ported yet (raise `NotImplementedError`): `mehrotra`
-centering, control-coupled rows `Dh`/`Ds` from partial condensing, and
+the status rules.  Not ported yet (raise `NotImplementedError`):
+control-coupled rows `Dh`/`Ds` from partial condensing, and
 `return_gap_trace`.
 
 Stall escalation is a Python loop that tests `(gap > stall).any()` on the
@@ -132,9 +133,7 @@ def check_schedule(riccati: str, centering: str, mu0, extra_iters: int):
             raise ValueError("stall escalation (extra_iters > 0) is not "
                              "available in the fused whole-IPM kernel; use "
                              "riccati='sweep'")
-    if centering == "mehrotra":
-        raise NotImplementedError("mehrotra centering is not ported yet")
-    if centering not in ("fixed", "adaptive"):
+    if centering not in ("fixed", "adaptive", "mehrotra"):
         raise ValueError(f"unknown centering '{centering}'")
     if isinstance(mu0, str) and mu0 != "auto":
         raise ValueError(f"unknown mu0 '{mu0}' (float or 'auto')")
@@ -186,7 +185,11 @@ def ipm_solve_lanes(qp: LaneQP,
     "fused" (the whole fixed-sigma solve in one kernel launch; module
     docstring).  `centering="adaptive"` replaces the fixed sigma with the
     per-lane heuristic sigma_k = clip((1 - alpha_{k-1})^3, 1e-3, 0.5)
-    driven by the previous fraction-to-boundary step.  `extra_iters` > 0
+    driven by the previous fraction-to-boundary step;
+    `centering="mehrotra"` is the predictor-corrector: an affine probe
+    (a second Riccati sweep) sets sigma = clip((mu_aff/mu)^3, 1e-4, 0.99)
+    and the corrector adds the second-order term (a lane whose probe is
+    not finite falls back to sigma = 0.5).  `extra_iters` > 0
     enables stall escalation: after the `iters` fixed iterations, up to
     `extra_iters` more run while any lane's duality gap is above
     `stall_tol` (default: the dtype-aware status tolerance)."""
@@ -360,63 +363,101 @@ def _ipm_iterate(qp: LaneQP, idxbu, idxbx, *, iters, tau, sigma, mu0,
         cbar = ln.smv(qp.A, dxp) + ln.smv(qp.B, du) + qp.c - dx[1:]
         ddx0 = qp.dx0 - dx[0]
 
-        # ---- Newton direction for the centering target muv ----
-        k_l = muv / t_sl + muv / t_bsl - qp.zl - qp.Zl * sl \
-            - a_sl * r_sl - a_bsl * r_bsl
-        k_u = muv / t_su + muv / t_bsu - qp.zu - qp.Zu * su \
-            - a_su * r_su - a_bsu * r_bsu
-        qtil_l = muv / t_sl - a_sl * r_sl - a_sl * k_l / beta_l
-        qtil_u = muv / t_su - a_su * r_su - a_su * k_u / beta_u
+        def newton(mvec):
+            """One Newton direction for the per-family complementarity
+            targets `mvec` (10-tuple, each broadcastable to its t family):
+            T dlam + Lam dt = m - Lam T e.  m = sigma*mu*e is the plain
+            centering step; m = 0 Mehrotra's affine probe; m = sigma*mu -
+            Dt_aff*Dlam_aff the corrector.  One Riccati sweep."""
+            (m_ulo, m_uhi, m_xlo, m_xhi, m_hlo, m_hhi,
+             m_sl, m_su, m_bsl, m_bsu) = mvec
+            k_l = m_sl / t_sl + m_bsl / t_bsl - qp.zl - qp.Zl * sl \
+                - a_sl * r_sl - a_bsl * r_bsl
+            k_u = m_su / t_su + m_bsu / t_bsu - qp.zu - qp.Zu * su \
+                - a_su * r_su - a_bsu * r_bsu
+            qtil_l = m_sl / t_sl - a_sl * r_sl - a_sl * k_l / beta_l
+            qtil_u = m_su / t_su - a_su * r_su - a_su * k_u / beta_u
 
-        qx_path = qx_base
-        if nbx:
-            vec = qp.xmask * ((muv / t_xlo - a_xlo * r_xlo)
-                              - (muv / t_xhi - a_xhi * r_xhi))
-            qx_path = qx_path.clone()
-            qx_path[:, ix, :] += -vec
-        v_hlo = muv / t_hlo - a_hlo * r_hlo
-        v_hhi = muv / t_hhi - a_hhi * r_hhi
-        if nHh:
-            qx_path = qx_path - ln.srows_tv(qp.Ch, v_hlo)
-            qx_path = qx_path + ln.srows_tv(qp.Ch, v_hhi)
-        if nS:
-            qx_path = qx_path - ln.srows_tv(qp.Cs, qtil_l) \
-                + ln.srows_tv(qp.Cs, qtil_u)
-        qx_all = torch.cat([qx_path, qx_N[None]], dim=0)
+            qx_path = qx_base
+            if nbx:
+                vec = qp.xmask * ((m_xlo / t_xlo - a_xlo * r_xlo)
+                                  - (m_xhi / t_xhi - a_xhi * r_xhi))
+                qx_path = qx_path.clone()
+                qx_path[:, ix, :] += -vec
+            v_hlo = m_hlo / t_hlo - a_hlo * r_hlo
+            v_hhi = m_hhi / t_hhi - a_hhi * r_hhi
+            if nHh:
+                qx_path = qx_path - ln.srows_tv(qp.Ch, v_hlo)
+                qx_path = qx_path + ln.srows_tv(qp.Ch, v_hhi)
+            if nS:
+                qx_path = qx_path - ln.srows_tv(qp.Cs, qtil_l) \
+                    + ln.srows_tv(qp.Cs, qtil_u)
+            qx_all = torch.cat([qx_path, qx_N[None]], dim=0)
 
-        qu_bar = qu_base
-        if nbu:
-            vec_u = (muv / t_ulo - a_ulo * r_ulo) \
-                - (muv / t_uhi - a_uhi * r_uhi)
-            qu_bar = qu_bar.clone()
-            qu_bar[:, iu, :] += -vec_u
+            qu_bar = qu_base
+            if nbu:
+                vec_u = (m_ulo / t_ulo - a_ulo * r_ulo) \
+                    - (m_uhi / t_uhi - a_uhi * r_uhi)
+                qu_bar = qu_bar.clone()
+                qu_bar[:, iu, :] += -vec_u
 
-        # ---- Newton step via the lane Riccati sweep (the kernel takes
-        # contiguous tensors; einsum may return permuted strides) ----
-        Ddx, Ddu = sweep(LaneLQR(*(
-            t.contiguous() for t in (qp.A, qp.B, cbar, Q_all, Sc4, Rbar,
-                                     qx_all, qu_bar, ddx0))))
-        Ddxp = Ddx[:-1]
+            # ---- Newton step via the lane Riccati sweep (the kernel takes
+            # contiguous tensors; einsum may return permuted strides) ----
+            Ddx, Ddu = sweep(LaneLQR(*(
+                t.contiguous() for t in (qp.A, qp.B, cbar, Q_all, Sc4, Rbar,
+                                         qx_all, qu_bar, ddx0))))
+            Ddxp = Ddx[:-1]
 
-        # ---- recover slack/dual steps ----
-        Dgv = ln.srows_mv(qp.Cs, Ddxp) if nS else gv
-        Dsl = (k_l - a_sl * Dgv) / beta_l if nS else sl
-        Dsu = (k_u + a_su * Dgv) / beta_u if nS else su
-        Dhv = ln.srows_mv(qp.Ch, Ddxp) if nHh else r_hlo * 0
-        Dt = (
-            du_sel(Ddu) + r_ulo,
-            -du_sel(Ddu) + r_uhi,
-            qp.xmask * dx_sel(Ddxp) + r_xlo,
-            -qp.xmask * dx_sel(Ddxp) + r_xhi,
-            Dhv + r_hlo,
-            -Dhv + r_hhi,
-            Dgv + Dsl + r_sl,
-            -Dgv + Dsu + r_su,
-            Dsl + r_bsl,
-            Dsu + r_bsu,
-        )
-        Dlam = tuple((muv - li * ti) / ti - (li / ti) * Dti
-                     for li, ti, Dti in zip(lam, t, Dt))
+            # ---- recover slack/dual steps ----
+            Dgv = ln.srows_mv(qp.Cs, Ddxp) if nS else gv
+            Dsl = (k_l - a_sl * Dgv) / beta_l if nS else sl
+            Dsu = (k_u + a_su * Dgv) / beta_u if nS else su
+            Dhv = ln.srows_mv(qp.Ch, Ddxp) if nHh else r_hlo * 0
+            Dt = (
+                du_sel(Ddu) + r_ulo,
+                -du_sel(Ddu) + r_uhi,
+                qp.xmask * dx_sel(Ddxp) + r_xlo,
+                -qp.xmask * dx_sel(Ddxp) + r_xhi,
+                Dhv + r_hlo,
+                -Dhv + r_hhi,
+                Dgv + Dsl + r_sl,
+                -Dgv + Dsu + r_su,
+                Dsl + r_bsl,
+                Dsu + r_bsu,
+            )
+            Dlam = tuple((mv - li * ti) / ti - (li / ti) * Dti
+                         for mv, li, ti, Dti in zip(mvec, lam, t, Dt))
+            return Ddx, Ddu, Dsl, Dsu, Dt, Dlam
+
+        if centering == "mehrotra":
+            # ---- affine probe (sigma = 0): a second Riccati sweep ----
+            zerov = torch.zeros_like(muv)
+            Ddx_a, Ddu_a, _, _, Dt_a, Dl_a = newton((zerov,) * 10)
+            alpha_a = torch.ones((L,), **opts)
+            for z, Dz in zip(t + lam, Dt_a + Dl_a):
+                if z.numel() == 0:
+                    continue
+                alpha_a = torch.minimum(alpha_a, _min_ratio(z, Dz))
+            av_a = alpha_a[None, None, :]
+            mu_aff = sum(
+                _lanes_sum((li + av_a * Dli) * (ti + av_a * Dti))
+                for li, ti, Dli, Dti in zip(lam, t, Dl_a, Dt_a)) / n_total
+            mu_aff = torch.maximum(mu_aff, torch.zeros_like(mu_aff))
+            aff_ok = (torch.isfinite(mu_aff) & torch.isfinite(alpha_a)
+                      & _all_finite(Ddx_a) & _all_finite(Ddu_a))
+            ratio = mu_aff / torch.clamp_min(gap, gap_floor)
+            sig = torch.clamp(ratio * ratio * ratio, 1e-4, 0.99)
+            sig = torch.where(aff_ok, sig, 0.5)   # plain centering fallback
+            tgt = (sig * gap)[None, None, :]
+            okv = aff_ok[None, None, :]
+            # corrector: sigma*mu*e minus the second-order term
+            # Dt_aff*Dlam_aff; a lane whose probe failed takes 0.5*mu
+            mvec = tuple(
+                torch.where(okv, tgt - Dti * Dli, 0.5 * gap[None, None, :])
+                for Dti, Dli in zip(Dt_a, Dl_a))
+            Ddx, Ddu, Dsl, Dsu, Dt, Dlam = newton(mvec)
+        else:
+            Ddx, Ddu, Dsl, Dsu, Dt, Dlam = newton((muv,) * 10)
 
         # ---- per-lane fraction-to-boundary ----
         alpha = torch.ones((L,), **opts)

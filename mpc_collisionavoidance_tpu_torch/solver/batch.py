@@ -15,8 +15,8 @@ once, then either the Riccati kernel once per IPM iteration
 (`riccati="sweep"`, the default) or the fused whole-IPM kernel once
 (`riccati="fused"`); on CPU tensors it runs their plain PyTorch versions.
 
-Not ported yet: partial condensing (`condense`), the pscan backend,
-`prepare_fn`/`feedback_fn` and `LaneSolverAdapter`.
+Not ported yet: partial condensing (`condense`), the pscan backend and
+`LaneSolverAdapter`.
 """
 
 from typing import NamedTuple, Optional
@@ -62,9 +62,10 @@ class LaneRTISolver:
         """`riccati`: "sweep" (eager IPM, one Riccati sweep per iteration —
         the production path) or "fused" (the whole fixed-sigma IPM in one
         kernel launch, K3; fixed centering, float mu0, no escalation).
-        `centering`: "fixed" (sigma = 0.1) or "adaptive" (per-lane sigma
-        from the previous fraction-to-boundary step); "mehrotra" is not
-        ported yet.  `mu0`: float or "auto" (per-lane gradient-scaled).
+        `centering`: "fixed" (sigma = 0.1), "adaptive" (per-lane sigma
+        from the previous fraction-to-boundary step) or "mehrotra"
+        (predictor-corrector, two Riccati sweeps per iteration; sweep
+        backend only).  `mu0`: float or "auto" (per-lane gradient-scaled).
         `extra_iters` / `stall_tol`: stall escalation (ops/ipm_lanes.py).
         `device`, `dtype`: where and in what precision the solver runs; the
         static cost blocks are moved there once, here."""
@@ -274,3 +275,27 @@ class LaneRTISolver:
                             yref_e=yref_e)
         sol = self._solve_qp(qp)
         return self._advance(state, sol)
+
+    # ---- RTI preparation/feedback split ----
+    # The measurement enters the lane QP only through dx0 = x0 - xbar[:, 0],
+    # so linearization + assembly can run before the measurement arrives
+    # and the feedback phase pays only the IPM: prepare_fn(state) +
+    # feedback_fn(state, qp, x0) compose to exactly step_fn(state, x0).
+    # The prepared QP holds no view of the state's tensors (the assembly
+    # copies what it reads), but it belongs to that state: a caller that
+    # changes the state (a new lane's warm start) prepares again.
+    def prepare_fn(self, state: LaneState, params,
+                   lh: Optional[torch.Tensor] = None,
+                   yref=None, yref_e=None) -> LaneQP:
+        """Preparation phase: Gauss-Newton linearization + QP assembly at
+        the warm-start iterate (dx0 = 0)."""
+        params = self._tensor(params).contiguous()
+        return self._build_qp(state, state.xbar[:, 0, :], params, lh,
+                              yref=yref, yref_e=yref_e)
+
+    def feedback_fn(self, state: LaneState, qp: LaneQP, x0):
+        """Feedback phase: re-pin the prepared QP at the fresh measurement
+        x0 (nx, L) and solve.  `qp` comes from `prepare_fn` on the same
+        state."""
+        qp = qp._replace(dx0=self._tensor(x0) - state.xbar[:, 0, :])
+        return self._advance(state, self._solve_qp(qp))

@@ -238,3 +238,99 @@ def test_fused_ipm_kernel_refuses_other_structures(card):
     _, qp = _fused_qp("usv_guidance_ca1", 3, torch.float64, card)
     with pytest.raises(ValueError, match="no instance"):
         ipm.fused_ipm_lanes_cuda(qp, (), ())
+
+
+def _flagship_lanes(B, N, dtype, device, seed=0):
+    spec = builders.usv_guidance_ca1(Tf=5.0 * N / 100, N=N)
+    sc = scenarios.guidance_ca1_default()
+    rng = np.random.default_rng(seed)
+    x0s = np.broadcast_to(sc.x0, (B, 8)).copy()
+    x0s[:, 2] += 0.2 * rng.standard_normal(B)
+    lanes = [to_lanes(torch.tensor(np.asarray(a), dtype=dtype)).to(device)
+             for a in (x0s, np.broadcast_to(sc.params, (B, 16)),
+                       np.broadcast_to(sc.lh, (B, 8)))]
+    return spec, x0s, lanes
+
+
+def test_mehrotra_on_card_matches_cpu_with_two_k1_per_iteration(card):
+    """Mehrotra centering on the card (the affine probe and the corrector
+    each one K1 launch) against the plain sweep on the CPU, float64."""
+    spec, x0s, lanes = _flagship_lanes(6, 25, torch.float64, "cpu")
+    solver = SolverConfig(ipm_iters=12).build(spec, device="cpu",
+                                             dtype=torch.float64)
+    qp = solver._build_qp(solver.init_state(x0s), *lanes)
+    qp_card = qp._replace(**{k: v.to(card) for k, v in qp._asdict().items()
+                             if isinstance(v, torch.Tensor)})
+    from mpc_collisionavoidance_tpu_torch.ops.ipm_lanes import ipm_solve_lanes
+    args = (solver.idxbu, solver.idxbx)
+    want = ipm_solve_lanes(qp, *args, iters=12, centering="mehrotra")
+    before = riccati.launches
+    got = ipm_solve_lanes(qp_card, *args, iters=12, centering="mehrotra")
+    torch.cuda.synchronize()
+    assert riccati.launches - before == 24
+    for g, w in zip((got.dx, got.du), (want.dx, want.du)):
+        torch.testing.assert_close(g.cpu(), w, rtol=0, atol=1e-9)
+    assert torch.equal(got.status.cpu(), want.status)
+
+
+def test_rti_split_on_card_equals_step(card):
+    """prepare_fn (K2 once, no K1) + feedback_fn (K1, no K2) reproduce
+    step_fn on the card, float64."""
+    spec, x0s, (x, p, lh) = _flagship_lanes(6, 25, torch.float64, card)
+    solver = production_engine().build(spec, device=card,
+                                       dtype=torch.float64)
+    st, _ = solver.step_fn(solver.init_state(x0s), x, p, lh)
+    x_meas = x + 0.05
+    _, out_s = solver.step_fn(st, x_meas, p, lh)
+    counts = (riccati.launches, linearize.launches)
+    qp = solver.prepare_fn(st, p, lh)
+    assert (riccati.launches, linearize.launches) == (counts[0],
+                                                      counts[1] + 1)
+    _, out_f = solver.feedback_fn(st, qp, x_meas)
+    torch.cuda.synchronize()
+    assert linearize.launches == counts[1] + 1
+    assert riccati.launches - counts[0] >= 4
+    torch.testing.assert_close(out_f.u0, out_s.u0, rtol=0, atol=1e-12)
+    torch.testing.assert_close(out_f.x1, out_s.x1, rtol=0, atol=1e-12)
+
+
+def test_server_on_card_serves_through_the_kernels(card, tmp_path):
+    """One v1 request to RTServer(device="cuda"): the served tick runs K2
+    once and K1 per IPM iteration, and the reply is a finite solve."""
+    import asyncio
+    import socket
+    import threading
+
+    from mpc_collisionavoidance_tpu_torch.rt import protocol
+    from mpc_collisionavoidance_tpu_torch.rt.server import RTServer
+    sc = scenarios.guidance_ca1_default()
+    server = RTServer(str(tmp_path / "rt.sock"), N=20, Tf=1.0, max_batch=4,
+                      device=card)
+    server.warmup()
+    loop = asyncio.new_event_loop()
+    thread = threading.Thread(target=loop.run_forever, daemon=True)
+    thread.start()
+    asyncio.run_coroutine_threadsafe(server.start(), loop).result(60)
+    try:
+        counts = (riccati.launches, linearize.launches, ipm.launches)
+        with socket.socket(socket.AF_UNIX, socket.SOCK_STREAM) as s:
+            s.settimeout(60)
+            s.connect(server.path)
+            s.sendall(protocol.pack_request(protocol.Request(
+                seq=5, x0=tuple(map(float, sc.x0)),
+                p_obs=tuple(map(float, sc.params)),
+                r_obs=tuple(map(float, sc.lh)))))
+            buf = b""
+            while len(buf) < protocol.RESP_SIZE:
+                buf += s.recv(protocol.RESP_SIZE - len(buf))
+        resp = protocol.unpack_response(buf)
+        assert resp.seq == 5 and resp.status in (0, 1)
+        assert np.all(np.isfinite(np.r_[resp.u0, resp.x1]))
+        assert linearize.launches - counts[1] == 1
+        assert riccati.launches - counts[0] >= 4
+        assert ipm.launches == counts[2]
+    finally:
+        asyncio.run_coroutine_threadsafe(server.stop(), loop).result(60)
+        loop.call_soon_threadsafe(loop.stop)
+        thread.join(30)
+        loop.close()

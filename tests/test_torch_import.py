@@ -43,3 +43,23 @@ _FORBIDDEN = re.compile(
 def test_no_jax_import_in_source(path):
     text = (REPO / path).read_text()
     assert not _FORBIDDEN.search(text), path
+
+
+def test_rt_server_help_with_jax_blocked():
+    """The serving modules import, and `python -m
+    mpc_collisionavoidance_tpu_torch.rt.server --help` exits 0, in an
+    interpreter where `import jax` fails."""
+    assert {"mpc_collisionavoidance_tpu_torch.rt.server",
+            "mpc_collisionavoidance_tpu_torch.rt.protocol"} <= set(MODULES)
+    code = "\n".join([
+        "import runpy, sys",
+        "sys.modules['jax'] = None",
+        "sys.modules['mpc_collisionavoidance_tpu'] = None",
+        "sys.argv = ['server', '--help']",
+        "runpy.run_module('mpc_collisionavoidance_tpu_torch.rt.server',",
+        "                 run_name='__main__')",
+    ])
+    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr
+    assert "--rti-split" in proc.stdout and "--device" in proc.stdout

@@ -110,8 +110,9 @@ def test_unported_options_raise():
     fields = {k: np.asarray(v) for k, v in qp._asdict().items()}
     qp_t = interop.lane_qp_from_numpy(fields, device="cpu",
                                       dtype=torch.float64)
-    with pytest.raises(NotImplementedError, match="mehrotra"):
-        ipm_lanes.ipm_solve_lanes(qp_t, (0,), (), centering="mehrotra")
+    with pytest.raises(ValueError, match="mehrotra"):
+        ipm_lanes.ipm_solve_lanes(qp_t, (0,), (), riccati="fused",
+                                  centering="mehrotra")
     with pytest.raises(NotImplementedError, match="return_gap_trace"):
         ipm_lanes.ipm_solve_lanes(qp_t, (0,), (), return_gap_trace=True)
     with pytest.raises(NotImplementedError, match="Dh/Ds"):

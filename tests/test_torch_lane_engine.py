@@ -136,10 +136,9 @@ def test_solver_is_bound_to_its_device_and_dtype():
     assert st.xbar.shape == (8, 6, 2) and st.xbar.dtype == torch.float32
     assert torch.equal(from_lanes(st.xbar)[:, 0, :],
                        torch.zeros((2, 6), dtype=torch.float32))
-    with pytest.raises(NotImplementedError, match="mehrotra"):
-        LaneRTISolver(spec, centering="mehrotra", device="cpu",
-                      dtype=torch.float64)
-    with pytest.raises(NotImplementedError, match="mehrotra"):
-        SolverConfig(centering="mehrotra")
+    assert LaneRTISolver(spec, centering="mehrotra", device="cpu",
+                         dtype=torch.float64).centering == "mehrotra"
+    with pytest.raises(ValueError, match="centering"):
+        SolverConfig(centering="newton-probe")
     with pytest.raises(ValueError, match="mu0"):
         SolverConfig(mu0="warm")
