@@ -13,7 +13,10 @@ fused tick (`riccati="fused"`) of both.  Phases:
    and the kernels' build (nvcc at first use, into build/torch_kernels/);
 2. K1 (Riccati sweep) vs its plain PyTorch version on the card: random
    SPD LQRs at N=100, (nx, nu) in {(8, 1), (14, 2)}, L in {1, 130, 512},
-   float32 (rtol 2e-4, atol 2e-5) and float64 (atol 1e-10);
+   float32 (rtol 2e-4, atol 2e-5) and float64 (atol 1e-10); one lane's A
+   set to NaN leaves every other lane's dx/du bitwise unchanged; each
+   instance's time at L in {1, 128, 512} float32 and 512 float64 (CUDA
+   events over 50 back-to-back launches of the C entry) beside its bound;
 3. K2 (fused linearization) vs its plain version on the card, for both
    model forms at N=100, L in {1, 512}, float32 (xn/hbar rtol 2e-5 atol
    2e-6, J/C rtol 2e-4 atol 2e-5) and float64 (atol 1e-10; the hull's J,
@@ -67,7 +70,10 @@ fused tick (`riccati="fused"`) of both.  Phases:
 Each main path is driven with every launch count set to 0 just before and
 read just after.  Times come from CUDA events (the server's from the
 client's clock).  The line before the last is a JSON object with one entry
-per kernel (per model form for K2, per structure for K3); the last line is
+per kernel (per instance for K1, per model form for K2, per structure for
+K3), each with its time, the plain version's, and its bound: the larger
+of the bytes it must move over the HBM rate and its FLOPs over the float
+peak (`bound`, `riccati_work`, `linearize_work`, `ipm_work`); the last line is
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 float32 matrix products run in full float32 (TF32 off, set below).
 """
@@ -212,17 +218,163 @@ def _random_lqr(N, nx, nu, L, seed, dtype):
                      for f in fields))
 
 
-def check_riccati():
-    """K1 vs lqr_solve_lanes_plain on the card; returns (max float32
-    error, max float64 error, kernel ms, plain ms) at the flagship shape."""
+# ---- the least time the card could take for a kernel's work ----
+# H100 SXM (NVIDIA's data sheet): HBM3 at 3.35 TB/s; 67 TFLOP/s float32
+# and 34 TFLOP/s float64 outside the tensor cores.
+
+def bound(nbytes, flops, itemsize):
+    """(bound_ms, bound_by): the larger of the bytes over the memory rate
+    and the FLOPs over the peak of their type."""
+    t_bytes = nbytes / 3.35e12
+    t_ops = flops / (67e12 if itemsize == 4 else 34e12)
+    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops
+                                       else "operations")
+
+
+def riccati_stage_flops(nx, nu):
+    """FLOPs of one lane's Riccati stage, backward and forward (an FMA is
+    2), as csrc/riccati_team.cuh computes it."""
+    return (4 * nx**3                        # P A, A'PA
+            + 2 * nx * nx * nu * 3           # P B, B'PA, Hux'K
+            + nu * nx                        # Hux = S + ...
+            + 2 * nx * nx + nx               # P c + p
+            + 2 * nu * nu * nx + nu * nu     # Huu
+            + 2 * nu * nx + nu               # hu
+            + 2 * nu * nu * (nx + 1)         # the solves for K and k
+            + 4 * nx * nx                    # Q + ... + ..., sym
+            + 2 * nx * nx + 2 * nu * nx + 2 * nx   # p
+            + 2 * nu * nx + nu               # du = K dx + k
+            + 2 * nx * nx + 2 * nx * nu + nx)  # dx' = A dx + B du + c
+
+
+def riccati_work(N, nx, nu, L, itemsize):
+    """(bytes, FLOPs) of one K1 launch: A, B, c, S, R, qu of every stage,
+    Q and qx of every stage and the terminal one, dx0 read once; dx, du
+    written once."""
+    values = (N * (nx * nx + nx * nu + nx + nu * nx + nu * nu + nu)
+              + (N + 1) * (nx * nx + nx) + nx + (N + 1) * nx + N * nu)
+    return values * L * itemsize, N * L * riccati_stage_flops(nx, nu)
+
+
+# FLOPs of one RK4 substep per (stage, lane) of K2's model forms, with h,
+# counted by hand from csrc/models/*.cuh on duals of width 1 + |f_dep| (a
+# dual product 1 + 3 W FLOPs, a sum 1 + W, a sin/cos/atan2/sqrt ~20 + 2 W;
+# four evaluations of f, RK4's combinations): estimates, 3-4x below the
+# byte bound at N=100, L=512.
+_LINEARIZE_FLOPS = {FLAGSHIP: 2.8e3, HULL: 7.6e3}
+
+
+def linearize_work(name, m, N, L, steps, itemsize):
+    """(bytes, FLOPs) of one K2 launch: xs, ubar, params read once; xn, J,
+    hbar, C written once."""
+    nx, nu, nh = m.nx, m.nu, m.nh
+    values = ((nx + nu) * N * L + m.np_ * L
+              + (nx + nx * (nx + nu) + nh + nh * nx) * N * L)
+    return values * itemsize, _LINEARIZE_FLOPS[name] * steps * N * L
+
+
+def ipm_work(N, structure, L, iters, itemsize):
+    """(bytes, FLOPs) of one K3 launch: the LaneQP's lane fields and
+    static blocks read once, dx, du, gap, eq_res written once; per
+    iteration and stage one Riccati stage, the rows' Gram (2 r nx^2),
+    their products (8 r nx) and ~30 FLOPs per inequality (an estimate
+    from csrc/ipm_lanes.cuh)."""
+    nx, nu, nbu, nbx, nHh, nS = structure
+    lane = (N * (nx * nx + nx * nu + nx + nu + 2 * nbu + 2 * nbx
+                 + nHh * nx + 2 * nHh + nS * nx + 3 * nS)
+            + (N + 1) * nx + nx)
+    out = (N + 1) * nx + N * nu + 2
+    static = 2 * nx * nx + nu * nx + nu * nu + 6 * nS
+    rows = nHh + nS
+    stage = (riccati_stage_flops(nx, nu) + 2 * rows * nx * nx
+             + 8 * rows * nx + 30 * (rows + 2 * nbu + 2 * nbx))
+    return ((lane + out) * L + static) * itemsize, iters * N * L * stage
+
+
+def launch_ms(call, launches=50, reps=3):
+    """Device time per call: CUDA events around `launches` back-to-back
+    calls, the median of `reps` runs after a warm-up."""
+    import torch
+    call()
+    times = []
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(launches):
+            call()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end) / launches)
+    return float(np.median(times))
+
+
+def riccati_launcher(lib, d):
+    """A call of `lib`'s K1 C entry on the LaneLQR `d` with its outputs and
+    scratch allocated once (the kernel's time without the wrapper's checks
+    and allocations, and not counted as a launch).  Returns (call,
+    (dx, du))."""
+    import torch
+
+    from mpc_collisionavoidance_tpu_torch.kernels import _build
+    N, nx, _, L = d.A.shape
+    nu = d.B.shape[2]
+    opts = dict(dtype=d.A.dtype, device=d.A.device)
+    out = [torch.empty(shape, **opts) for shape in (
+        (N + 1, nx, L), (N, nu, L), (N, nu, nx, L), (N, nu, L))]
+    args = (int(d.A.dtype == torch.float64), nx, nu, N, L,
+            *_build.launch_args(d.A.device, *d, *out))
+
+    def call():
+        _build.check(lib.nmpc_riccati_lanes(*args), "riccati_lanes")
+    return call, out[:2]
+
+
+K1_SHAPES = ((8, 1), (14, 2))
+# (L, dtype name) at which K1 is timed
+K1_TIMED = ((1, "float32"), (128, "float32"), (512, "float32"),
+            (512, "float64"))
+
+
+def _riccati_nan_lane(nx, nu, N, L=130, lane=7):
+    """One lane's A set to NaN: that lane goes non-finite and every other
+    lane's dx/du stays bitwise as it was (lane 7 shares its block with
+    lanes 4-6)."""
     import torch
 
     from mpc_collisionavoidance_tpu_torch.kernels import riccati
+    d = _random_lqr(N, nx, nu, L, seed=7, dtype=torch.float32)
+    ref = riccati.lqr_solve_lanes_cuda(*d)
+    A = d.A.clone()
+    A[..., lane] = float("nan")
+    got = riccati.lqr_solve_lanes_cuda(*d._replace(A=A))
+    torch.cuda.synchronize()
+    keep = torch.arange(L, device=DEVICE) != lane
+    same = all(torch.equal(g[..., keep], r[..., keep])
+               for g, r in zip(got, ref))
+    poisoned = not all(bool(torch.isfinite(g[..., lane]).all())
+                       for g in got)
+    print(f"K1 ({nx}, {nu}) NaN in lane {lane}'s A at L={L}: lane "
+          f"non-finite {poisoned}, the other lanes bitwise unchanged {same}")
+    if not (same and poisoned):
+        raise AssertionError(f"K1 ({nx}, {nu}): a NaN lane touched another "
+                             "lane, or stayed finite")
+
+
+def check_riccati():
+    """K1 vs lqr_solve_lanes_plain on the card, the NaN-lane isolation, and
+    the kernel's time beside its bound; returns {(nx, nu): dict(err, ms,
+    plain_ms, bound_ms, bound_by)} (times at N=100, L=512, float32)."""
+    import torch
+
+    from mpc_collisionavoidance_tpu_torch.kernels import _build, riccati
     from mpc_collisionavoidance_tpu_torch.ops.riccati_lanes import (
         lqr_solve_lanes_plain)
     N = 100
-    worst = {torch.float32: 0.0, torch.float64: 0.0}
-    for (nx, nu) in ((8, 1), (14, 2)):
+    lib = _build.library()
+    result = {}
+    for (nx, nu) in K1_SHAPES:
+        worst = 0.0
         for L in (1, 130, 512):
             for dtype, rtol, atol in ((torch.float32, 2e-4, 2e-5),
                                       (torch.float64, 0.0, 1e-10)):
@@ -232,17 +384,31 @@ def check_riccati():
                 want = lqr_solve_lanes_plain(d)
                 torch.cuda.synchronize()
                 err = _max_err(got, want)
-                worst[dtype] = max(worst[dtype], err)
+                worst = max(worst, err)
                 print(f"K1 riccati nx={nx} nu={nu} L={L} "
                       f"{str(dtype)[6:]}: max|err| {err:.3e}")
                 _check_close(f"K1 ({nx},{nu}) L={L} {dtype}", got, want,
                              rtol, atol)
-    d = _random_lqr(N, 8, 1, B, seed=1, dtype=torch.float32)
-    ms = _tick_ms(lambda: riccati.lqr_solve_lanes_cuda(*d), 50)
-    plain_ms = _tick_ms(lambda: lqr_solve_lanes_plain(d), 5)
-    print(f"K1 at N=100 nx=8 nu=1 L={B} float32: kernel {ms:.4f} ms, "
-          f"plain {plain_ms:.4f} ms")
-    return worst[torch.float32], worst[torch.float64], ms, plain_ms
+        _riccati_nan_lane(nx, nu, N)
+        for L, dname in K1_TIMED:
+            dtype = getattr(torch, dname)
+            d = _random_lqr(N, nx, nu, L, seed=1, dtype=dtype)
+            ms = launch_ms(riccati_launcher(lib, d)[0])
+            bound_ms, by = bound(*riccati_work(N, nx, nu, L,
+                                               d.A.element_size()),
+                                 d.A.element_size())
+            print(f"K1 ({nx}, {nu}) N={N} L={L} {dname}: {ms:.4f} ms, "
+                  f"bound {bound_ms:.4f} ms ({by}), "
+                  f"{100 * bound_ms / ms:.2f}% of the bound")
+            if (L, dname) == (B, "float32"):
+                result[(nx, nu)] = dict(err=worst, ms=ms, bound_ms=bound_ms,
+                                        bound_by=by)
+        d = _random_lqr(N, nx, nu, B, seed=1, dtype=torch.float32)
+        result[(nx, nu)]["plain_ms"] = _tick_ms(
+            lambda: lqr_solve_lanes_plain(d), 5)
+        print(f"K1 ({nx}, {nu}) plain sweep at L={B} float32: "
+              f"{result[(nx, nu)]['plain_ms']:.4f} ms")
+    return result
 
 
 def _linearize_inputs(name, m, N, L, rng):
@@ -307,10 +473,12 @@ def check_linearize():
                         *args, **kw), 50)
                     plain_ms = _tick_ms(lambda: linearize_lanes_plain(
                         *args, **kw), 5)
+        bound_ms, by = bound(*linearize_work(name, m, N, B,
+                                             spec.integrator_steps, 4), 4)
         print(f"K2 {name} at N={N} L={B} float32: kernel {ms:.4f} ms, plain "
-              f"{plain_ms:.4f} ms")
+              f"{plain_ms:.4f} ms, bound {bound_ms:.4f} ms ({by})")
         result[name] = (worst[torch.float32], worst[torch.float64], ms,
-                        plain_ms)
+                        plain_ms, bound_ms, by)
     return result
 
 
@@ -439,10 +607,14 @@ def check_fused_ipm():
                                                        s_got[8:]])):
                         raise AssertionError(f"K3 {name}: NaN lane not "
                                              "status 2, or it touched others")
+        structure = (*_dims(name), len(solver.idxbu), len(solver.idxbx),
+                     qp.Ch.shape[1], qp.Cs.shape[1])
+        bound_ms, by = bound(*ipm_work(100, structure, B, iters, 4), 4)
         print(f"K3 {name} at N=100 L={B} float32, {iters} iterations: "
-              f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms")
+              f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
+              f"{bound_ms:.4f} ms ({by})")
         result[name] = (worst[torch.float32], worst[torch.float64], ms,
-                        plain_ms)
+                        plain_ms, bound_ms, by)
     return result
 
 
@@ -950,7 +1122,7 @@ def main():
     torch.backends.cudnn.allow_tf32 = False
 
     card = environment()
-    k1_err32, k1_err64, k1_ms, k1_plain = check_riccati()
+    k1 = check_riccati()
     k2 = check_linearize()
     k3 = check_fused_ipm()
 
@@ -980,31 +1152,39 @@ def main():
         return sum(c[kernel] for (m, _), c in counts.items() if m in models)
 
     pkg = "mpc_collisionavoidance_tpu_torch"
-    kernels = [
-        {"name": "riccati_lanes", "route": "cuda",
-         "source": f"{pkg}/csrc/riccati_lanes.cu",
-         "replaces": "mpc_collisionavoidance_tpu/kernels/riccati_pallas.py:215",
-         "launches": launched("riccati_lanes"),
-         "max_abs_err": max(k1_err32, k1_err64), "ms": k1_ms,
-         "plain_ms": k1_plain}]
+    # no single PyTorch call computes a Riccati sweep, a linearization or
+    # an IPM solve: library_ms is null for every kernel
+    kernels = []
+    for (nx, nu), name in zip(K1_SHAPES, (FLAGSHIP, HULL)):
+        r = k1[(nx, nu)]
+        kernels.append(
+            {"name": f"riccati_lanes[{nx}x{nu}]", "route": "cuda",
+             "source": f"{pkg}/csrc/riccati_lanes.cu",
+             "replaces": "mpc_collisionavoidance_tpu/kernels/riccati_pallas.py:215",
+             "launches": launched("riccati_lanes", (name,)),
+             "max_abs_err": r["err"], "ms": r["ms"],
+             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+             "bound_by": r["bound_by"], "library_ms": None})
     for name in (FLAGSHIP, HULL):
-        err32, err64, ms, plain_ms = k2[name]
+        err32, err64, ms, plain_ms, bound_ms, by = k2[name]
         kernels.append(
             {"name": f"linearize_lanes[{name}]", "route": "cuda",
              "source": f"{pkg}/csrc/linearize_lanes.cu",
              "replaces": "mpc_collisionavoidance_tpu/kernels/linearize_pallas.py:151",
              "launches": launched("linearize_lanes", (name,)),
              "max_abs_err": max(err32, err64), "ms": ms,
-             "plain_ms": plain_ms})
+             "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": by,
+             "library_ms": None})
     for name in (FLAGSHIP, HULL):
-        err32, err64, ms, plain_ms = k3[name]
+        err32, err64, ms, plain_ms, bound_ms, by = k3[name]
         kernels.append(
             {"name": f"fused_ipm_lanes[{name}]", "route": "cuda",
              "source": f"{pkg}/csrc/ipm_lanes.cu",
              "replaces": "mpc_collisionavoidance_tpu/kernels/ipm_pallas.py:53",
              "launches": launched("fused_ipm_lanes", (name,)),
              "max_abs_err": max(err32, err64), "ms": ms,
-             "plain_ms": plain_ms})
+             "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": by,
+             "library_ms": None})
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -68,9 +68,14 @@ def _random_lqr(N, nx, nu, L, seed, dtype, device):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
-@pytest.mark.parametrize("nx,nu,L", [(8, 1, 1), (8, 1, 130), (14, 2, 33)])
-def test_riccati_kernel_matches_plain(card, nx, nu, L, dtype):
-    d = _random_lqr(30, nx, nu, L, seed=L, dtype=dtype, device=card)
+@pytest.mark.parametrize("nx,nu,L,N", [
+    (8, 1, 1, 30), (8, 1, 33, 30), (8, 1, 130, 30),
+    (14, 2, 1, 30), (14, 2, 33, 30), (14, 2, 130, 100)])
+def test_riccati_kernel_matches_plain(card, nx, nu, L, N, dtype):
+    """Ragged lane groups: L=1 (one lane of a 4-lane block), 33 and 130
+    (a last block of 1 and 2 lanes); L=130 in float64 also takes the
+    16-byte copies, the other widths the element copies."""
+    d = _random_lqr(N, nx, nu, L, seed=L, dtype=dtype, device=card)
     before = riccati.launches
     got = riccati.lqr_solve_lanes_cuda(*d)
     want = lqr_solve_lanes_plain(d)
@@ -79,6 +84,23 @@ def test_riccati_kernel_matches_plain(card, nx, nu, L, dtype):
     rtol, atol = TOLS[dtype]
     for g, w in zip(got, want):
         torch.testing.assert_close(g, w, rtol=rtol, atol=atol)
+
+
+@pytest.mark.parametrize("nx,nu", [(8, 1), (14, 2)])
+def test_riccati_kernel_nan_lane_leaves_the_others_bitwise(card, nx, nu):
+    """One lane's A set to NaN: that lane goes non-finite, and every other
+    lane (its block's neighbours included) is bitwise what it was."""
+    L, lane = 130, 6
+    d = _random_lqr(25, nx, nu, L, seed=3, dtype=torch.float32, device=card)
+    ref = riccati.lqr_solve_lanes_cuda(*d)
+    A = d.A.clone()
+    A[..., lane] = float("nan")
+    got = riccati.lqr_solve_lanes_cuda(*d._replace(A=A))
+    torch.cuda.synchronize()
+    keep = torch.arange(L, device=card) != lane
+    for g, r in zip(got, ref):
+        assert torch.equal(g[..., keep], r[..., keep])
+    assert not torch.isfinite(got[0][..., lane]).all()
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])

@@ -54,8 +54,13 @@ def test_plain_matches_jax_lax(nx, nu):
     np.testing.assert_allclose(du.numpy(), np.asarray(du_r), rtol=1e-10)
 
 
-def test_plain_matches_jax_pallas_interpret():
-    d_t, d_j = _both(random_lqr(N=12, nx=8, nu=1, L=128, seed=5))
+@pytest.mark.parametrize("L", [128, 130])
+@pytest.mark.parametrize("nx,nu", [(8, 1), (14, 2)])
+def test_plain_matches_jax_pallas_interpret(nx, nu, L):
+    """The plain sweep (the card's yardstick for K1) against JAX's Pallas
+    kernel in interpret mode, at both K1 instances; L=130 makes Pallas
+    pad to two 128-lane blocks."""
+    d_t, d_j = _both(random_lqr(N=12, nx=nx, nu=nu, L=L, seed=5))
     dx, du = lqr_solve_lanes_plain(d_t)
     dx_r, du_r = lqr_solve_lanes_pallas(d_j, interpret=True)
     np.testing.assert_allclose(dx.numpy(), np.asarray(dx_r), rtol=1e-9)

@@ -1,0 +1,126 @@
+"""Where a tick's time goes on the card, per OCP, backend and batch.
+
+    python -m tools.tick_profile [--ticks 20] [--profiled 10] [--only NAME]
+                                 [--json PATH]
+
+For the flagship and the hull, the production (sweep) and the fused tick,
+at B=512 and B=1 (float32, the warm closed loop of `chip_smoke`'s
+workload, x0 <- x1): the median tick over `--ticks` warm ticks (CUDA events
+around the whole tick), then a torch.profiler window over `--profiled`
+more ticks: device kernel time per tick and its share of the window's wall
+time (busy), kernels and launch calls per tick, and the three kernels with
+the most device time per tick with their launches per tick.  The profiler
+stretches the window's wall time, so the busy share is a lower bound.
+With --json, one JSON line per configuration goes to PATH.  Needs a CUDA
+device.
+"""
+
+import argparse
+import collections
+import json
+import pathlib
+import subprocess
+import sys
+import time
+
+import numpy as np
+import torch
+from torch.autograd import DeviceType
+from torch.profiler import ProfilerActivity, profile
+
+import chip_smoke
+from mpc_collisionavoidance_tpu_torch.kernels import _build
+
+CONFIGS = [(name, backend, Bn)
+           for name in (chip_smoke.FLAGSHIP, chip_smoke.HULL)
+           for backend in ("sweep", "fused") for Bn in (512, 1)]
+
+
+def profile_config(name, backend, Bn, ticks, profiled):
+    config = (chip_smoke._production() if backend == "sweep"
+              else chip_smoke._fused())
+    solver, st, x, p, lh = chip_smoke._setup(name, Bn, torch.float32,
+                                             chip_smoke.DEVICE, config)
+    for _ in range(3):                                  # warm-up
+        st, out = solver.step_fn(st, x, p, lh)
+        x = out.x1
+    times = []
+    for _ in range(ticks):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        st, out = solver.step_fn(st, x, p, lh)
+        end.record()
+        x = out.x1
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(profiled):
+            st, out = solver.step_fn(st, x, p, lh)
+            x = out.x1
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    per_kernel = collections.defaultdict(lambda: [0.0, 0])
+    calls = 0
+    for e in prof.events():
+        if e.device_type == DeviceType.CPU:
+            calls += "LaunchKernel" in e.name
+        elif not e.name.startswith(("Memcpy", "Memset")):
+            per_kernel[e.name][0] += e.time_range.elapsed_us() / 1e3
+            per_kernel[e.name][1] += 1
+    kernel_ms = sum(v[0] for v in per_kernel.values())
+    top = sorted(per_kernel.items(), key=lambda kv: -kv[1][0])[:3]
+    return dict(
+        ocp=name, backend=backend, B=Bn, tick_median_ms=float(
+            np.median(times)), tick_p99_ms=float(np.percentile(times, 99)),
+        kernel_ms_per_tick=kernel_ms / profiled,
+        busy_share=kernel_ms / wall_ms,
+        kernels_per_tick=sum(v[1] for v in per_kernel.values()) / profiled,
+        launch_calls_per_tick=calls / profiled,
+        top=[dict(kernel=k[:80], ms_per_tick=v[0] / profiled,
+                  launches_per_tick=v[1] / profiled) for k, v in top])
+
+
+def main(argv):
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--ticks", type=int, default=20)
+    ap.add_argument("--profiled", type=int, default=10)
+    ap.add_argument("--only", default=None,
+                    help="one OCP (usv_guidance_ca1 or usv_pf_ca)")
+    ap.add_argument("--json", default=None, help="write the results here")
+    args = ap.parse_args(argv)
+    if not torch.cuda.is_available():
+        sys.exit("tick_profile: no CUDA device")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                           "--format=csv,noheader"], capture_output=True,
+                          text=True, check=True,
+                          timeout=60).stdout.strip().splitlines()[0]
+    print(card)
+    _build.library()
+    rows = []
+    for name, backend, Bn in CONFIGS:
+        if args.only and name != args.only:
+            continue
+        r = dict(profile_config(name, backend, Bn, args.ticks,
+                                args.profiled), card=card)
+        rows.append(r)
+        print(f"{name} {backend} B={Bn}: tick median "
+              f"{r['tick_median_ms']:.3f} ms (p99 {r['tick_p99_ms']:.3f}), "
+              f"kernels {r['kernel_ms_per_tick']:.3f} ms/tick (busy "
+              f"{100 * r['busy_share']:.1f}%), "
+              f"{r['kernels_per_tick']:.1f} kernels / "
+              f"{r['launch_calls_per_tick']:.1f} launch calls per tick; "
+              + "; ".join(f"{t['kernel'][:40]} {t['ms_per_tick']:.3f} ms "
+                          f"x{t['launches_per_tick']:.1f}" for t in r["top"]))
+    if args.json:
+        out = pathlib.Path(args.json)
+        out.parent.mkdir(parents=True, exist_ok=True)
+        out.write_text("".join(json.dumps(r) + "\n" for r in rows))
+        print(f"wrote {out}")
+
+if __name__ == "__main__":
+    main(sys.argv[1:])
