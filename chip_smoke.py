@@ -11,6 +11,8 @@ fused tick (`riccati="fused"`) of both.  Phases:
 
 1. environment: torch, device, `nvidia-smi` name and power limit, nvcc,
    and the kernels' build (nvcc at first use, into build/torch_kernels/);
+   ptxas must report 0 bytes spill stores and loads for the four K1 and
+   the four K3 instances;
 2. K1 (Riccati sweep) vs its plain PyTorch version on the card: random
    SPD LQRs at N=100, (nx, nu) in {(8, 1), (14, 2)}, L in {1, 130, 512},
    float32 (rtol 2e-4, atol 2e-5) and float64 (atol 1e-10); one lane's A
@@ -23,11 +25,13 @@ fused tick (`riccati="fused"`) of both.  Phases:
    whose stiff sway-drag entries are large, also rtol 1e-12);
 4. K3 (fused whole IPM, 12 iterations) vs its plain version
    `fused_ipm_lanes_plain` on the card, on QPs from the solver's own
-   `_build_qp` at each OCP's default scenario (ye perturbed): the flagship
-   at L in {1, 130, 512}, the hull at L in {1, 512}; float64 dx/du atol
-   1e-9, gap rtol 1e-9, identical status; float32 du atol 5e-3 (the
-   float32 gap-floor ball) and status-0 shares within 0.02; one NaN lane
-   -> status 2 in both;
+   `_build_qp` at each OCP's default scenario (ye perturbed): both OCPs
+   at L in {1, 130, 512}; float64 dx/du atol 1e-9, gap rtol 1e-9,
+   identical status; float32 du atol 5e-3 (the float32 gap-floor ball)
+   and status-0 shares within 0.02; one NaN lane -> status 2 in both, the
+   other lanes' status unchanged; each structure's time at L in {1, 128,
+   512} float32 (CUDA events over back-to-back launches of the C entry)
+   beside its bound;
 5. the flagship production tick at B=512: float64 on the card vs the plain
    path on the CPU from the same inputs (u0/x1 atol 5e-6, identical
    status), then float32 on the card, with the kernels' launch counts for
@@ -187,11 +191,47 @@ def environment():
     _build.library()
     print(f"kernels built in {time.perf_counter() - t0:.1f} s: {lib}")
     # registers and spills of every kernel instance (ptxas -v)
-    for line in (lib.parent / "nvcc.log").read_text().splitlines():
+    log = (lib.parent / "nvcc.log").read_text()
+    for line in log.splitlines():
         if "Compiling entry function" in line or "spill" in line \
                 or "Used" in line:
             print("  " + line.strip())
+    check_spills(log)
     return card
+
+
+# kernels whose every instance must compile without spills, and how many
+# instances each has
+NO_SPILL = {"riccati_lanes_kernel": 4, "fused_ipm_kernel": 4}
+
+
+def spill_report(log):
+    """{entry function: (spill store bytes, spill load bytes)} from ptxas'
+    -v report in an nvcc log."""
+    report, name = {}, None
+    for line in log.splitlines():
+        if "Function properties for" in line:
+            name = line.split("Function properties for", 1)[1].strip()
+        elif name and "bytes spill stores" in line:
+            words = line.replace(",", " ").split()
+            report[name] = (int(words[words.index("spill") - 2]),
+                            int(words[words.index("loads") - 3]))
+            name = None
+    return report
+
+
+def check_spills(log):
+    """Raise unless every instance of the NO_SPILL kernels reports 0 bytes
+    spill stores and loads."""
+    report = spill_report(log)
+    for kernel, count in NO_SPILL.items():
+        got = {n: v for n, v in report.items() if kernel in n}
+        bad = {n: v for n, v in got.items() if v != (0, 0)}
+        print(f"ptxas: {len(got)} {kernel} instances, spill stores/loads "
+              f"{sorted(set(got.values()))}")
+        if len(got) != count or bad:
+            raise AssertionError(f"{kernel}: {len(got)} instances (want "
+                                 f"{count}), spilling: {bad}")
 
 
 def _random_lqr(N, nx, nu, L, seed, dtype):
@@ -535,25 +575,93 @@ def _dims(name):
     return (8, 1) if name == FLAGSHIP else (14, 2)
 
 
-def check_fused_ipm():
-    """K3 vs fused_ipm_lanes_plain on the card; returns {model: (max
-    float32 du error, max float64 error, kernel ms, plain ms)} (times at
-    N=100, L=512, float32, 12 iterations)."""
+def ipm_launcher(lib, qp, idxbu, idxbx, iters):
+    """A call of `lib`'s K3 C entry on the contiguous CUDA LaneQP `qp` with
+    its outputs and scratch allocated once (the kernel's time without the
+    wrapper's checks and allocations, and not counted as a launch).
+    Returns (call, (dx, du, gap, eq_res))."""
+    import ctypes
+
     import torch
 
+    from mpc_collisionavoidance_tpu_torch.kernels import _build, ipm
+    N, nx, nu, L = qp.B.shape[0], qp.A.shape[1], qp.B.shape[2], qp.B.shape[-1]
+    structure = (nx, nu, len(idxbu), len(idxbx), qp.Ch.shape[1],
+                 qp.Cs.shape[1])
+    opts = dict(dtype=qp.A.dtype, device=qp.A.device)
+    out = [torch.empty(shape, **opts) for shape in (
+        (N + 1, nx, L), (N, nu, L), (L,), (L,))]
+    scratch = torch.empty((lib.nmpc_fused_ipm_scratch(*structure, N) * L,),
+                          **opts)
+    tensors = [getattr(qp, f) for f in ipm._LANE_FIELDS + ipm._STATIC_FIELDS]
+    *ptrs, stream = _build.launch_args(qp.A.device, *tensors, *out, scratch)
+    ptr_array = (ctypes.c_void_p * len(ptrs))(*ptrs)
+    args = (int(qp.A.dtype == torch.float64), *structure, N, L, iters, 0.995,
+            0.1, 1.0, (ctypes.c_int * max(len(idxbu), 1))(*idxbu),
+            (ctypes.c_int * max(len(idxbx), 1))(*idxbx), ptr_array, stream)
+
+    def call():
+        _build.check(lib.nmpc_fused_ipm_lanes(*args), "fused_ipm_lanes")
+    return call, out
+
+
+def fused_qp(name, L, dtype, seed):
+    """(LaneQP, idxbu, idxbx) of the fused solver's own assembly at the
+    OCP's default scenario, ye perturbed, at N=100 on the card."""
+    from mpc_collisionavoidance_tpu_torch.ops.ipm_lanes import contiguous_qp
+    solver, st, x, p, lh = _setup(name, L, dtype, DEVICE, _fused(), seed=seed)
+    qp = contiguous_qp(solver._build_qp(st, x, p, lh))
+    return qp, solver.idxbu, solver.idxbx
+
+
+def structure_of(qp, idxbu, idxbx):
+    return (qp.A.shape[1], qp.B.shape[2], len(idxbu), len(idxbx),
+            qp.Ch.shape[1], qp.Cs.shape[1])
+
+
+# (L, dtype name) at which K3 is timed here (tools/k3_compare.py adds
+# float64 at 512)
+K3_TIMED = ((1, "float32"), (128, "float32"), (B, "float32"))
+K3_ITERS = 12
+
+
+def _fused_nan_lane(name, qp, idxbu, idxbx, s_got, lane=7):
+    """One NaN in lane 7's dx0: status 2 from the kernel and the plain
+    version, every other lane's status unchanged."""
     from mpc_collisionavoidance_tpu_torch.kernels import ipm
     from mpc_collisionavoidance_tpu_torch.ops.ipm_lanes import (
-        contiguous_qp, fused_ipm_lanes_plain, lane_status)
-    iters, tol = 12, 1e-7
+        fused_ipm_lanes_plain, lane_status)
+    bad = qp._replace(dx0=qp.dx0.clone())
+    bad.dx0[0, lane] = float("nan")
+    sb = [lane_status(*fn(bad, idxbu, idxbx, iters=K3_ITERS), 1e-7)
+          for fn in (ipm.fused_ipm_lanes_cuda, fused_ipm_lanes_plain)]
+    keep = [i for i in range(len(s_got)) if i != lane]
+    print(f"K3 {name} NaN lane {lane}: status {int(sb[0][lane])} (kernel), "
+          f"{int(sb[1][lane])} (plain)")
+    if int(sb[0][lane]) != 2 or int(sb[1][lane]) != 2 or \
+            not bool((sb[0][keep] == s_got[keep]).all()):
+        raise AssertionError(f"K3 {name}: NaN lane not status 2, or it "
+                             "touched others")
+
+
+def check_fused_ipm():
+    """K3 vs fused_ipm_lanes_plain on the card, the NaN lane, and K3's
+    times beside its bound; returns {model: dict(err32, err64, ms (L=512
+    float32), plain_ms, bound_ms, bound_by, times {L: (ms, bound_ms)})}."""
+    import torch
+
+    from mpc_collisionavoidance_tpu_torch.kernels import _build, ipm
+    from mpc_collisionavoidance_tpu_torch.ops.ipm_lanes import (
+        fused_ipm_lanes_plain, lane_status)
+    iters, tol = K3_ITERS, 1e-7
+    lib = _build.library()
     result = {}
-    for name, widths in ((FLAGSHIP, (1, 130, B)), (HULL, (1, B))):
+    for name in (FLAGSHIP, HULL):
         worst = {torch.float32: 0.0, torch.float64: 0.0}
-        for L in widths:
+        for L in (1, 130, B):
             for dtype in (torch.float64, torch.float32):
-                solver, st, x, p, lh = _setup(name, L, dtype, DEVICE,
-                                              _fused(), seed=L)
-                qp = contiguous_qp(solver._build_qp(st, x, p, lh))
-                args = (qp, solver.idxbu, solver.idxbx)
+                qp, iu, ix = fused_qp(name, L, dtype, seed=L)
+                args = (qp, iu, ix)
                 got = ipm.fused_ipm_lanes_cuda(*args, iters=iters)
                 want = fused_ipm_lanes_plain(*args, iters=iters)
                 torch.cuda.synchronize()
@@ -587,34 +695,27 @@ def check_fused_ipm():
                             f"K3 {name} L={L} float32: du err {du_err:.3e} "
                             f"(limit 5e-3), status-0 shares {share}")
                 if L == B and dtype == torch.float32:
-                    ms = _tick_ms(lambda: ipm.fused_ipm_lanes_cuda(
-                        *args, iters=iters), 20)
                     plain_ms = _tick_ms(lambda: fused_ipm_lanes_plain(
                         *args, iters=iters), 2)
-                    # one NaN lane: status 2 in both, the others untouched
-                    bad = qp._replace(dx0=qp.dx0.clone())
-                    bad.dx0[0, 7] = float("nan")
-                    sb = [lane_status(*fn(bad, solver.idxbu, solver.idxbx,
-                                          iters=iters), tol)
-                          for fn in (ipm.fused_ipm_lanes_cuda,
-                                     fused_ipm_lanes_plain)]
-                    print(f"K3 {name} NaN lane 7: status {int(sb[0][7])} "
-                          f"(kernel), {int(sb[1][7])} (plain)")
-                    if int(sb[0][7]) != 2 or int(sb[1][7]) != 2 or \
-                            not torch.equal(torch.cat([sb[0][:7],
-                                                       sb[0][8:]]),
-                                            torch.cat([s_got[:7],
-                                                       s_got[8:]])):
-                        raise AssertionError(f"K3 {name}: NaN lane not "
-                                             "status 2, or it touched others")
-        structure = (*_dims(name), len(solver.idxbu), len(solver.idxbx),
-                     qp.Ch.shape[1], qp.Cs.shape[1])
-        bound_ms, by = bound(*ipm_work(100, structure, B, iters, 4), 4)
-        print(f"K3 {name} at N=100 L={B} float32, {iters} iterations: "
-              f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
-              f"{bound_ms:.4f} ms ({by})")
-        result[name] = (worst[torch.float32], worst[torch.float64], ms,
-                        plain_ms, bound_ms, by)
+                    _fused_nan_lane(name, *args, s_got)
+        times = {}
+        for L, dname in K3_TIMED:
+            dtype = getattr(torch, dname)
+            qp, iu, ix = fused_qp(name, L, dtype, seed=1)
+            ms = launch_ms(ipm_launcher(lib, qp, iu, ix, iters)[0],
+                           launches=10)
+            item = qp.A.element_size()
+            bound_ms, by = bound(*ipm_work(100, structure_of(qp, iu, ix), L,
+                                           iters, item), item)
+            times[L] = (ms, bound_ms)
+            print(f"K3 {name} N=100 L={L} {dname}, {iters} iterations: "
+                  f"{ms:.4f} ms, bound {bound_ms:.4f} ms ({by}), "
+                  f"{100 * bound_ms / ms:.2f}% of the bound")
+        print(f"K3 {name} plain version at L={B} float32: {plain_ms:.4f} ms")
+        result[name] = dict(err32=worst[torch.float32],
+                            err64=worst[torch.float64], ms=times[B][0],
+                            plain_ms=plain_ms, bound_ms=times[B][1],
+                            bound_by=by, times=times)
     return result
 
 
@@ -1176,15 +1277,15 @@ def main():
              "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": by,
              "library_ms": None})
     for name in (FLAGSHIP, HULL):
-        err32, err64, ms, plain_ms, bound_ms, by = k3[name]
+        r = k3[name]
         kernels.append(
             {"name": f"fused_ipm_lanes[{name}]", "route": "cuda",
-             "source": f"{pkg}/csrc/ipm_lanes.cu",
+             "source": f"{pkg}/csrc/ipm_lanes.cuh",
              "replaces": "mpc_collisionavoidance_tpu/kernels/ipm_pallas.py:53",
              "launches": launched("fused_ipm_lanes", (name,)),
-             "max_abs_err": max(err32, err64), "ms": ms,
-             "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": by,
-             "library_ms": None})
+             "max_abs_err": max(r["err32"], r["err64"]), "ms": r["ms"],
+             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+             "bound_by": r["bound_by"], "library_ms": None})
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

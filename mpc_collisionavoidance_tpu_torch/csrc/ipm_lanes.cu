@@ -8,8 +8,8 @@ namespace {
 
 using nmpc::ipm::FusedArgs;
 using nmpc::ipm::kMaxIdx;
-using nmpc::ipm::Layout;
 using nmpc::ipm::launch;
+using nmpc::ipm::scratch_per_stage;
 
 // the instantiated structures: the flagship usv_guidance_ca1 and the hull
 // usv_pf_ca
@@ -56,15 +56,16 @@ int run(Structure st, int N, int L, int iters, double tau, double sigma,
 
 }  // namespace
 
-// Scratch slots per lane of the instance for this structure and horizon
-// (the wrapper allocates slots * L values), or -1 if there is none.
+// Scratch values per lane of the instance for this structure and horizon
+// (cb, K, k of every stage; the wrapper allocates slots * L values), or -1
+// if there is none.
 extern "C" long long nmpc_fused_ipm_scratch(int nx, int nu, int nbu, int nbx,
                                             int nhh, int ns, int N) {
   switch (structure_of(nx, nu, nbu, nbx, nhh, ns)) {
     case Structure::kFlagship:
-      return static_cast<long long>(Layout<NMPC_FLAGSHIP>(N).total);
+      return static_cast<long long>(N) * scratch_per_stage<8, 1>();
     case Structure::kHull:
-      return static_cast<long long>(Layout<NMPC_HULL>(N).total);
+      return static_cast<long long>(N) * scratch_per_stage<14, 2>();
     default:
       return -1;
   }
@@ -74,8 +75,10 @@ extern "C" long long nmpc_fused_ipm_scratch(int nx, int nu, int nbu, int nbx,
 // ub_lo, ub_hi, xb_lo, xb_hi, Ch, hh_lo, hh_hi, Cs, hofs, slh, suh, Qc, QN,
 // Sc, Rc, zl, Zl, zu, Zu, lsh, ush, dx, du, gap, eq_res, scratch).
 // idxbu / idxbx: host arrays of nbu / nbx indices.  Returns
-// cudaGetLastError() after the launch (0 = success), -1 for a structure
-// with no instance, -2 for an empty problem or an index out of range.
+// cudaGetLastError() after the launch (0 = success, or the error of
+// raising the kernel's shared-memory limit), -1 for a structure with no
+// instance, -2 for an empty problem or an index out of range, -3 for a
+// horizon whose per-lane state does not fit a block's shared memory.
 extern "C" int nmpc_fused_ipm_lanes(int is_double, int nx, int nu, int nbu,
                                     int nbx, int nhh, int ns, int N, int L,
                                     int iters, double tau, double sigma,

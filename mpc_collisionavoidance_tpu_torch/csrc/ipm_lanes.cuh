@@ -12,7 +12,7 @@
 //     Rbar = Rc + diag(a_ulo + a_uhi),
 //     Qbar = Qc + diag(xmask (a_xlo + a_xhi)) + Ch' diag(wH) Ch
 //            + Cs' diag(wS) Cs;
-//   the Newton step through an inlined Riccati sweep (K1's recursion);
+//   the Newton step through K1's Riccati recursion (riccati_team.cuh);
 //   slack/dual steps, per-lane fraction-to-boundary over all t and lambda,
 //   the freeze rule keep = (gap <= gap_floor) | !finite(alpha, Ddx, Ddu),
 //   and the step.
@@ -20,38 +20,61 @@
 // final iterate.  The status is computed by the caller from (dx, du, gap,
 // eq_res), as for the plain version.  The stage-0 state-box mask is built
 // here (s > 0), as the TPU kernel does; the LaneQP's xmask is that mask.
+// Minimum and maximum propagate NaN (min_nan / max_nan), as torch's do.
 //
 // Layouts (lane axis L minor-most): the LaneQP tensors as
 // ops/ipm_lanes.py documents them, the static blocks Qc (nx, nx),
 // QN (nx, nx), Sc (nu, nx), Rc (nu, nu), zl/Zl/zu/Zu/lsh/ush (nS,).
-// Outputs dx (N+1, nx, L) and du (N, nu, L) double as the primal iterate.
+// Outputs dx (N+1, nx, L) and du (N, nu, L), written once at the end.
 //
-// Design: one thread per lane runs the whole solve; every per-lane
-// reduction (gap, fraction-to-boundary minimum, finiteness, eq_res) stays
-// inside the thread.  The iterates and per-iteration vectors live in one
-// global scratch the wrapper allocates, lane-minor (slot * L + lane), so
-// the 32 threads of a warp touch 32 neighbouring addresses:
-//   Ddx, Ddu, sl, su, Dsl, Dsu; t, lambda, Dt and r for the family rows of
-//   every stage; the modified gradients qxb, qub, the dynamics residual
-//   cb; K, k; the Hessian weights wu, wx, wH, wS and the soft-elimination
-//   scalars k_l, k_u, beta_l, beta_u.
-// At N=100: 24,416 values per lane for the flagship (34 family rows per
-// stage) and 17,528 for the hull (22 rows); `nmpc_fused_ipm_scratch`
-// gives the count.  That is 50 / 36 MB at L=512 in float32, twice that in
-// float64, read and written several times per iteration (in part
-// L2-resident: the H100 has 50 MB of L2).
-// The static blocks are staged in shared memory once per block.  Empty
-// families generate no code (template row counts of 0).
+// Design.  One warp per lane and one lane per block (32 threads, grid L).
+// - The lane's iterates (dx, du, sl, su, t, lambda) and per-iteration
+//   vectors (the Hessian weight w and gradient term d of every row unit,
+//   the Newton step Ddx, Ddu) live in shared memory for the whole solve;
+//   the residuals, Dt, Dlambda, Dsl, Dsu and the soft-elimination scalars
+//   are recomputed where they are needed instead of stored.  The one
+//   global scratch is per lane and contiguous: the Newton step's cb, K, k
+//   of every stage (N (nx + nu nx + nu) values, L2-resident), written by
+//   the backward sweep and staged back by the forward rollout, as K1 does.
+// - The two sequential passes run riccati_team.cuh's warp step.  Before
+//   each backward stage the warp builds the stage's modified Hessians and
+//   gradients (Qbar row r by the threads of row r, cb and qxb row r by one
+//   part each, Rbar, S, qub spread over the warp) into the stage's tile,
+//   next to its A, B, Ch/Cs rows, c, qx, qu, which a ring of kRing tiles
+//   brings in with cp.async kRing - 1 stages ahead; the forward rollout
+//   reuses the ring's bytes for A, B (transposed) and the scratch's cb, K,
+//   k, as K1's does.  With one lane per block the copies are element
+//   copies (4 or 8 bytes): a 16-byte copy would need 4 lanes of one entry
+//   in one block, and 4 lanes' shared memory (4 x 51 KB in float32) would
+//   leave the same 4 lanes per SM with a block-wide barrier per stage and
+//   no room in float64.  There is no ragged block: every block is a lane.
+// - The stage-independent passes spread the (stage, row unit) pairs over
+//   the warp's threads (a unit is a box or h row pair, or a soft row's
+//   four rows, which share its slack): the residuals and weights (pass 1),
+//   the slack/dual steps and fraction-to-boundary (pass 4), the update of
+//   t, lambda, sl, su (pass 5), then dx, du elementwise; the epilogue's
+//   dynamics residuals over (stage, state) pairs.  The per-lane
+//   reductions (gap, the step's minimum, the finiteness test, eq_res) are
+//   warp butterflies of shuffles, lane 0's result taken by every thread.
+//   Sums are taken in another order than the plain version's: gap agrees
+//   to a few ulp (float64 ~1e-16 relative; float32 ~1e-7, inside the
+//   gap-floor ball the float32 checks allow); minima and maxima are exact.
 //
-// What bounds it on the H100: latency and occupancy, as for K1.  Each
-// thread walks N stages five times per iteration (family pass, backward
-// and forward sweep, step pass, update), every pass a dependent chain; at
-// L=512 only 16 blocks of 32 threads exist, so 16 of 132 SMs hold one
-// warp each.  Register pressure: the inlined Riccati holds P, PA and their
-// temporaries (~2 nx^2 values), above the 255-register cap at nx=14 and in
-// float64 at nx=8, so those instances spill to local memory.  Accepted
-// for bring-up; a later PR can split a lane's matrix work across a warp,
-// keep the family vectors in shared memory, or batch more lanes per SM.
+// Shared memory per lane (= per block) at N=100, and blocks per SM (the
+// H100's 228 KB per SM, 1 KB reserved per block):
+//   flagship (8, 1, 1, 0, 0, 8): 13,098 values: float 52,392 B, 4 per SM;
+//                                double 104,784 B, 2 per SM;
+//   hull (14, 2, 2, 5, 4, 0):    12,446 values: float 49,784 B, 4 per SM;
+//                                double 99,568 B, 2 per SM.
+// So at L=512 float32 runs in one wave (528 resident lanes), float64 in
+// two.  A horizon whose layout exceeds the 227 KB opt-in is refused (-3).
+//
+// What bounds it on the H100: the lane's dependent chain.  12 iterations
+// each walk 100 backward and 100 forward stages of the warp step (K1's
+// latency chain, 0.20 / 0.39 ms per sweep at (8, 1) / (14, 2)) plus the
+// tile build; the stage-parallel passes add a few microseconds each.  The
+// bytes and FLOPs of the whole solve (chip_smoke.ipm_work) are 2-3 orders
+// of magnitude below that time.
 
 #pragma once
 
@@ -60,11 +83,15 @@
 #include <cmath>
 #include <cstddef>
 
+#include "riccati_team.cuh"
+
 namespace nmpc {
 namespace ipm {
 
-constexpr int kBlock = 32;   // one warp per block: spread lanes over SMs
+constexpr int kWarp = 32;    // the threads of a block: one lane's warp
+constexpr int kRing = 3;     // backward stage tiles in the ring
 constexpr int kMaxIdx = 16;  // room for idxbu / idxbx in the argument block
+constexpr size_t kMaxShared = 232448;  // the per-block opt-in of sm_90
 
 template <typename T>
 struct FusedArgs {
@@ -75,15 +102,12 @@ struct FusedArgs {
   const T *Cs, *hofs, *slh, *suh;
   // static blocks
   const T *Qc, *QN, *Sc, *Rc, *zl, *Zl, *zu, *Zu, *lsh, *ush;
-  // outputs (dx, du are the primal iterate) and scratch
+  // outputs and the per-lane scratch (cb, K, k of every stage)
   T *dx, *du, *gap_o, *eq_o, *scratch;
   int idxbu[kMaxIdx], idxbx[kMaxIdx];
   int N, L, iters;
   T tau, sigma, mu0, gap_floor;
 };
-
-__device__ __forceinline__ float root(float a) { return sqrtf(a); }
-__device__ __forceinline__ double root(double a) { return ::sqrt(a); }
 
 // minimum / maximum that propagate a NaN in either argument, as
 // torch.minimum / torch.maximum do
@@ -96,21 +120,39 @@ __device__ __forceinline__ T max_nan(T a, T b) {
   return (b != b || b > a) ? b : a;
 }
 
-// v[idx] and v[idx] += d for a runtime index (idxbu / idxbx) without
-// dynamic indexing, so that v stays in registers
-template <typename T, int n>
-__device__ __forceinline__ T pick(const T (&v)[n], int idx) {
-  T out = T(0);
+// idx[j] for a runtime j < n, by compile-time reads of the argument block
+// (a dynamic index into a kernel parameter would copy it to local memory)
+template <int n>
+__device__ __forceinline__ int pick_idx(const int (&idx)[kMaxIdx], int j) {
+  int out = 0;
 #pragma unroll
   for (int k = 0; k < n; ++k)
-    if (k == idx) out = v[k];
+    if (k == j) out = idx[k];
   return out;
 }
-template <typename T, int n>
-__device__ __forceinline__ void add_at(T (&v)[n], int idx, T d) {
+
+// warp butterflies; every thread returns lane 0's result, so that all
+// threads take the same decisions
+template <typename T>
+__device__ __forceinline__ T warp_sum(T v) {
 #pragma unroll
-  for (int k = 0; k < n; ++k)
-    if (k == idx) v[k] += d;
+  for (int o = kWarp / 2; o > 0; o >>= 1)
+    v += __shfl_xor_sync(0xffffffffu, v, o);
+  return __shfl_sync(0xffffffffu, v, 0);
+}
+template <typename T>
+__device__ __forceinline__ T warp_min_nan(T v) {
+#pragma unroll
+  for (int o = kWarp / 2; o > 0; o >>= 1)
+    v = min_nan(v, __shfl_xor_sync(0xffffffffu, v, o));
+  return __shfl_sync(0xffffffffu, v, 0);
+}
+template <typename T>
+__device__ __forceinline__ T warp_max_nan(T v) {
+#pragma unroll
+  for (int o = kWarp / 2; o > 0; o >>= 1)
+    v = max_nan(v, __shfl_xor_sync(0xffffffffu, v, o));
+  return __shfl_sync(0xffffffffu, v, 0);
 }
 
 // family rows of one stage: [ulo | uhi | xlo | xhi | hlo | hhi | ssl | ssu
@@ -123,79 +165,124 @@ struct Rows {
                        NR = BSU + NS;
 };
 
-// scratch slots per lane (each slot holds L values, lane-minor)
+// row units of one stage: control box pairs, state box pairs, h row pairs,
+// soft rows (sl, su, bsl, bsu); unit UH + k goes with row k of [Ch; Cs]
+template <int NBU, int NBX, int NHH, int NS>
+struct Units {
+  static constexpr int UB = 0, UX = NBU, UH = UX + NBX, US = UH + NHH,
+                       NUNIT = US + NS;
+};
+
+// one backward stage's tile: K1's BackTile (c, Qt, S, R, qx, qu built by
+// the warp), then the stage's rows [Ch; Cs] and its lane inputs c, qx, qu
+template <int NX, int NU, int NC>
+struct StageTile {
+  using BT = BackTile<NX, NU>;
+  static constexpr int C = BT::size, cl = C + NC * NX, qxl = cl + NX,
+                       qul = qxl + NX, size = qul + NU;
+};
+
+// values per stage in the per-lane scratch: the forward tile's c, K, k
+template <int NX, int NU>
+__host__ __device__ constexpr int scratch_per_stage() {
+  return FwdTile<NX, NU>::size - FwdTile<NX, NU>::c;
+}
+
+// offsets (in values) of a block's shared memory for horizon N
 template <int NX, int NU, int NBU, int NBX, int NHH, int NS>
-struct Layout {
+struct SharedLayout {
   static constexpr int NR = Rows<NBU, NBX, NHH, NS>::NR;
-  size_t Ddx, Ddu, sl, su, Dsl, Dsu, t, lam, Dt, res, qxb, qub, cb, K, kf,
-      wu, wx, wH, wS, kl, ku, bl, bu, total;
-  __host__ __device__ explicit Layout(int N) {
-    const size_t n = static_cast<size_t>(N);
-    size_t o = 0;
-    Ddx = o; o += (n + 1) * NX;
-    Ddu = o; o += n * NU;
-    sl = o; o += n * NS;
-    su = o; o += n * NS;
-    Dsl = o; o += n * NS;
-    Dsu = o; o += n * NS;
-    t = o; o += n * NR;
-    lam = o; o += n * NR;
-    Dt = o; o += n * NR;
-    res = o; o += n * NR;
-    qxb = o; o += (n + 1) * NX;
-    qub = o; o += n * NU;
-    cb = o; o += n * NX;
-    K = o; o += n * NU * NX;
-    kf = o; o += n * NU;
-    wu = o; o += n * NBU;
-    wx = o; o += n * NBX;
-    wH = o; o += n * NHH;
-    wS = o; o += n * NS;
-    kl = o; o += n * NS;
-    ku = o; o += n * NS;
-    bl = o; o += n * NS;
-    bu = o; o += n * NS;
+  static constexpr int NUNIT = Units<NBU, NBX, NHH, NS>::NUNIT;
+  using Tile = StageTile<NX, NU, NHH + NS>;
+  int ring, team, Qc, QN, Sc, Rc, zl, Zl, zu, Zu, lsh, ush, dx, du, sl, su,
+      t, lam, w, d, Ddx, Ddu, total;
+  __host__ __device__ explicit SharedLayout(int N) {
+    int o = 0;
+    ring = o; o += kRing * Tile::size;
+    team = o; o += TeamScratch<NX, NU>::size;
+    Qc = o; o += NX * NX;
+    QN = o; o += NX * NX;
+    Sc = o; o += NU * NX;
+    Rc = o; o += NU * NU;
+    zl = o; o += NS;
+    Zl = o; o += NS;
+    zu = o; o += NS;
+    Zu = o; o += NS;
+    lsh = o; o += NS;
+    ush = o; o += NS;
+    dx = o; o += (N + 1) * NX;
+    du = o; o += N * NU;
+    sl = o; o += N * NS;
+    su = o; o += N * NS;
+    t = o; o += N * NR;
+    lam = o; o += N * NR;
+    w = o; o += N * NUNIT;
+    d = o; o += N * NUNIT;
+    Ddx = o; o += (N + 1) * NX;
+    Ddu = o; o += N * NU;
     total = o;
   }
 };
 
+// element copies of the ROWS x COLS entries of one stage of a lane-minor
+// tensor (`src` at this lane's entry 0 of the stage) into `dst`,
+// transposed if TR, by the warp's threads
+template <typename T, int ROWS, int COLS, bool TR>
+__device__ __forceinline__ void stage_lane(T* dst, const T* src, size_t L,
+                                           int t) {
+  for (int e = t; e < ROWS * COLS; e += kWarp) {
+    const int slot = TR ? (e % COLS) * ROWS + e / COLS : e;
+    cp_async<sizeof(T)>(dst + slot, src + e * L, true);
+  }
+}
+
 template <typename T, int NX, int NU, int NBU, int NBX, int NHH, int NS>
-__global__ void __launch_bounds__(kBlock)
+__global__ void __launch_bounds__(kWarp)
 fused_ipm_kernel(const FusedArgs<T> a) {
   using R = Rows<NBU, NBX, NHH, NS>;
-  constexpr int NR = R::NR;
-  // array extents of empty families
-  constexpr int NRA = NR > 0 ? NR : 1, NSA = NS > 0 ? NS : 1,
-                NHA = NHH > 0 ? NHH : 1, NBXA = NBX > 0 ? NBX : 1;
+  using U = Units<NBU, NBX, NHH, NS>;
+  using SL = SharedLayout<NX, NU, NBU, NBX, NHH, NS>;
+  using Tile = typename SL::Tile;
+  using BT = BackTile<NX, NU>;
+  using FT = FwdTile<NX, NU>;
+  using TM = Team<NX>;
+  constexpr int NR = R::NR, NUNIT = U::NUNIT, NC = NHH + NS;
+  constexpr int FW = scratch_per_stage<NX, NU>();
+  // forward tiles in the ring's bytes
+  constexpr int FRING = kRing * Tile::size / FT::size;
+  static_assert(kRing >= 2 && FRING >= 2, "the rings need two tiles");
 
-  // ---- static blocks -> shared memory (before the lane bound) ----
-  __shared__ T sQc[NX * NX], sQN[NX * NX], sSc[NU * NX], sRc[NU * NU];
-  __shared__ T szl[NSA], sZl[NSA], szu[NSA], sZu[NSA], slsh[NSA], sush[NSA];
-  for (int i = threadIdx.x; i < NX * NX; i += blockDim.x) {
-    sQc[i] = a.Qc[i];
-    sQN[i] = a.QN[i];
-  }
-  for (int i = threadIdx.x; i < NU * NX; i += blockDim.x) sSc[i] = a.Sc[i];
-  for (int i = threadIdx.x; i < NU * NU; i += blockDim.x) sRc[i] = a.Rc[i];
-  for (int i = threadIdx.x; i < NS; i += blockDim.x) {
-    szl[i] = a.zl[i];
-    sZl[i] = a.Zl[i];
-    szu[i] = a.zu[i];
-    sZu[i] = a.Zu[i];
-    slsh[i] = a.lsh[i];
-    sush[i] = a.ush[i];
-  }
-  __syncthreads();
-
-  const int l = blockIdx.x * blockDim.x + threadIdx.x;
-  if (l >= a.L) return;
-  const int N = a.N;
+  extern __shared__ __align__(16) unsigned char smem[];
+  T* const sm = reinterpret_cast<T*>(smem);
+  const int N = a.N, t = threadIdx.x, l = blockIdx.x;
   const size_t L = static_cast<size_t>(a.L);
-  const Layout<NX, NU, NBU, NBX, NHH, NS> lay(N);
-  T* const scr = a.scratch + l;
-  // scratch slot
-  auto S = [&](size_t slot) -> T& { return scr[slot * L]; };
-  // entry (s, i) of an (N, n, L) tensor; (s, i, j) of an (N, m, n, L) one
+  const SL lay(N);
+  T* const ring = sm + lay.ring;
+  T* const team = sm + lay.team;
+  T* const Qc = sm + lay.Qc;
+  T* const QN = sm + lay.QN;
+  T* const Sc = sm + lay.Sc;
+  T* const Rc = sm + lay.Rc;
+  T* const zl = sm + lay.zl;
+  T* const Zl = sm + lay.Zl;
+  T* const zu = sm + lay.zu;
+  T* const Zu = sm + lay.Zu;
+  T* const lsh = sm + lay.lsh;
+  T* const ush = sm + lay.ush;
+  T* const dx = sm + lay.dx;
+  T* const du = sm + lay.du;
+  T* const sl = sm + lay.sl;
+  T* const su = sm + lay.su;
+  T* const tt = sm + lay.t;
+  T* const ll = sm + lay.lam;
+  T* const unit_w = sm + lay.w;
+  T* const unit_d = sm + lay.d;
+  T* const Ddx = sm + lay.Ddx;
+  T* const Ddu = sm + lay.Ddu;
+  // this lane's cb, K, k: FW values per stage
+  T* const chunk = a.scratch + static_cast<size_t>(l) * N * FW;
+  // this lane's entry (s, i) of an (., n, L) tensor; (s, i, j) of an
+  // (., m, n, L) one
   auto at2 = [&](int s, int i, int n) -> size_t {
     return (static_cast<size_t>(s) * n + i) * L + l;
   };
@@ -203,642 +290,480 @@ fused_ipm_kernel(const FusedArgs<T> a) {
     return ((static_cast<size_t>(s) * m + i) * n + j) * L + l;
   };
   const T zero = T(0), one = T(1), t_min = T(0.1), s_margin = T(0.1);
-  const T mu0 = a.mu0, sigma = a.sigma, tau = a.tau;
+  const T sigma = a.sigma, tau = a.tau;
   const T n_total = T(N * NR > 0 ? N * NR : 1);
 
-  // g-family values of stage s at the primal point (x, u, sl, su)
-  auto g_rows = [&](int s, const T (&x)[NX], const T (&u)[NU],
-                    const T (&slv)[NSA], const T (&suv)[NSA], T (&g)[NRA],
-                    T (&hv)[NHA], T (&gv)[NSA]) {
+  // ---- static blocks, initial iterate dx = 0, du = 0 ----
+  for (int e = t; e < NX * NX; e += kWarp) {
+    Qc[e] = a.Qc[e];
+    QN[e] = a.QN[e];
+  }
+  for (int e = t; e < NU * NX; e += kWarp) Sc[e] = a.Sc[e];
+  for (int e = t; e < NU * NU; e += kWarp) Rc[e] = a.Rc[e];
+  for (int e = t; e < NS; e += kWarp) {
+    zl[e] = a.zl[e];
+    Zl[e] = a.Zl[e];
+    zu[e] = a.zu[e];
+    Zu[e] = a.Zu[e];
+    lsh[e] = a.lsh[e];
+    ush[e] = a.ush[e];
+  }
+  for (int e = t; e < (N + 1) * NX; e += kWarp) dx[e] = zero;
+  for (int e = t; e < N * NU; e += kWarp) du[e] = zero;
+  __syncthreads();
+
+  // One row unit q of stage s at the current iterate.  mode 0: the initial
+  // sl, su, t, lambda (acc += lambda t); 1: the Hessian weight w and
+  // gradient term d; 2: the fraction-to-boundary minimum of the Newton step
+  // (acc = min); 3: the step of t, lambda, sl, su by alpha (acc += the new
+  // lambda t).  Modes 2 and 3 recompute the residuals, the soft
+  // elimination and the slack/dual steps from the same inputs, so both
+  // see the same values.
+  auto unit = [&](int s, int q, int mode, T mu, T alpha, T& acc) {
     const T xm = s > 0 ? one : zero;
+    const T* x = dx + s * NX;
+    const T* u = du + s * NU;
+    const T* Dx = Ddx + s * NX;
+    const T* Du = Ddu + s * NU;
+    T* const tr = tt + s * NR;
+    T* const lr = ll + s * NR;
+    int row[4];
+    T g[4], dg[4];
+    int n = 2;
+    T Dsl = zero, Dsu = zero;
+    int ks = -1;  // soft row index
+    if (q < U::UX) {
+      const int j = q - U::UB, idx = pick_idx<NBU>(a.idxbu, j);
+      const T us = u[idx];
+      row[0] = R::ULO + j;
+      row[1] = R::UHI + j;
+      g[0] = us - a.ub_lo[at2(s, j, NBU)];
+      g[1] = -us - a.ub_hi[at2(s, j, NBU)];
+      dg[0] = Du[idx];
+      dg[1] = -Du[idx];
+    } else if (q < U::UH) {
+      const int j = q - U::UX, idx = pick_idx<NBX>(a.idxbx, j);
+      const T xs = x[idx];
+      row[0] = R::XLO + j;
+      row[1] = R::XHI + j;
+      g[0] = xm * xs - a.xb_lo[at2(s, j, NBX)];
+      g[1] = -xm * xs - a.xb_hi[at2(s, j, NBX)];
+      dg[0] = xm * Dx[idx];
+      dg[1] = -xm * Dx[idx];
+    } else if (q < U::US) {
+      const int k = q - U::UH;
+      T hv = zero, Dhv = zero;
 #pragma unroll
-    for (int j = 0; j < NBU; ++j) {
-      const T us = pick(u, a.idxbu[j]);
-      g[R::ULO + j] = us - a.ub_lo[at2(s, j, NBU)];
-      g[R::UHI + j] = -us - a.ub_hi[at2(s, j, NBU)];
+      for (int i = 0; i < NX; ++i) {
+        const T ch = a.Ch[at3(s, k, i, NHH, NX)];
+        hv += ch * x[i];
+        if (mode >= 2) Dhv += ch * Dx[i];
+      }
+      row[0] = R::HLO + k;
+      row[1] = R::HHI + k;
+      g[0] = hv - a.hh_lo[at2(s, k, NHH)];
+      g[1] = -hv - a.hh_hi[at2(s, k, NHH)];
+      dg[0] = Dhv;
+      dg[1] = -Dhv;
+    } else {
+      const int k = q - U::US;
+      ks = k;
+      n = 4;
+      T acc_x = zero, acc_d = zero;
+#pragma unroll
+      for (int i = 0; i < NX; ++i) {
+        const T cs = a.Cs[at3(s, k, i, NS, NX)];
+        acc_x += cs * x[i];
+        if (mode >= 2) acc_d += cs * Dx[i];
+      }
+      const T gv = a.hofs[at2(s, k, NS)] + acc_x;
+      const T slh = a.slh[at2(s, k, NS)], suh = a.suh[at2(s, k, NS)];
+      if (mode == 0) {
+        sl[s * NS + k] = max_nan(slh - gv, lsh[k]) + s_margin;
+        su[s * NS + k] = max_nan(gv - suh, ush[k]) + s_margin;
+      }
+      const T slv = sl[s * NS + k], suv = su[s * NS + k];
+      row[0] = R::SSL + k;
+      row[1] = R::SSU + k;
+      row[2] = R::BSL + k;
+      row[3] = R::BSU + k;
+      g[0] = (gv - slh + slv);
+      g[1] = (suh - gv + suv);
+      g[2] = slv - lsh[k];
+      g[3] = suv - ush[k];
+      if (mode >= 1) {
+        T tv[4], lv[4], rv[4], av[4];
+#pragma unroll
+        for (int m = 0; m < 4; ++m) {
+          tv[m] = tr[row[m]];
+          lv[m] = lr[row[m]];
+          rv[m] = g[m] - tv[m];
+          av[m] = lv[m] / tv[m];
+        }
+        const T beta_l = Zl[k] + av[0] + av[2];
+        const T beta_u = Zu[k] + av[1] + av[3];
+        const T k_l = mu / tv[0] + mu / tv[2] - zl[k] - Zl[k] * slv -
+                      av[0] * rv[0] - av[2] * rv[2];
+        const T k_u = mu / tv[1] + mu / tv[3] - zu[k] - Zu[k] * suv -
+                      av[1] * rv[1] - av[3] * rv[3];
+        if (mode == 1) {
+          const T abar_l = av[0] * (Zl[k] + av[2]) / beta_l;
+          const T abar_u = av[1] * (Zu[k] + av[3]) / beta_u;
+          const T qtl = mu / tv[0] - av[0] * rv[0] - av[0] * k_l / beta_l;
+          const T qtu = mu / tv[1] - av[1] * rv[1] - av[1] * k_u / beta_u;
+          unit_w[s * NUNIT + q] = abar_l + abar_u;
+          unit_d[s * NUNIT + q] = qtl - qtu;
+          return;
+        }
+        Dsl = (k_l - av[0] * acc_d) / beta_l;
+        Dsu = (k_u + av[1] * acc_d) / beta_u;
+        dg[0] = acc_d + Dsl;
+        dg[1] = -acc_d + Dsu;
+        dg[2] = Dsl;
+        dg[3] = Dsu;
+      }
     }
+    if (mode == 0) {
 #pragma unroll
-    for (int j = 0; j < NBX; ++j) {
-      const T xs = pick(x, a.idxbx[j]);
-      g[R::XLO + j] = xm * xs - a.xb_lo[at2(s, j, NBX)];
-      g[R::XHI + j] = -xm * xs - a.xb_hi[at2(s, j, NBX)];
+      for (int m = 0; m < 4; ++m) {
+        if (m >= n) break;
+        const T t0 = max_nan(g[m], t_min);
+        const T l0 = a.mu0 / t0;
+        tr[row[m]] = t0;
+        lr[row[m]] = l0;
+        acc += l0 * t0;
+      }
+      return;
     }
+    if (mode == 1) {
+      // a box or h pair: weight a_lo + a_hi, gradient term v_lo - v_hi
+      T v[2], av[2];
 #pragma unroll
-    for (int r = 0; r < NHH; ++r) {
-      T acc = zero;
-#pragma unroll
-      for (int k = 0; k < NX; ++k) acc += a.Ch[at3(s, r, k, NHH, NX)] * x[k];
-      hv[r] = acc;
-      g[R::HLO + r] = acc - a.hh_lo[at2(s, r, NHH)];
-      g[R::HHI + r] = -acc - a.hh_hi[at2(s, r, NHH)];
+      for (int m = 0; m < 2; ++m) {
+        const T tv = tr[row[m]], lv = lr[row[m]];
+        av[m] = lv / tv;
+        v[m] = mu / tv - av[m] * (g[m] - tv);
+      }
+      const T sc = (q >= U::UX && q < U::UH) ? xm : one;
+      unit_w[s * NUNIT + q] = sc * (av[0] + av[1]);
+      unit_d[s * NUNIT + q] = sc * (v[0] - v[1]);
+      return;
     }
+    const T inf = static_cast<T>(INFINITY);
 #pragma unroll
-    for (int r = 0; r < NS; ++r) {
-      T acc = zero;
-#pragma unroll
-      for (int k = 0; k < NX; ++k) acc += a.Cs[at3(s, r, k, NS, NX)] * x[k];
-      gv[r] = a.hofs[at2(s, r, NS)] + acc;
-      g[R::SSL + r] = (gv[r] - a.slh[at2(s, r, NS)] + slv[r]);
-      g[R::SSU + r] = (a.suh[at2(s, r, NS)] - gv[r] + suv[r]);
-      g[R::BSL + r] = slv[r] - slsh[r];
-      g[R::BSU + r] = suv[r] - sush[r];
+    for (int m = 0; m < 4; ++m) {
+      if (m >= n) break;
+      const T tv = tr[row[m]], lv = lr[row[m]];
+      const T Dt = dg[m] + (g[m] - tv);
+      const T Dl = (mu - lv * tv) / tv - (lv / tv) * Dt;
+      if (mode == 2) {
+        const T qt = Dt < zero ? -tv / Dt : inf;
+        const T ql = Dl < zero ? -lv / Dl : inf;
+        acc = min_nan(acc, tau * qt);
+        acc = min_nan(acc, tau * ql);
+      } else {
+        const T tn = tv + alpha * Dt, ln = lv + alpha * Dl;
+        tr[row[m]] = tn;
+        lr[row[m]] = ln;
+        acc += ln * tn;
+      }
+    }
+    if (mode == 3 && ks >= 0) {
+      sl[s * NS + ks] += alpha * Dsl;
+      su[s * NS + ks] += alpha * Dsu;
     }
   };
 
-  // ---------------- initialization: dx = 0, du = 0 ----------------
-  for (int s = 0; s <= N; ++s)
-#pragma unroll
-    for (int i = 0; i < NX; ++i) a.dx[at2(s, i, NX)] = zero;
-  for (int s = 0; s < N; ++s) {
-#pragma unroll
-    for (int u = 0; u < NU; ++u) a.du[at2(s, u, NU)] = zero;
-    T x[NX], u[NU], slv[NSA], suv[NSA], g[NRA], hv[NHA],
-        gv[NSA];
-#pragma unroll
-    for (int i = 0; i < NX; ++i) x[i] = zero;
-#pragma unroll
-    for (int i = 0; i < NU; ++i) u[i] = zero;
-    // gv0 = hofs + Cs 0
-#pragma unroll
-    for (int r = 0; r < NS; ++r) {
-      T acc = zero;
-#pragma unroll
-      for (int k = 0; k < NX; ++k) acc += a.Cs[at3(s, r, k, NS, NX)] * zero;
-      const T gv0 = a.hofs[at2(s, r, NS)] + acc;
-      slv[r] = max_nan(a.slh[at2(s, r, NS)] - gv0, slsh[r]) + s_margin;
-      suv[r] = max_nan(gv0 - a.suh[at2(s, r, NS)], sush[r]) + s_margin;
-      S(lay.sl + static_cast<size_t>(s) * NS + r) = slv[r];
-      S(lay.su + static_cast<size_t>(s) * NS + r) = suv[r];
-    }
-    g_rows(s, x, u, slv, suv, g, hv, gv);
-#pragma unroll
-    for (int r = 0; r < NR; ++r) {
-      const T t0 = max_nan(g[r], t_min);
-      S(lay.t + static_cast<size_t>(s) * NR + r) = t0;
-      S(lay.lam + static_cast<size_t>(s) * NR + r) = mu0 / t0;
-    }
-  }
-
-  auto gap_now = [&]() -> T {
+  // ---- initial slacks, t = max(g, t_min), lambda = mu0 / t ----
+  T gap;
+  {
     T acc = zero;
-    for (int s = 0; s < N; ++s)
+    for (int i = t; i < N * NUNIT; i += kWarp)
+      unit(i / NUNIT, i % NUNIT, 0, zero, zero, acc);
+    gap = warp_sum(acc) / n_total;
+  }
+  __syncthreads();
+
+  // stage copies of the backward and the forward tiles
+  auto stage_back = [&](T* tile, int s) {
+    stage_lane<T, NX, NX, false>(tile + BT::A, a.A + at3(s, 0, 0, NX, NX),
+                                 L, t);
+    stage_lane<T, NX, NU, false>(tile + BT::B, a.B + at3(s, 0, 0, NX, NU),
+                                 L, t);
+    stage_lane<T, NHH, NX, false>(tile + Tile::C,
+                                  a.Ch + at3(s, 0, 0, NHH, NX), L, t);
+    stage_lane<T, NS, NX, false>(tile + Tile::C + NHH * NX,
+                                 a.Cs + at3(s, 0, 0, NS, NX), L, t);
+    stage_lane<T, NX, 1, false>(tile + Tile::cl, a.c + at2(s, 0, NX), L, t);
+    stage_lane<T, NX, 1, false>(tile + Tile::qxl, a.qx + at2(s, 0, NX), L,
+                                t);
+    stage_lane<T, NU, 1, false>(tile + Tile::qul, a.qu + at2(s, 0, NU), L,
+                                t);
+  };
+  auto stage_fwd = [&](T* tile, int s) {
+    stage_lane<T, NX, NX, true>(tile + FT::At, a.A + at3(s, 0, 0, NX, NX),
+                                L, t);
+    stage_lane<T, NX, NU, true>(tile + FT::Bt, a.B + at3(s, 0, 0, NX, NU),
+                                L, t);
+    for (int e = t; e < FW; e += kWarp)
+      cp_async<sizeof(T)>(tile + FT::c + e,
+                          chunk + static_cast<size_t>(s) * FW + e, true);
+  };
+
+  // thread t's row r of P and its column part (riccati_team.cuh)
+  const int r = t % TM::ROWS, part = t / TM::ROWS, j0 = part * TM::CW;
+  const bool row = r < NX;
+
+  // The stage's c = cb, Qt = Qbar', S, R = Rbar, qx = qxb, qu = qub into
+  // its tile, cb also into the scratch for the forward rollout.
+  auto build = [&](T* tile, int s) {
+    const T* x = dx + s * NX;
+    const T* u = du + s * NU;
+    const T* xn = dx + (s + 1) * NX;
+    const T* ws = unit_w + s * NUNIT;
+    const T* ds = unit_d + s * NUNIT;
+    if (row) {
+      // row r of Qbar, this part's columns; Q(r, j) at Qt + j * NX + r
 #pragma unroll
-      for (int r = 0; r < NR; ++r) {
-        const size_t o = static_cast<size_t>(s) * NR + r;
-        acc += S(lay.lam + o) * S(lay.t + o);
+      for (int jj = 0; jj < TM::CW; ++jj) {
+        const int j = j0 + jj;
+        if (j < NX) {
+          T q = Qc[r * NX + j];
+#pragma unroll
+          for (int b = 0; b < NBX; ++b)
+            if (r == j && a.idxbx[b] == r) q = q + ws[U::UX + b];
+          if (NC > 0) {
+            T gm = zero;
+#pragma unroll
+            for (int k = 0; k < NC; ++k)
+              gm += tile[Tile::C + k * NX + r] * ws[U::UH + k] *
+                    tile[Tile::C + k * NX + j];
+            q = q + gm;
+          }
+          tile[BT::Qt + j * NX + r] = q;
+        }
       }
-    return acc / n_total;
+      if (part == 0) {
+        // dynamics residual cb = A x + B u + c - x_next
+        T ax = zero;
+#pragma unroll
+        for (int j = 0; j < NX; ++j) ax += tile[BT::A + r * NX + j] * x[j];
+        T bu = zero;
+#pragma unroll
+        for (int v = 0; v < NU; ++v) bu += tile[BT::B + r * NU + v] * u[v];
+        const T cb = ax + bu + tile[Tile::cl + r] - xn[r];
+        tile[BT::c + r] = cb;
+        chunk[static_cast<size_t>(s) * FW + r] = cb;
+      }
+      if (part == TM::SPLIT - 1) {
+        // qxb = qx + Qc x + Sc' u - box terms - [Ch; Cs]' d
+        T acc = zero;
+#pragma unroll
+        for (int j = 0; j < NX; ++j) acc += Qc[r * NX + j] * x[j];
+        T acc2 = zero;
+#pragma unroll
+        for (int v = 0; v < NU; ++v) acc2 += Sc[v * NX + r] * u[v];
+        T gq = tile[Tile::qxl + r] + acc + acc2;
+#pragma unroll
+        for (int b = 0; b < NBX; ++b)
+          if (a.idxbx[b] == r) gq = gq - ds[U::UX + b];
+        if (NC > 0) {
+          T gc = zero;
+#pragma unroll
+          for (int k = 0; k < NC; ++k)
+            gc += tile[Tile::C + k * NX + r] * ds[U::UH + k];
+          gq = gq - gc;
+        }
+        tile[BT::qx + r] = gq;
+      }
+    }
+    // S = Sc, Rbar, qub = qu + Sc x + Rc u - box terms
+    for (int e = t; e < NU * NX + NU * NU + NU; e += kWarp) {
+      if (e < NU * NX) {
+        tile[BT::S + e] = Sc[e];
+      } else if (e < NU * NX + NU * NU) {
+        const int e2 = e - NU * NX, v = e2 / NU, v2 = e2 % NU;
+        T rb = Rc[e2];
+#pragma unroll
+        for (int j = 0; j < NBU; ++j)
+          if (v == v2 && a.idxbu[j] == v) rb = rb + ws[U::UB + j];
+        tile[BT::R + e2] = rb;
+      } else {
+        const int v = e - NU * NX - NU * NU;
+        T acc = zero;
+#pragma unroll
+        for (int i = 0; i < NX; ++i) acc += Sc[v * NX + i] * x[i];
+        T acc2 = zero;
+#pragma unroll
+        for (int v2 = 0; v2 < NU; ++v2) acc2 += Rc[v * NU + v2] * u[v2];
+        T gq = tile[Tile::qul + v] + acc + acc2;
+#pragma unroll
+        for (int j = 0; j < NBU; ++j)
+          if (a.idxbu[j] == v) gq = gq - ds[U::UB + j];
+        tile[BT::qu + v] = gq;
+      }
+    }
   };
 
   // ---------------- main iteration loop ----------------
   for (int it = 0; it < a.iters; ++it) {
-    const T gap = gap_now();
     const T mu = sigma * gap;
 
-    // ---- pass 1: residuals, weights, modified gradients, cb ----
-    for (int s = 0; s < N; ++s) {
-      const T xm = s > 0 ? one : zero;
-      T x[NX], u[NU], slv[NSA], suv[NSA], g[NRA], hv[NHA],
-          gv[NSA], tt[NRA], ll[NRA],
-          rr[NRA], aa[NRA];
-#pragma unroll
-      for (int i = 0; i < NX; ++i) x[i] = a.dx[at2(s, i, NX)];
-#pragma unroll
-      for (int i = 0; i < NU; ++i) u[i] = a.du[at2(s, i, NU)];
-#pragma unroll
-      for (int r = 0; r < NS; ++r) {
-        slv[r] = S(lay.sl + static_cast<size_t>(s) * NS + r);
-        suv[r] = S(lay.su + static_cast<size_t>(s) * NS + r);
-      }
-      g_rows(s, x, u, slv, suv, g, hv, gv);
-#pragma unroll
-      for (int r = 0; r < NR; ++r) {
-        const size_t o = static_cast<size_t>(s) * NR + r;
-        tt[r] = S(lay.t + o);
-        ll[r] = S(lay.lam + o);
-        rr[r] = g[r] - tt[r];
-        aa[r] = ll[r] / tt[r];
-        S(lay.res + o) = rr[r];
-      }
-
-      // gradient base: qx + Qc x + Sc' u, qu + Sc x + Rc u
-      T qxs[NX], qus[NU];
-#pragma unroll
-      for (int i = 0; i < NX; ++i) {
-        T acc = zero;
-#pragma unroll
-        for (int j = 0; j < NX; ++j) acc += sQc[i * NX + j] * x[j];
-        T acc2 = zero;
-#pragma unroll
-        for (int v = 0; v < NU; ++v) acc2 += sSc[v * NX + i] * u[v];
-        qxs[i] = a.qx[at2(s, i, NX)] + acc + acc2;
-      }
-#pragma unroll
-      for (int v = 0; v < NU; ++v) {
-        T acc = zero;
-#pragma unroll
-        for (int i = 0; i < NX; ++i) acc += sSc[v * NX + i] * x[i];
-        T acc2 = zero;
-#pragma unroll
-        for (int w = 0; w < NU; ++w) acc2 += sRc[v * NU + w] * u[w];
-        qus[v] = a.qu[at2(s, v, NU)] + acc + acc2;
-      }
-
-      // control box: Rbar diagonal weight and gradient term
-#pragma unroll
-      for (int j = 0; j < NBU; ++j) {
-        const int lo = R::ULO + j, hi = R::UHI + j;
-        S(lay.wu + static_cast<size_t>(s) * NBU + j) = aa[lo] + aa[hi];
-        const T vec = (mu / tt[lo] - aa[lo] * rr[lo]) -
-                      (mu / tt[hi] - aa[hi] * rr[hi]);
-        add_at(qus, a.idxbu[j], -vec);
-      }
-      // state box (stage 0 masked)
-#pragma unroll
-      for (int j = 0; j < NBX; ++j) {
-        const int lo = R::XLO + j, hi = R::XHI + j;
-        S(lay.wx + static_cast<size_t>(s) * NBX + j) = xm * (aa[lo] + aa[hi]);
-        const T vec = xm * ((mu / tt[lo] - aa[lo] * rr[lo]) -
-                            (mu / tt[hi] - aa[hi] * rr[hi]));
-        add_at(qxs, a.idxbx[j], -vec);
-      }
-      // hard h rows: gram weight, - Ch' v_lo + Ch' v_hi
-      if (NHH > 0) {
-        T vlo[NHA], vhi[NHA];
-#pragma unroll
-        for (int r = 0; r < NHH; ++r) {
-          const int lo = R::HLO + r, hi = R::HHI + r;
-          S(lay.wH + static_cast<size_t>(s) * NHH + r) = aa[lo] + aa[hi];
-          vlo[r] = mu / tt[lo] - aa[lo] * rr[lo];
-          vhi[r] = mu / tt[hi] - aa[hi] * rr[hi];
-        }
-#pragma unroll
-        for (int i = 0; i < NX; ++i) {
-          T tlo = zero, thi = zero;
-#pragma unroll
-          for (int r = 0; r < NHH; ++r) {
-            const T ch = a.Ch[at3(s, r, i, NHH, NX)];
-            tlo += ch * vlo[r];
-            thi += ch * vhi[r];
-          }
-          qxs[i] = qxs[i] - tlo + thi;
-        }
-      }
-      // soft rows: elimination scalars, gram weight, - Cs' qtil_l + Cs'
-      // qtil_u
-      if (NS > 0) {
-        T qtl[NSA], qtu[NSA];
-#pragma unroll
-        for (int r = 0; r < NS; ++r) {
-          const int isl = R::SSL + r, isu = R::SSU + r, ibl = R::BSL + r,
-                    ibu = R::BSU + r;
-          const T beta_l = sZl[r] + aa[isl] + aa[ibl];
-          const T beta_u = sZu[r] + aa[isu] + aa[ibu];
-          const T abar_l = aa[isl] * (sZl[r] + aa[ibl]) / beta_l;
-          const T abar_u = aa[isu] * (sZu[r] + aa[ibu]) / beta_u;
-          const T k_l = mu / tt[isl] + mu / tt[ibl] - szl[r] -
-                        sZl[r] * slv[r] - aa[isl] * rr[isl] -
-                        aa[ibl] * rr[ibl];
-          const T k_u = mu / tt[isu] + mu / tt[ibu] - szu[r] -
-                        sZu[r] * suv[r] - aa[isu] * rr[isu] -
-                        aa[ibu] * rr[ibu];
-          qtl[r] = mu / tt[isl] - aa[isl] * rr[isl] - aa[isl] * k_l / beta_l;
-          qtu[r] = mu / tt[isu] - aa[isu] * rr[isu] - aa[isu] * k_u / beta_u;
-          const size_t o = static_cast<size_t>(s) * NS + r;
-          S(lay.wS + o) = abar_l + abar_u;
-          S(lay.kl + o) = k_l;
-          S(lay.ku + o) = k_u;
-          S(lay.bl + o) = beta_l;
-          S(lay.bu + o) = beta_u;
-        }
-#pragma unroll
-        for (int i = 0; i < NX; ++i) {
-          T tl = zero, tu = zero;
-#pragma unroll
-          for (int r = 0; r < NS; ++r) {
-            const T cs = a.Cs[at3(s, r, i, NS, NX)];
-            tl += cs * qtl[r];
-            tu += cs * qtu[r];
-          }
-          qxs[i] = qxs[i] - tl + tu;
-        }
-      }
-#pragma unroll
-      for (int i = 0; i < NX; ++i)
-        S(lay.qxb + static_cast<size_t>(s) * NX + i) = qxs[i];
-#pragma unroll
-      for (int v = 0; v < NU; ++v)
-        S(lay.qub + static_cast<size_t>(s) * NU + v) = qus[v];
-
-      // dynamics residual cb = A x + B u + c - x_next
-#pragma unroll
-      for (int i = 0; i < NX; ++i) {
-        T ax = zero;
-#pragma unroll
-        for (int j = 0; j < NX; ++j) ax += a.A[at3(s, i, j, NX, NX)] * x[j];
-        T bu = zero;
-#pragma unroll
-        for (int v = 0; v < NU; ++v) bu += a.B[at3(s, i, v, NX, NU)] * u[v];
-        S(lay.cb + static_cast<size_t>(s) * NX + i) =
-            ax + bu + a.c[at2(s, i, NX)] - a.dx[at2(s + 1, i, NX)];
-      }
-    }
-    // terminal gradient and the initial-state residual
+    // ---- pass 1: weights and gradient terms of every row unit ----
     {
-      T xN[NX];
-#pragma unroll
-      for (int i = 0; i < NX; ++i) xN[i] = a.dx[at2(N, i, NX)];
-#pragma unroll
-      for (int i = 0; i < NX; ++i) {
-        T acc = zero;
-#pragma unroll
-        for (int j = 0; j < NX; ++j) acc += sQN[i * NX + j] * xN[j];
-        S(lay.qxb + static_cast<size_t>(N) * NX + i) =
-            a.qx[at2(N, i, NX)] + acc;
-        S(lay.Ddx + i) = a.dx0[static_cast<size_t>(i) * L + l] -
-                         a.dx[at2(0, i, NX)];
-      }
+      T unused = zero;
+      for (int i = t; i < N * NUNIT; i += kWarp)
+        unit(i / NUNIT, i % NUNIT, 1, mu, zero, unused);
     }
+    __syncthreads();
 
     // ---- pass 2: backward Riccati with the modified Hessians ----
-    {
-      T P[NX][NX], p[NX];
+    T Pi[NX], pi = zero;
 #pragma unroll
-      for (int i = 0; i < NX; ++i) {
+    for (int j = 0; j < NX; ++j) Pi[j] = row ? QN[r * NX + j] : zero;
+    if (row && part == TM::SPLIT - 1) {
+      T acc = zero;
 #pragma unroll
-        for (int j = 0; j < NX; ++j) P[i][j] = sQN[i * NX + j];
-        p[i] = S(lay.qxb + static_cast<size_t>(N) * NX + i);
+      for (int j = 0; j < NX; ++j) acc += QN[r * NX + j] * dx[N * NX + j];
+      pi = a.qx[at2(N, r, NX)] + acc;
+    }
+#pragma unroll
+    for (int n = 0; n < kRing - 1; ++n) {
+      if (n < N) stage_back(ring + n * Tile::size, N - 1 - n);
+      cp_async_commit();
+    }
+    for (int n = 0; n < N; ++n) {
+      cp_async_wait<kRing - 2>();
+      __syncthreads();  // tile n landed; the warp is done with tile n-1
+      const int ahead = n + kRing - 1;
+      if (ahead < N)
+        stage_back(ring + (ahead % kRing) * Tile::size, N - 1 - ahead);
+      cp_async_commit();
+      const int s = N - 1 - n;
+      T* const tile = ring + (n % kRing) * Tile::size;
+      build(tile, s);
+      __syncwarp();
+      T Kt[NU], kff[NU];
+      backward_stage<T, NX, NU, 1>(t, tile, team, Pi, pi, Kt, kff);
+      T* const cs = chunk + static_cast<size_t>(s) * FW;
+      if (row && part == 0) {
+#pragma unroll
+        for (int v = 0; v < NU; ++v) cs[FT::K - FT::c + v * NX + r] = Kt[v];
       }
-      for (int s = N - 1; s >= 0; --s) {
-        T Bs[NX][NU], cs[NX];
+      if (t == 0) {
 #pragma unroll
-        for (int i = 0; i < NX; ++i) {
-#pragma unroll
-          for (int v = 0; v < NU; ++v) Bs[i][v] = a.B[at3(s, i, v, NX, NU)];
-          cs[i] = S(lay.cb + static_cast<size_t>(s) * NX + i);
-        }
-        // PA = P A, one column of A at a time
-        T PA[NX][NX];
-#pragma unroll
-        for (int j = 0; j < NX; ++j) {
-          T acol[NX];
-#pragma unroll
-          for (int k = 0; k < NX; ++k) acol[k] = a.A[at3(s, k, j, NX, NX)];
-#pragma unroll
-          for (int i = 0; i < NX; ++i) {
-            T acc = zero;
-#pragma unroll
-            for (int k = 0; k < NX; ++k) acc += P[i][k] * acol[k];
-            PA[i][j] = acc;
-          }
-        }
-        T PB[NX][NU], Pc_p[NX];
-#pragma unroll
-        for (int i = 0; i < NX; ++i) {
-#pragma unroll
-          for (int v = 0; v < NU; ++v) {
-            T acc = zero;
-#pragma unroll
-            for (int k = 0; k < NX; ++k) acc += P[i][k] * Bs[k][v];
-            PB[i][v] = acc;
-          }
-          T acc = zero;
-#pragma unroll
-          for (int k = 0; k < NX; ++k) acc += P[i][k] * cs[k];
-          Pc_p[i] = acc + p[i];
-        }
-
-        // Huu = Rbar + B'PB, Hux = Sc + B'PA, hu = qub + B'(Pc + p)
-        T Huu[NU][NU], Hux[NU][NX], hu[NU];
-#pragma unroll
-        for (int v = 0; v < NU; ++v) {
-#pragma unroll
-          for (int w = 0; w < NU; ++w) {
-            T acc = zero;
-#pragma unroll
-            for (int k = 0; k < NX; ++k) acc += Bs[k][v] * PB[k][w];
-            T rb = sRc[v * NU + w];
-#pragma unroll
-            for (int j = 0; j < NBU; ++j)
-              if (v == w && a.idxbu[j] == v)
-                rb = rb + S(lay.wu + static_cast<size_t>(s) * NBU + j);
-            Huu[v][w] = rb + acc;
-          }
-#pragma unroll
-          for (int j = 0; j < NX; ++j) {
-            T acc = zero;
-#pragma unroll
-            for (int k = 0; k < NX; ++k) acc += Bs[k][v] * PA[k][j];
-            Hux[v][j] = sSc[v * NX + j] + acc;
-          }
-          T acc = zero;
-#pragma unroll
-          for (int k = 0; k < NX; ++k) acc += Bs[k][v] * Pc_p[k];
-          hu[v] = S(lay.qub + static_cast<size_t>(s) * NU + v) + acc;
-        }
-
-        // unrolled Cholesky Huu = Lf Lf' (nu <= 2)
-        T Lf[NU][NU];
-#pragma unroll
-        for (int r = 0; r < NU; ++r)
-#pragma unroll
-          for (int cc = 0; cc <= r; ++cc) {
-            T acc = Huu[r][cc];
-#pragma unroll
-            for (int q = 0; q < cc; ++q) acc -= Lf[r][q] * Lf[cc][q];
-            Lf[r][cc] = (r == cc) ? root(acc) : acc / Lf[cc][cc];
-          }
-        auto solve_neg = [&](T (&xv)[NU]) {
-          T y[NU];
-#pragma unroll
-          for (int r = 0; r < NU; ++r) {
-            T acc = -xv[r];
-#pragma unroll
-            for (int q = 0; q < r; ++q) acc -= Lf[r][q] * y[q];
-            y[r] = acc / Lf[r][r];
-          }
-#pragma unroll
-          for (int r = NU - 1; r >= 0; --r) {
-            T acc = y[r];
-#pragma unroll
-            for (int q = r + 1; q < NU; ++q) acc -= Lf[q][r] * xv[q];
-            xv[r] = acc / Lf[r][r];
-          }
-        };
-        T Kg[NU][NX], kff[NU];
-#pragma unroll
-        for (int j = 0; j < NX; ++j) {
-          T col[NU];
-#pragma unroll
-          for (int v = 0; v < NU; ++v) col[v] = Hux[v][j];
-          solve_neg(col);
-#pragma unroll
-          for (int v = 0; v < NU; ++v) Kg[v][j] = col[v];
-        }
-#pragma unroll
-        for (int v = 0; v < NU; ++v) kff[v] = hu[v];
-        solve_neg(kff);
-#pragma unroll
-        for (int v = 0; v < NU; ++v) {
-#pragma unroll
-          for (int j = 0; j < NX; ++j)
-            S(lay.K + (static_cast<size_t>(s) * NU + v) * NX + j) = Kg[v][j];
-          S(lay.kf + static_cast<size_t>(s) * NU + v) = kff[v];
-        }
-
-        // row weights of the stage's Hessian grams
-        T wh[NHA], ws[NSA], wxs[NBXA];
-#pragma unroll
-        for (int r = 0; r < NHH; ++r)
-          wh[r] = S(lay.wH + static_cast<size_t>(s) * NHH + r);
-#pragma unroll
-        for (int r = 0; r < NS; ++r)
-          ws[r] = S(lay.wS + static_cast<size_t>(s) * NS + r);
-#pragma unroll
-        for (int j = 0; j < NBX; ++j)
-          wxs[j] = S(lay.wx + static_cast<size_t>(s) * NBX + j);
-
-        // P <- sym(Qbar + A'PA + Hux'K), p <- qxb + A'(Pc + p) + Hux'k
-#pragma unroll
-        for (int i = 0; i < NX; ++i) {
-          T acol[NX];
-#pragma unroll
-          for (int k = 0; k < NX; ++k) acol[k] = a.A[at3(s, k, i, NX, NX)];
-          T chi[NHA], csi[NSA];
-#pragma unroll
-          for (int r = 0; r < NHH; ++r)
-            chi[r] = a.Ch[at3(s, r, i, NHH, NX)] * wh[r];
-#pragma unroll
-          for (int r = 0; r < NS; ++r)
-            csi[r] = a.Cs[at3(s, r, i, NS, NX)] * ws[r];
-#pragma unroll
-          for (int j = 0; j < NX; ++j) {
-            T q = sQc[i * NX + j];
-#pragma unroll
-            for (int b = 0; b < NBX; ++b)
-              if (i == j && a.idxbx[b] == i) q = q + wxs[b];
-            if (NHH > 0) {
-              T gh = zero;
-#pragma unroll
-              for (int r = 0; r < NHH; ++r)
-                gh += chi[r] * a.Ch[at3(s, r, j, NHH, NX)];
-              q = q + gh;
-            }
-            if (NS > 0) {
-              T gs = zero;
-#pragma unroll
-              for (int r = 0; r < NS; ++r)
-                gs += csi[r] * a.Cs[at3(s, r, j, NS, NX)];
-              q = q + gs;
-            }
-            T apa = zero;
-#pragma unroll
-            for (int k = 0; k < NX; ++k) apa += acol[k] * PA[k][j];
-            T hk = zero;
-#pragma unroll
-            for (int v = 0; v < NU; ++v) hk += Hux[v][i] * Kg[v][j];
-            P[i][j] = q + apa + hk;
-          }
-          T ac = zero;
-#pragma unroll
-          for (int k = 0; k < NX; ++k) ac += acol[k] * Pc_p[k];
-          T hkf = zero;
-#pragma unroll
-          for (int v = 0; v < NU; ++v) hkf += Hux[v][i] * kff[v];
-          p[i] = S(lay.qxb + static_cast<size_t>(s) * NX + i) + ac + hkf;
-        }
-#pragma unroll
-        for (int i = 0; i < NX; ++i)
-#pragma unroll
-          for (int j = i + 1; j < NX; ++j) {
-            const T v = T(0.5) * (P[i][j] + P[j][i]);
-            P[i][j] = v;
-            P[j][i] = v;
-          }
+        for (int v = 0; v < NU; ++v) cs[FT::k - FT::c + v] = kff[v];
       }
     }
+    cp_async_wait<0>();
+    __syncthreads();  // cb, K, k of every stage written; the ring is free
 
     // ---- pass 3: forward rollout of the Newton step ----
-    bool fin = true;
+    int fin = 1;
     {
-      T xv[NX];
-#pragma unroll
-      for (int i = 0; i < NX; ++i) {
-        xv[i] = S(lay.Ddx + i);
-        fin = fin && isfinite(xv[i]);
+      T xv = zero;
+      if (t < NX) {
+        xv = a.dx0[static_cast<size_t>(t) * L + l] - dx[t];
+        fin = isfinite(xv);
       }
-      for (int s = 0; s < N; ++s) {
+#pragma unroll
+      for (int n = 0; n < FRING - 1; ++n) {
+        if (n < N) stage_fwd(ring + n * FT::size, n);
+        cp_async_commit();
+      }
+      for (int n = 0; n < N; ++n) {
+        cp_async_wait<FRING - 2>();
+        __syncthreads();
+        const int ahead = n + FRING - 1;
+        if (ahead < N) stage_fwd(ring + (ahead % FRING) * FT::size, ahead);
+        cp_async_commit();
+        if (t < NX) Ddx[n * NX + t] = xv;
         T uv[NU];
+        xv = forward_stage<T, NX, NU, 1>(t, ring + (n % FRING) * FT::size,
+                                         xv, uv);
 #pragma unroll
         for (int v = 0; v < NU; ++v) {
-          T acc = zero;
-#pragma unroll
-          for (int j = 0; j < NX; ++j)
-            acc += S(lay.K + (static_cast<size_t>(s) * NU + v) * NX + j) *
-                   xv[j];
-          uv[v] = acc + S(lay.kf + static_cast<size_t>(s) * NU + v);
-          S(lay.Ddu + static_cast<size_t>(s) * NU + v) = uv[v];
           fin = fin && isfinite(uv[v]);
+          if (t == 0) Ddu[n * NU + v] = uv[v];
         }
-        T xn[NX];
-#pragma unroll
-        for (int i = 0; i < NX; ++i) {
-          T ax = zero;
-#pragma unroll
-          for (int j = 0; j < NX; ++j) ax += a.A[at3(s, i, j, NX, NX)] * xv[j];
-          T bu = zero;
-#pragma unroll
-          for (int v = 0; v < NU; ++v) bu += a.B[at3(s, i, v, NX, NU)] * uv[v];
-          xn[i] = ax + bu + S(lay.cb + static_cast<size_t>(s) * NX + i);
-        }
-#pragma unroll
-        for (int i = 0; i < NX; ++i) {
-          xv[i] = xn[i];
-          S(lay.Ddx + static_cast<size_t>(s + 1) * NX + i) = xn[i];
-          fin = fin && isfinite(xn[i]);
-        }
+        if (t < NX) fin = fin && isfinite(xv);
       }
+      if (t < NX) Ddx[N * NX + t] = xv;
+      cp_async_wait<0>();
     }
+    __syncthreads();
 
-    // ---- pass 4: slack/dual steps and fraction-to-boundary ----
+    // ---- pass 4: fraction-to-boundary; the freeze rule ----
     T alpha = one;
-    for (int s = 0; s < N; ++s) {
-      const T xm = s > 0 ? one : zero;
-      T dxs[NX], dus[NU];
-#pragma unroll
-      for (int i = 0; i < NX; ++i)
-        dxs[i] = S(lay.Ddx + static_cast<size_t>(s) * NX + i);
-#pragma unroll
-      for (int v = 0; v < NU; ++v)
-        dus[v] = S(lay.Ddu + static_cast<size_t>(s) * NU + v);
-      T rr[NRA], Dt[NRA];
-#pragma unroll
-      for (int r = 0; r < NR; ++r)
-        rr[r] = S(lay.res + static_cast<size_t>(s) * NR + r);
-#pragma unroll
-      for (int j = 0; j < NBU; ++j) {
-        const T us = pick(dus, a.idxbu[j]);
-        Dt[R::ULO + j] = us + rr[R::ULO + j];
-        Dt[R::UHI + j] = -us + rr[R::UHI + j];
-      }
-#pragma unroll
-      for (int j = 0; j < NBX; ++j) {
-        const T xs = pick(dxs, a.idxbx[j]);
-        Dt[R::XLO + j] = xm * xs + rr[R::XLO + j];
-        Dt[R::XHI + j] = -xm * xs + rr[R::XHI + j];
-      }
-#pragma unroll
-      for (int r = 0; r < NHH; ++r) {
-        T acc = zero;
-#pragma unroll
-        for (int k = 0; k < NX; ++k)
-          acc += a.Ch[at3(s, r, k, NHH, NX)] * dxs[k];
-        Dt[R::HLO + r] = acc + rr[R::HLO + r];
-        Dt[R::HHI + r] = -acc + rr[R::HHI + r];
-      }
-#pragma unroll
-      for (int r = 0; r < NS; ++r) {
-        T acc = zero;
-#pragma unroll
-        for (int k = 0; k < NX; ++k)
-          acc += a.Cs[at3(s, r, k, NS, NX)] * dxs[k];
-        const size_t o = static_cast<size_t>(s) * NS + r;
-        const size_t ot = static_cast<size_t>(s) * NR;
-        const T a_sl =
-            S(lay.lam + ot + R::SSL + r) / S(lay.t + ot + R::SSL + r);
-        const T a_su =
-            S(lay.lam + ot + R::SSU + r) / S(lay.t + ot + R::SSU + r);
-        const T Dsl = (S(lay.kl + o) - a_sl * acc) / S(lay.bl + o);
-        const T Dsu = (S(lay.ku + o) + a_su * acc) / S(lay.bu + o);
-        S(lay.Dsl + o) = Dsl;
-        S(lay.Dsu + o) = Dsu;
-        Dt[R::SSL + r] = acc + Dsl + rr[R::SSL + r];
-        Dt[R::SSU + r] = -acc + Dsu + rr[R::SSU + r];
-        Dt[R::BSL + r] = Dsl + rr[R::BSL + r];
-        Dt[R::BSU + r] = Dsu + rr[R::BSU + r];
-      }
-#pragma unroll
-      for (int r = 0; r < NR; ++r) {
-        const size_t o = static_cast<size_t>(s) * NR + r;
-        const T tv = S(lay.t + o), lv = S(lay.lam + o);
-        const T Dl = (mu - lv * tv) / tv - (lv / tv) * Dt[r];
-        S(lay.Dt + o) = Dt[r];
-        const T inf = static_cast<T>(INFINITY);
-        const T qt = Dt[r] < zero ? -tv / Dt[r] : inf;
-        const T ql = Dl < zero ? -lv / Dl : inf;
-        alpha = min_nan(alpha, tau * qt);
-        alpha = min_nan(alpha, tau * ql);
-      }
-    }
-    const bool keep = (gap <= a.gap_floor) || !(fin && isfinite(alpha));
+    for (int i = t; i < N * NUNIT; i += kWarp)
+      unit(i / NUNIT, i % NUNIT, 2, mu, zero, alpha);
+    alpha = warp_min_nan(alpha);
+    const int fin_all = warp_min_nan(fin);
+    const bool keep = (gap <= a.gap_floor) || !(fin_all && isfinite(alpha));
     if (keep) alpha = zero;
 
-    // ---- pass 5: apply the step ----
-    for (int s = 0; s <= N; ++s)
-#pragma unroll
-      for (int i = 0; i < NX; ++i)
-        a.dx[at2(s, i, NX)] +=
-            alpha * S(lay.Ddx + static_cast<size_t>(s) * NX + i);
-    for (int s = 0; s < N; ++s) {
-#pragma unroll
-      for (int v = 0; v < NU; ++v)
-        a.du[at2(s, v, NU)] +=
-            alpha * S(lay.Ddu + static_cast<size_t>(s) * NU + v);
-#pragma unroll
-      for (int r = 0; r < NS; ++r) {
-        const size_t o = static_cast<size_t>(s) * NS + r;
-        S(lay.sl + o) += alpha * S(lay.Dsl + o);
-        S(lay.su + o) += alpha * S(lay.Dsu + o);
-      }
-#pragma unroll
-      for (int r = 0; r < NR; ++r) {
-        const size_t o = static_cast<size_t>(s) * NR + r;
-        const T tv = S(lay.t + o), lv = S(lay.lam + o), Dt = S(lay.Dt + o);
-        const T Dl = (mu - lv * tv) / tv - (lv / tv) * Dt;
-        S(lay.t + o) = tv + alpha * Dt;
-        S(lay.lam + o) = lv + alpha * Dl;
-      }
+    // ---- pass 5: the step (t, lambda, sl, su by unit; then dx, du) ----
+    {
+      T acc = zero;
+      for (int i = t; i < N * NUNIT; i += kWarp)
+        unit(i / NUNIT, i % NUNIT, 3, mu, alpha, acc);
+      gap = warp_sum(acc) / n_total;
     }
+    __syncthreads();
+    for (int e = t; e < (N + 1) * NX; e += kWarp) dx[e] += alpha * Ddx[e];
+    for (int e = t; e < N * NU; e += kWarp) du[e] += alpha * Ddu[e];
+    __syncthreads();
   }
 
-  // ---------------- epilogue: gap and eq_res ----------------
-  a.gap_o[l] = gap_now();
+  // ---------------- epilogue: eq_res, outputs ----------------
   T eq = zero;
-  for (int s = 0; s < N; ++s) {
-    T x[NX], u[NU];
+  for (int i = t; i < N * NX; i += kWarp) {
+    const int s = i / NX, q = i % NX;
+    T ax = zero;
 #pragma unroll
-    for (int i = 0; i < NX; ++i) x[i] = a.dx[at2(s, i, NX)];
+    for (int j = 0; j < NX; ++j)
+      ax += a.A[at3(s, q, j, NX, NX)] * dx[s * NX + j];
+    T bu = zero;
 #pragma unroll
-    for (int v = 0; v < NU; ++v) u[v] = a.du[at2(s, v, NU)];
-#pragma unroll
-    for (int i = 0; i < NX; ++i) {
-      T ax = zero;
-#pragma unroll
-      for (int j = 0; j < NX; ++j) ax += a.A[at3(s, i, j, NX, NX)] * x[j];
-      T bu = zero;
-#pragma unroll
-      for (int v = 0; v < NU; ++v) bu += a.B[at3(s, i, v, NX, NU)] * u[v];
-      const T cbv = ax + bu + a.c[at2(s, i, NX)] - a.dx[at2(s + 1, i, NX)];
-      eq = max_nan(eq, cbv < zero ? -cbv : cbv);
-    }
+    for (int v = 0; v < NU; ++v)
+      bu += a.B[at3(s, q, v, NX, NU)] * du[s * NU + v];
+    const T cbv = ax + bu + a.c[at2(s, q, NX)] - dx[(s + 1) * NX + q];
+    eq = max_nan(eq, cbv < zero ? -cbv : cbv);
   }
-  T eq0 = zero;
-#pragma unroll
-  for (int i = 0; i < NX; ++i) {
-    const T d = a.dx0[static_cast<size_t>(i) * L + l] - a.dx[at2(0, i, NX)];
-    eq0 = max_nan(eq0, d < zero ? -d : d);
+  if (t < NX) {
+    const T d0 = a.dx0[static_cast<size_t>(t) * L + l] - dx[t];
+    eq = max_nan(eq, d0 < zero ? -d0 : d0);
   }
-  a.eq_o[l] = max_nan(eq, eq0);
+  eq = warp_max_nan(eq);
+  if (t == 0) {
+    a.gap_o[l] = gap;
+    a.eq_o[l] = eq;
+  }
+  for (int e = t; e < (N + 1) * NX; e += kWarp)
+    a.dx[at2(e / NX, e % NX, NX)] = dx[e];
+  for (int e = t; e < N * NU; e += kWarp)
+    a.du[at2(e / NU, e % NU, NU)] = du[e];
 }
 
-// Launches the instance on `stream`; returns cudaGetLastError().  Each
-// instance is compiled in its own translation unit
-// (ipm_lanes_<structure>_<type>.cu), declared here and defined there.
+// Launches the instance on `stream`; returns cudaGetLastError(), the error
+// of raising the kernel's shared-memory limit, or -3 if the horizon's
+// layout does not fit a block's shared memory.  Each instance is compiled
+// in its own translation unit (ipm_lanes_<structure>_<type>.cu), declared
+// here and defined there.
 template <typename T, int NX, int NU, int NBU, int NBX, int NHH, int NS>
 int launch(const FusedArgs<T>& args, cudaStream_t stream) {
-  const int grid = (args.L + kBlock - 1) / kBlock;
-  fused_ipm_kernel<T, NX, NU, NBU, NBX, NHH, NS>
-      <<<grid, kBlock, 0, stream>>>(args);
+  const size_t smem =
+      sizeof(T) * SharedLayout<NX, NU, NBU, NBX, NHH, NS>(args.N).total;
+  if (smem > kMaxShared) return -3;
+  const auto kernel = fused_ipm_kernel<T, NX, NU, NBU, NBX, NHH, NS>;
+  if (smem > 48 * 1024) {
+    // above 48 KB a launch is refused unless the kernel opts in
+    const cudaError_t err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        static_cast<int>(smem));
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  kernel<<<args.L, kWarp, smem, stream>>>(args);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -52,6 +52,9 @@
 namespace {
 
 using nmpc::BackTile;
+using nmpc::cp_async;
+using nmpc::cp_async_commit;
+using nmpc::cp_async_wait;
 using nmpc::FwdTile;
 using nmpc::TeamScratch;
 using nmpc::Team;
@@ -59,24 +62,6 @@ using nmpc::Team;
 constexpr int kLanes = 4;  // lanes per block, a warp each
 constexpr int kWarp = 32;
 constexpr int kRing = 3;   // backward tiles in the ring
-
-// cp.async of BYTES (4, 8 or 16) from global to shared memory; when
-// `valid` is false nothing is read and the destination is zero-filled
-template <int BYTES>
-__device__ __forceinline__ void cp_async(void* dst, const void* src,
-                                         bool valid) {
-  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.ca.shared.global [%0], [%1], %2, %3;\n" ::"r"(d),
-               "l"(src), "n"(BYTES), "r"(valid ? BYTES : 0)
-               : "memory");
-}
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
 
 // Copy the ROWS x COLS entries of one stage of a lane-minor tensor (`src`
 // at the stage's entry 0, lane 0) for the block's lanes l0 .. l0+kLanes-1

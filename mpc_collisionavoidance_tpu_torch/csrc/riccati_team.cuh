@@ -1,6 +1,7 @@
 // One lane's Riccati stage step, split across a team of threads: the
-// building block of K1 (csrc/riccati_lanes.cu), kept apart so that a fused
-// IPM kernel can run the same Newton step.
+// building block of K1 (csrc/riccati_lanes.cu) and of the Newton step of
+// K3, the fused IPM (csrc/ipm_lanes.cuh), with the cp.async helpers both
+// use.
 //
 // A lane's team is one warp: ROWS row slots (8 for nx <= 8, 16 for
 // nx <= 16) times SPLIT = 32 / ROWS column parts.  Thread t has row
@@ -37,6 +38,24 @@ namespace nmpc {
 
 __device__ __forceinline__ float root(float a) { return sqrtf(a); }
 __device__ __forceinline__ double root(double a) { return ::sqrt(a); }
+
+// cp.async of BYTES (4, 8 or 16) from global to shared memory; when
+// `valid` is false nothing is read and the destination is zero-filled
+template <int BYTES>
+__device__ __forceinline__ void cp_async(void* dst, const void* src,
+                                         bool valid) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], %2, %3;\n" ::"r"(d),
+               "l"(src), "n"(BYTES), "r"(valid ? BYTES : 0)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
 
 // A lane's team, one warp: ROWS row slots times SPLIT column parts; part
 // h owns the columns h * CW .. h * CW + CW - 1 of its row.

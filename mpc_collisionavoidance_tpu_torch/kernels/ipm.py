@@ -2,10 +2,12 @@
 
 Replaces `mpc_collisionavoidance_tpu/kernels/ipm_pallas.py::
 fused_ipm_lanes`.  One launch runs all `iters` fixed-sigma iterations of
-the lane IPM for every lane.  The wrapper checks device, dtype, shapes and
-contiguity, allocates the outputs and the kernel's scratch with
-`torch.empty`, launches on the current stream and raises on a launch
-error.  The kernel is specialised per structure (nx, nu, nbu, nbx, nHh,
+the lane IPM for every lane, one warp per lane (the design is in
+`csrc/ipm_lanes.cuh`).  The wrapper checks device, dtype, shapes and
+contiguity, allocates the outputs and the kernel's per-lane scratch (the
+Newton step's cb, K, k) with `torch.empty`, launches on the current
+stream and raises on a launch error or a horizon too long for the
+kernel's shared memory.  The kernel is specialised per structure (nx, nu, nbu, nbx, nHh,
 nS); `STRUCTURES` lists the instances, and any other structure raises.  It
 takes CUDA tensors only; `ops.ipm_lanes.ipm_solve_lanes(riccati="fused")`
 sends CPU tensors to the plain version `fused_ipm_lanes_plain`.  The
@@ -92,6 +94,9 @@ def fused_ipm_lanes_cuda(qp, idxbu, idxbx, iters=12, tau=0.995, sigma=0.1,
         float(tau), float(sigma), float(mu0),
         (ctypes.c_int * max(nbu, 1))(*idxbu),
         (ctypes.c_int * max(nbx, 1))(*idxbx), ptr_array, stream)
+    if code == -3:
+        raise ValueError(f"fused IPM kernel: the horizon N={N} does not fit "
+                         "a block's shared memory")
     _build.check(code, "fused_ipm_lanes")
     launches += 1
     return dx, du, gap, eq_res

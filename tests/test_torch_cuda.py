@@ -223,6 +223,38 @@ def test_fused_ipm_kernel_matches_plain(card, name, L, dtype):
                    - float((s_want == 0).float().mean())) <= 0.02
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("L", [5, 130])
+@pytest.mark.parametrize("name", ["usv_guidance_ca1", "usv_pf_ca"])
+def test_fused_ipm_kernel_matches_plain_at_more_widths(card, name, L,
+                                                       dtype):
+    """L=5 and 130 (one block per lane: no width is special to the
+    kernel, but the float32 copies and the per-lane scratch are indexed
+    by L)."""
+    solver, qp = _fused_qp(name, L, dtype, card)
+    args = (qp, solver.idxbu, solver.idxbx)
+    got = ipm.fused_ipm_lanes_cuda(*args, iters=12)
+    want = fused_ipm_lanes_plain(*args, iters=12)
+    torch.cuda.synchronize()
+    s_got, s_want = (lane_status(*o, 1e-7) for o in (got, want))
+    if dtype == torch.float64:
+        for g, w in zip(got[:2], want[:2]):
+            torch.testing.assert_close(g, w, rtol=0, atol=1e-9)
+        torch.testing.assert_close(got[2], want[2], rtol=1e-9, atol=0)
+        assert torch.equal(s_got, s_want)
+    else:
+        assert float((got[1] - want[1]).abs().max()) <= 5e-3
+        assert abs(float((s_got == 0).float().mean())
+                   - float((s_want == 0).float().mean())) <= 0.02
+
+
+def test_k1_and_k3_instances_do_not_spill(card):
+    """ptxas' report in the build's nvcc.log: 0 bytes spill stores and
+    loads for the four K1 and the four K3 instances."""
+    import chip_smoke
+    chip_smoke.check_spills((_build.build().parent / "nvcc.log").read_text())
+
+
 def test_fused_ipm_kernel_nan_lane(card):
     solver, qp = _fused_qp("usv_guidance_ca1", 37, torch.float64, card)
     dx0 = qp.dx0.clone()

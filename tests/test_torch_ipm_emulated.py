@@ -1,0 +1,126 @@
+"""K3's CUDA source run on the CPU, against the plain fused IPM.
+
+`csrc/ipm_lanes.cu`, its four instance files, `csrc/ipm_lanes.cuh` and
+`csrc/riccati_team.cuh` are compiled with g++ against the stand-in header
+of tests/torch_cuda_emulation.py (a std::thread per CUDA thread, one
+barrier per block, shuffles through the barrier, cp.async as a plain
+copy).  QPs come from the fused solver's own assembly at each OCP's
+default scenario (N=12, float64); the kernel's C entry is called as
+`kernels/ipm.py` calls it, and its dx, du, gap and status are held against
+`fused_ipm_lanes_plain`.  This checks the kernel's indexing where no card
+exists: the shared-memory layout, the row units of the stage-parallel
+passes, the stage tiles and the warp's Riccati step inside the IPM, the
+per-lane scratch and the warp reductions.
+"""
+
+import ctypes
+
+import numpy as np
+import pytest
+import torch
+
+from mpc_collisionavoidance_tpu_torch.config import SolverConfig
+from mpc_collisionavoidance_tpu_torch.kernels import ipm
+from mpc_collisionavoidance_tpu_torch.ocp import builders
+from mpc_collisionavoidance_tpu_torch.ops.ipm_lanes import (
+    contiguous_qp, fused_ipm_lanes_plain, lane_status)
+from mpc_collisionavoidance_tpu_torch.sim import scenarios
+from mpc_collisionavoidance_tpu_torch.solver.batch import to_lanes
+from tests import torch_cuda_emulation as emulation
+
+N, ITERS, TOL = 12, 4, 1e-7
+OCPS = ("usv_guidance_ca1", "usv_pf_ca")
+
+
+@pytest.fixture(scope="module")
+def emulated(tmp_path_factory):
+    """K3's C entries, built from the checkout's sources for the CPU."""
+    return emulation.build(
+        tmp_path_factory.mktemp("k3_emulated"),
+        ["riccati_team.cuh", "ipm_lanes.cuh"],
+        ["ipm_lanes.cu", "ipm_lanes_flagship_float.cu",
+         "ipm_lanes_flagship_double.cu", "ipm_lanes_hull_float.cu",
+         "ipm_lanes_hull_double.cu"],
+        ["nmpc_fused_ipm_lanes", "nmpc_fused_ipm_scratch"])
+
+
+def _qp(name, L):
+    """A float64 LaneQP of the fused solver's assembly, ye perturbed."""
+    spec = builders.build(name, N=N)
+    sc = (scenarios.guidance_ca1_default() if name == OCPS[0]
+          else scenarios.pf_ca_default())
+    m = spec.model
+    rng = np.random.default_rng(L)
+    x0s = np.broadcast_to(sc.x0, (L, m.nx)).copy()
+    x0s[:, 2 if m.nx == 8 else 6] += 0.1 * rng.standard_normal(L)
+    solver = SolverConfig(riccati="fused").build(spec, device="cpu",
+                                                 dtype=torch.float64)
+    lanes = [to_lanes(torch.tensor(np.asarray(a), dtype=torch.float64))
+             for a in (x0s, np.broadcast_to(sc.params, (L, m.np_)),
+                       np.broadcast_to(sc.lh, (L, m.nh)))]
+    qp = contiguous_qp(solver._build_qp(solver.init_state(x0s), *lanes))
+    return qp, solver.idxbu, solver.idxbx
+
+
+def _run(lib, qp, idxbu, idxbx):
+    """The C entry as kernels/ipm.py calls it, on CPU tensors."""
+    nx, nu, L = qp.A.shape[1], qp.B.shape[2], qp.B.shape[-1]
+    structure = (nx, nu, len(idxbu), len(idxbx), qp.Ch.shape[1],
+                 qp.Cs.shape[1])
+    assert structure in ipm.STRUCTURES
+    opts = dict(dtype=qp.A.dtype)
+    dx, du = torch.empty(N + 1, nx, L, **opts), torch.empty(N, nu, L, **opts)
+    gap, eq_res = torch.empty(L, **opts), torch.empty(L, **opts)
+    slots = lib.nmpc_fused_ipm_scratch(*structure, N)
+    assert slots == N * (nx + nu * nx + nu)
+    scratch = torch.full((slots * L,), float("nan"), **opts)
+    tensors = [getattr(qp, f) for f in ipm._LANE_FIELDS + ipm._STATIC_FIELDS]
+    ptrs = [t.data_ptr() for t in (*tensors, dx, du, gap, eq_res, scratch)]
+    code = lib.nmpc_fused_ipm_lanes(
+        1, *structure, N, L, ITERS, 0.995, 0.1, 1.0,
+        (ctypes.c_int * max(len(idxbu), 1))(*idxbu),
+        (ctypes.c_int * max(len(idxbx), 1))(*idxbx),
+        (ctypes.c_void_p * len(ptrs))(*ptrs), None)
+    assert code == 0
+    return dx, du, gap, eq_res
+
+
+@pytest.mark.parametrize("L", [1, 5, 6])
+@pytest.mark.parametrize("name", OCPS)
+def test_emulated_kernel_matches_plain(emulated, name, L):
+    qp, idxbu, idxbx = _qp(name, L)
+    got = _run(emulated, qp, idxbu, idxbx)
+    want = fused_ipm_lanes_plain(qp, idxbu, idxbx, iters=ITERS)
+    for g, w in zip(got[:2], want[:2]):
+        torch.testing.assert_close(g, w, rtol=0, atol=1e-9)
+    torch.testing.assert_close(got[2], want[2], rtol=1e-9, atol=0)
+    assert torch.equal(lane_status(*got, TOL), lane_status(*want, TOL))
+
+
+@pytest.mark.parametrize("name", OCPS)
+def test_emulated_kernel_nan_lane(emulated, name):
+    """A NaN in one lane's dx0: that lane gets status 2, and every other
+    lane's outputs are bitwise what they were."""
+    L, lane = 5, 3
+    qp, idxbu, idxbx = _qp(name, L)
+    ref = _run(emulated, qp, idxbu, idxbx)
+    dx0 = qp.dx0.clone()
+    dx0[0, lane] = float("nan")
+    got = _run(emulated, qp._replace(dx0=dx0), idxbu, idxbx)
+    status = lane_status(*got, TOL)
+    assert int(status[lane]) == 2
+    keep = torch.arange(L) != lane
+    for g, r in zip(got, ref):
+        assert torch.equal(g[..., keep], r[..., keep])
+    assert torch.equal(status[keep], lane_status(*ref, TOL)[keep])
+
+
+def test_emulated_entry_refuses_a_horizon_beyond_shared_memory(emulated):
+    """A horizon whose per-lane state exceeds a block's shared memory is
+    refused (-3, which kernels/ipm.py raises as a ValueError) before any
+    launch; N=100 is far inside."""
+    ptrs = (ctypes.c_void_p * 32)()
+    one = (ctypes.c_int * 1)(0)
+    assert emulated.nmpc_fused_ipm_lanes(
+        1, 8, 1, 1, 0, 0, 8, 400, 1, ITERS, 0.995, 0.1, 1.0, one, one, ptrs,
+        None) == -3

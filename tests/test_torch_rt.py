@@ -59,10 +59,11 @@ class _Serving:
     def __enter__(self):
         self.server.warmup()
         self._thread.start()
-        tcp = self.server.parse_tcp(self.server.path)
+        # RTServer.start() sets _server once its socket listens; a Unix
+        # socket's path exists from bind(), before listen(), and a client
+        # connecting in between is refused
         deadline = time.time() + 10
-        while not (self.server.bound_port if tcp
-                   else Path(self.server.path).exists()):
+        while self.server._server is None:
             assert time.time() < deadline, "server never started listening"
             time.sleep(0.05)
         return self
