@@ -1,6 +1,6 @@
 // C entry points of the fused whole-IPM solve K3 (the kernel and its
 // design notes are in ipm_lanes.cuh; the instances are compiled in
-// ipm_lanes_{flagship,hull}_{float,double}.cu).
+// ipm_lanes_{flagship,hull,pf,low_level,acados}_{float,double}.cu).
 
 #include "ipm_lanes.cuh"
 
@@ -11,15 +11,20 @@ using nmpc::ipm::kMaxIdx;
 using nmpc::ipm::launch;
 using nmpc::ipm::scratch_per_stage;
 
-// the instantiated structures: the flagship usv_guidance_ca1 and the hull
-// usv_pf_ca
-enum class Structure { kNone, kFlagship, kHull };
+// the instantiated structures: the flagship usv_guidance_ca1, the hull
+// usv_pf_ca, and the hull family's models with no h rows: usv_pf,
+// usv_low_level with usv_position_control, usv_acados
+enum class Structure { kNone, kFlagship, kHull, kPf, kLowLevel, kAcados };
 
 Structure structure_of(int nx, int nu, int nbu, int nbx, int nhh, int ns) {
   if (nx == 8 && nu == 1 && nbu == 1 && nbx == 0 && nhh == 0 && ns == 8)
     return Structure::kFlagship;
-  if (nx == 14 && nu == 2 && nbu == 2 && nbx == 5 && nhh == 4 && ns == 0)
-    return Structure::kHull;
+  if (nu != 2 || nbu != 2 || nbx != 5) return Structure::kNone;
+  if (nx == 14 && nhh == 4 && ns == 0) return Structure::kHull;
+  if (nhh != 0 || ns != 0) return Structure::kNone;
+  if (nx == 14) return Structure::kPf;
+  if (nx == 8) return Structure::kLowLevel;
+  if (nx == 5) return Structure::kAcados;
   return Structure::kNone;
 }
 
@@ -50,8 +55,18 @@ int run(Structure st, int N, int L, int iters, double tau, double sigma,
   a.sigma = static_cast<T>(sigma);
   a.mu0 = static_cast<T>(mu0);
   a.gap_floor = static_cast<T>(sizeof(T) == 8 ? 1e-13 : 3e-7);
-  if (st == Structure::kFlagship) return launch<T, NMPC_FLAGSHIP>(a, stream);
-  return launch<T, NMPC_HULL>(a, stream);
+  switch (st) {
+    case Structure::kFlagship:
+      return launch<T, NMPC_FLAGSHIP>(a, stream);
+    case Structure::kHull:
+      return launch<T, NMPC_HULL>(a, stream);
+    case Structure::kPf:
+      return launch<T, NMPC_PF>(a, stream);
+    case Structure::kLowLevel:
+      return launch<T, NMPC_LOW_LEVEL>(a, stream);
+    default:
+      return launch<T, NMPC_ACADOS>(a, stream);
+  }
 }
 
 }  // namespace
@@ -65,7 +80,12 @@ extern "C" long long nmpc_fused_ipm_scratch(int nx, int nu, int nbu, int nbx,
     case Structure::kFlagship:
       return static_cast<long long>(N) * scratch_per_stage<8, 1>();
     case Structure::kHull:
+    case Structure::kPf:
       return static_cast<long long>(N) * scratch_per_stage<14, 2>();
+    case Structure::kLowLevel:
+      return static_cast<long long>(N) * scratch_per_stage<8, 2>();
+    case Structure::kAcados:
+      return static_cast<long long>(N) * scratch_per_stage<5, 2>();
     default:
       return -1;
   }

@@ -60,14 +60,36 @@
 //   to a few ulp (float64 ~1e-16 relative; float32 ~1e-7, inside the
 //   gap-floor ball the float32 checks allow); minima and maxima are exact.
 //
-// Shared memory per lane (= per block) at N=100, and blocks per SM (the
-// H100's 228 KB per SM, 1 KB reserved per block):
-//   flagship (8, 1, 1, 0, 0, 8): 13,098 values: float 52,392 B, 4 per SM;
-//                                double 104,784 B, 2 per SM;
-//   hull (14, 2, 2, 5, 4, 0):    12,446 values: float 49,784 B, 4 per SM;
-//                                double 99,568 B, 2 per SM.
-// So at L=512 float32 runs in one wave (528 resident lanes), float64 in
-// two.  A horizon whose layout exceeds the 227 KB opt-in is refused (-3).
+// Shared memory per lane (= per block) at the main paths' N, and blocks
+// per SM (the H100's 228 KB per SM, 1 KB reserved per block):
+//   flagship (8, 1, 1, 0, 0, 8), N=100: 13,098 values: float 52,392 B,
+//                                4 per SM; double 104,784 B, 2 per SM;
+//   hull (14, 2, 2, 5, 4, 0), N=100: 12,446 values: float 49,784 B, 4 per
+//                                SM; double 99,568 B, 2 per SM;
+//   usv_pf (14, 2, 2, 5, 0, 0), N=100: 9,878 values: float 39,512 B, 5 per
+//                                SM; double 79,024 B, 2 per SM;
+//   usv_low_level (8, 2, 2, 5, 0, 0), N=100: 7,148 values: float 28,592 B,
+//                                7 per SM; double 57,184 B, 4 per SM (at
+//                                usv_position_control's N=20: 2,188);
+//   usv_acados (5, 2, 2, 5, 0, 0), N=20: 1,573 values: float 6,292 B,
+//                                31 per SM; double 12,584 B, 17 per SM.
+// So at L=512 float32 runs in one wave (528 resident lanes or more),
+// float64 in two (one from usv_low_level down).  A horizon whose layout
+// exceeds the 227 KB opt-in is refused (-3).  A structure with neither
+// hard nor soft rows (nHh = nS = 0) has box rows only: its tiles carry no
+// row block and its row units are the box pairs.
+//
+// Registers.  A lane's warp keeps little in registers (its row of P, the
+// step's small per-lane values), but what the compiler hoists out of the
+// stage loops adds up: the shared-memory layout's 22 offsets, and the
+// addresses of unrolled stage copies.  Two things keep every instance
+// under the 255-register cap without spills: the layout is computed on the
+// host and passed in the argument block (`FusedArgs::lay`), so the kernel
+// reads the offsets from the constant bank, and the copy loops
+// (`stage_lane`, the forward tile's scratch) are not unrolled.  Without
+// them the double instances of the structures with no h rows spilled
+// (usv_pf 28 / 72 bytes at 255 registers, usv_acados 16 / 36), though the
+// hull's, with more code, did not.
 //
 // What bounds it on the H100: the lane's dependent chain.  12 iterations
 // each walk 100 backward and 100 forward stages of the warp step (K1's
@@ -93,6 +115,14 @@ constexpr int kRing = 3;     // backward stage tiles in the ring
 constexpr int kMaxIdx = 16;  // room for idxbu / idxbx in the argument block
 constexpr size_t kMaxShared = 232448;  // the per-block opt-in of sm_90
 
+// offsets (in values) of a block's shared memory; computed on the host and
+// passed in the argument block, so the kernel reads them from the constant
+// bank instead of holding them in registers
+struct Layout {
+  int ring, team, Qc, QN, Sc, Rc, zl, Zl, zu, Zu, lsh, ush, dx, du, sl, su,
+      t, lam, w, d, Ddx, Ddu, total;
+};
+
 template <typename T>
 struct FusedArgs {
   // lane tensors
@@ -107,6 +137,7 @@ struct FusedArgs {
   int idxbu[kMaxIdx], idxbx[kMaxIdx];
   int N, L, iters;
   T tau, sigma, mu0, gap_floor;
+  Layout lay;  // set by launch()
 };
 
 // minimum / maximum that propagate a NaN in either argument, as
@@ -190,12 +221,10 @@ __host__ __device__ constexpr int scratch_per_stage() {
 
 // offsets (in values) of a block's shared memory for horizon N
 template <int NX, int NU, int NBU, int NBX, int NHH, int NS>
-struct SharedLayout {
+struct SharedLayout : Layout {
   static constexpr int NR = Rows<NBU, NBX, NHH, NS>::NR;
   static constexpr int NUNIT = Units<NBU, NBX, NHH, NS>::NUNIT;
   using Tile = StageTile<NX, NU, NHH + NS>;
-  int ring, team, Qc, QN, Sc, Rc, zl, Zl, zu, Zu, lsh, ush, dx, du, sl, su,
-      t, lam, w, d, Ddx, Ddu, total;
   __host__ __device__ explicit SharedLayout(int N) {
     int o = 0;
     ring = o; o += kRing * Tile::size;
@@ -230,6 +259,8 @@ struct SharedLayout {
 template <typename T, int ROWS, int COLS, bool TR>
 __device__ __forceinline__ void stage_lane(T* dst, const T* src, size_t L,
                                            int t) {
+  // not unrolled: unrolled, the copies' addresses crowd out registers
+#pragma unroll 1
   for (int e = t; e < ROWS * COLS; e += kWarp) {
     const int slot = TR ? (e % COLS) * ROWS + e / COLS : e;
     cp_async<sizeof(T)>(dst + slot, src + e * L, true);
@@ -256,7 +287,7 @@ fused_ipm_kernel(const FusedArgs<T> a) {
   T* const sm = reinterpret_cast<T*>(smem);
   const int N = a.N, t = threadIdx.x, l = blockIdx.x;
   const size_t L = static_cast<size_t>(a.L);
-  const SL lay(N);
+  const Layout& lay = a.lay;
   T* const ring = sm + lay.ring;
   T* const team = sm + lay.team;
   T* const Qc = sm + lay.Qc;
@@ -505,6 +536,7 @@ fused_ipm_kernel(const FusedArgs<T> a) {
                                 L, t);
     stage_lane<T, NX, NU, true>(tile + FT::Bt, a.B + at3(s, 0, 0, NX, NU),
                                 L, t);
+#pragma unroll 1
     for (int e = t; e < FW; e += kWarp)
       cp_async<sizeof(T)>(tile + FT::c + e,
                           chunk + static_cast<size_t>(s) * FW + e, true);
@@ -752,8 +784,9 @@ fused_ipm_kernel(const FusedArgs<T> a) {
 // here and defined there.
 template <typename T, int NX, int NU, int NBU, int NBX, int NHH, int NS>
 int launch(const FusedArgs<T>& args, cudaStream_t stream) {
-  const size_t smem =
-      sizeof(T) * SharedLayout<NX, NU, NBU, NBX, NHH, NS>(args.N).total;
+  FusedArgs<T> a = args;
+  a.lay = SharedLayout<NX, NU, NBU, NBX, NHH, NS>(args.N);
+  const size_t smem = sizeof(T) * a.lay.total;
   if (smem > kMaxShared) return -3;
   const auto kernel = fused_ipm_kernel<T, NX, NU, NBU, NBX, NHH, NS>;
   if (smem > 48 * 1024) {
@@ -763,21 +796,29 @@ int launch(const FusedArgs<T>& args, cudaStream_t stream) {
         static_cast<int>(smem));
     if (err != cudaSuccess) return static_cast<int>(err);
   }
-  kernel<<<args.L, kWarp, smem, stream>>>(args);
+  kernel<<<a.L, kWarp, smem, stream>>>(a);
   return static_cast<int>(cudaGetLastError());
 }
 
 // the instantiated structures (nx, nu, nbu, nbx, nHh, nS)
-#define NMPC_FLAGSHIP 8, 1, 1, 0, 0, 8  // usv_guidance_ca1
-#define NMPC_HULL 14, 2, 2, 5, 4, 0     // usv_pf_ca
-extern template int launch<float, NMPC_FLAGSHIP>(const FusedArgs<float>&,
-                                                 cudaStream_t);
-extern template int launch<double, NMPC_FLAGSHIP>(const FusedArgs<double>&,
-                                                  cudaStream_t);
-extern template int launch<float, NMPC_HULL>(const FusedArgs<float>&,
-                                             cudaStream_t);
-extern template int launch<double, NMPC_HULL>(const FusedArgs<double>&,
-                                              cudaStream_t);
+#define NMPC_FLAGSHIP 8, 1, 1, 0, 0, 8   // usv_guidance_ca1
+#define NMPC_HULL 14, 2, 2, 5, 4, 0      // usv_pf_ca
+#define NMPC_PF 14, 2, 2, 5, 0, 0        // usv_pf
+#define NMPC_LOW_LEVEL 8, 2, 2, 5, 0, 0  // usv_low_level, usv_position_control
+#define NMPC_ACADOS 5, 2, 2, 5, 0, 0     // usv_acados
+#define NMPC_DECLARE_INSTANCE(T, S) \
+  extern template int launch<T, S>(const FusedArgs<T>&, cudaStream_t);
+NMPC_DECLARE_INSTANCE(float, NMPC_FLAGSHIP)
+NMPC_DECLARE_INSTANCE(double, NMPC_FLAGSHIP)
+NMPC_DECLARE_INSTANCE(float, NMPC_HULL)
+NMPC_DECLARE_INSTANCE(double, NMPC_HULL)
+NMPC_DECLARE_INSTANCE(float, NMPC_PF)
+NMPC_DECLARE_INSTANCE(double, NMPC_PF)
+NMPC_DECLARE_INSTANCE(float, NMPC_LOW_LEVEL)
+NMPC_DECLARE_INSTANCE(double, NMPC_LOW_LEVEL)
+NMPC_DECLARE_INSTANCE(float, NMPC_ACADOS)
+NMPC_DECLARE_INSTANCE(double, NMPC_ACADOS)
+#undef NMPC_DECLARE_INSTANCE
 
 }  // namespace ipm
 }  // namespace nmpc

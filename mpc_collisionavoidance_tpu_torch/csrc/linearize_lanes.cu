@@ -27,20 +27,31 @@
 // (400 blocks of 128 on 132 SMs); the cost is the sin/cos/atan2 latency
 // and the register footprint of the duals (x, k, acc and the stage state:
 // ~4 x 8 x 7 values per thread), which limits occupancy and may spill in
-// float64.  The hull (usv_pf_ca: nx=14, 9 f tangents) carries ~4 x 14 x 10
-// dual values per thread, above the 255-register cap in both precisions,
-// so it spills to local memory.  Accepted for bring-up.
+// float64.  The 14-state hulls (usv_pf_ca, usv_pf: 9 f tangents) carry
+// ~4 x 14 x 10 dual values per thread, above the 255-register cap in both
+// precisions, so they spill to local memory.  Accepted for bring-up.
 //
-// One C entry per model form (csrc/models/<name>.cuh): flagship
-// usv_guidance_ca1 and hull usv_pf_ca.
+// A model with no parameters (NP = 0) reads none: the kernel hands its
+// form a size-1 dummy array, and the params pointer (of an empty tensor,
+// possibly null) is never read.  A model with no constraint rows (NH = 0)
+// skips the constraint pass at compile time, so hbar and C (empty) are
+// never written.  No array has size 0.
+//
+// One C entry per model form (csrc/models/<name>.cuh): the flagship
+// usv_guidance_ca1, and the hull family usv_pf_ca, usv_pf, usv_low_level,
+// usv_acados and usv_position_control.
 
 #include <cuda_runtime.h>
 
 #include <cstddef>
 
 #include "dual.cuh"
+#include "models/usv_acados.cuh"
 #include "models/usv_guidance_ca1.cuh"
+#include "models/usv_low_level.cuh"
+#include "models/usv_pf.cuh"
 #include "models/usv_pf_ca.cuh"
+#include "models/usv_position_control.cuh"
 
 namespace {
 
@@ -80,7 +91,8 @@ linearize_lanes_kernel(const T* __restrict__ xs, const T* __restrict__ ub,
     return (static_cast<size_t>(i) * N + s) * L + l;
   };
 
-  T p[M::NP];
+  // the parameters; a size-1 dummy (never read) for a form with none
+  T p[M::NP > 0 ? M::NP : 1] = {};
 #pragma unroll
   for (int i = 0; i < M::NP; ++i) p[i] = prm[static_cast<size_t>(i) * L + l];
 
@@ -137,22 +149,24 @@ linearize_lanes_kernel(const T* __restrict__ xs, const T* __restrict__ ub,
   }
 
   // ---- constraint rows with |h_dep| forward tangents ----
-  using DH = nmpc::Dual<T, M::N_HDEP>;
-  DH xh[NX];
+  if constexpr (M::NH > 0) {
+    using DH = nmpc::Dual<T, M::N_HDEP>;
+    DH xh[NX];
 #pragma unroll
-  for (int i = 0; i < NX; ++i) xh[i] = DH(xs[plane(i)]);
+    for (int i = 0; i < NX; ++i) xh[i] = DH(xs[plane(i)]);
 #pragma unroll
-  for (int j = 0; j < M::N_HDEP; ++j) xh[M::h_dep(j)].d[j] = T(1);
-  DH hv[M::NH];
-  M::h(xh, p, hv);
+    for (int j = 0; j < M::N_HDEP; ++j) xh[M::h_dep(j)].d[j] = T(1);
+    DH hv[M::NH];
+    M::h(xh, p, hv);
 #pragma unroll
-  for (int r = 0; r < M::NH; ++r) {
-    hbar[plane(r)] = hv[r].v;
+    for (int r = 0; r < M::NH; ++r) {
+      hbar[plane(r)] = hv[r].v;
 #pragma unroll
-    for (int c = 0; c < NX; ++c) {
-      const int pos = h_pos<M>(c);
-      C[((static_cast<size_t>(s) * M::NH + r) * NX + c) * L + l] =
-          pos >= 0 ? hv[r].d[pos >= 0 ? pos : 0] : T(0);
+      for (int c = 0; c < NX; ++c) {
+        const int pos = h_pos<M>(c);
+        C[((static_cast<size_t>(s) * M::NH + r) * NX + c) * L + l] =
+            pos >= 0 ? hv[r].d[pos >= 0 ? pos : 0] : T(0);
+      }
     }
   }
 }
@@ -165,7 +179,8 @@ int launch(int N, int L, double dt_step, int steps, const void* xs,
   const int grid = static_cast<int>((threads + kBlock - 1) / kBlock);
   // the reference scales by Python floats computed in double, then rounds
   // them to the working type: 0.5*h, h and h/6
-  linearize_lanes_kernel<T, M><<<grid, kBlock, 0, stream>>>(
+  const auto kernel = linearize_lanes_kernel<T, M>;
+  kernel<<<grid, kBlock, 0, stream>>>(
       static_cast<const T*>(xs), static_cast<const T*>(ub),
       static_cast<const T*>(prm), static_cast<T*>(xn), static_cast<T*>(J),
       static_cast<T*>(hbar), static_cast<T*>(C), N, L,
@@ -189,23 +204,22 @@ int entry(int is_double, int N, int L, double dt_step, int steps,
 
 }  // namespace
 
+// One C entry per model form, nmpc_linearize_<model>(is_double, N, L,
+// dt_step, steps, xs, ubar, params, xn, J, hbar, C, stream), with
 // dt_step = dt / integrator_steps.  Each returns cudaGetLastError() after
 // the launch (0 = success) or -2 for an empty problem.
-extern "C" int nmpc_linearize_usv_guidance_ca1(int is_double, int N, int L,
-                                               double dt_step, int steps,
-                                               const void* xs, const void* ub,
-                                               const void* prm, void* xn,
-                                               void* J, void* hbar, void* C,
-                                               void* stream) {
-  return entry<nmpc::UsvGuidanceCa1>(is_double, N, L, dt_step, steps, xs, ub,
-                                     prm, xn, J, hbar, C, stream);
-}
+#define NMPC_LINEARIZE_ENTRY(NAME, FORM)                                    \
+  extern "C" int nmpc_linearize_##NAME(                                     \
+      int is_double, int N, int L, double dt_step, int steps,              \
+      const void* xs, const void* ub, const void* prm, void* xn, void* J,  \
+      void* hbar, void* C, void* stream) {                                  \
+    return entry<nmpc::FORM>(is_double, N, L, dt_step, steps, xs, ub, prm, \
+                             xn, J, hbar, C, stream);                       \
+  }
 
-extern "C" int nmpc_linearize_usv_pf_ca(int is_double, int N, int L,
-                                        double dt_step, int steps,
-                                        const void* xs, const void* ub,
-                                        const void* prm, void* xn, void* J,
-                                        void* hbar, void* C, void* stream) {
-  return entry<nmpc::UsvPfCa>(is_double, N, L, dt_step, steps, xs, ub, prm,
-                              xn, J, hbar, C, stream);
-}
+NMPC_LINEARIZE_ENTRY(usv_guidance_ca1, UsvGuidanceCa1)
+NMPC_LINEARIZE_ENTRY(usv_pf_ca, UsvPfCa)
+NMPC_LINEARIZE_ENTRY(usv_pf, UsvPf)
+NMPC_LINEARIZE_ENTRY(usv_low_level, UsvLowLevel)
+NMPC_LINEARIZE_ENTRY(usv_acados, UsvAcados)
+NMPC_LINEARIZE_ENTRY(usv_position_control, UsvPositionControl)

@@ -277,6 +277,8 @@ int launch(const void* A, const void* B, const void* c, const void* Q,
   return static_cast<int>(cudaGetLastError());
 }
 
+// the instances: (8, 1) usv_guidance_ca1; (14, 2) usv_pf_ca and usv_pf;
+// (8, 2) usv_low_level and usv_position_control; (5, 2) usv_acados
 template <typename T>
 int dispatch(int nx, int nu, const void* A, const void* B, const void* c,
              const void* Q, const void* S, const void* R, const void* qx,
@@ -288,6 +290,12 @@ int dispatch(int nx, int nu, const void* A, const void* B, const void* c,
   if (nx == 14 && nu == 2)
     return launch<T, 14, 2>(A, B, c, Q, S, R, qx, qu, dx0, dx, du, K, k, N,
                             L, stream);
+  if (nx == 8 && nu == 2)
+    return launch<T, 8, 2>(A, B, c, Q, S, R, qx, qu, dx0, dx, du, K, k, N,
+                           L, stream);
+  if (nx == 5 && nu == 2)
+    return launch<T, 5, 2>(A, B, c, Q, S, R, qx, qu, dx0, dx, du, K, k, N,
+                           L, stream);
   return -1;
 }
 

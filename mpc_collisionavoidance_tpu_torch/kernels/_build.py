@@ -56,8 +56,9 @@ _ENTRIES = {
     "nmpc_riccati_lanes": [_INT] * 5 + [_PTR] * 14,
     # (is_double, N, L, dt, integrator_steps, xs, ubar, params,
     #  xn, J, hbar, C, stream), one entry per model form
-    "nmpc_linearize_usv_guidance_ca1": _LINEARIZE_ARGS,
-    "nmpc_linearize_usv_pf_ca": _LINEARIZE_ARGS,
+    **{f"nmpc_linearize_{name}": _LINEARIZE_ARGS for name in (
+        "usv_guidance_ca1", "usv_pf_ca", "usv_pf", "usv_low_level",
+        "usv_acados", "usv_position_control")},
     # (is_double, nx, nu, nbu, nbx, nHh, nS, N, L, iters, tau, sigma, mu0,
     #  idxbu, idxbx, pointer array, stream)
     "nmpc_fused_ipm_lanes": ([_INT] * 10 + [_DBL] * 3

@@ -22,9 +22,11 @@ import torch
 
 from mpc_collisionavoidance_tpu_torch.kernels import _build
 
-# (nx, nu, nbu, nbx, nHh, nS) instantiated: the flagship usv_guidance_ca1
-# and the hull usv_pf_ca
-STRUCTURES = ((8, 1, 1, 0, 0, 8), (14, 2, 2, 5, 4, 0))
+# (nx, nu, nbu, nbx, nHh, nS) instantiated: the flagship usv_guidance_ca1,
+# the hull usv_pf_ca, usv_pf, usv_low_level with usv_position_control,
+# usv_acados
+STRUCTURES = ((8, 1, 1, 0, 0, 8), (14, 2, 2, 5, 4, 0), (14, 2, 2, 5, 0, 0),
+              (8, 2, 2, 5, 0, 0), (5, 2, 2, 5, 0, 0))
 DTYPES = (torch.float32, torch.float64)
 
 # LaneQP fields in the order of the C entry's pointer array

@@ -13,12 +13,15 @@ import torch
 
 from mpc_collisionavoidance_tpu_torch.kernels import _build
 
-# model name -> (C entry, nx, nu, np, nh, f_dep, h_dep) of its CUDA form
+# model name -> (nx, nu, np, nh, f_dep, h_dep) of its CUDA form, whose C
+# entry is nmpc_linearize_<name>; h_dep is () for a model with no rows
 CUDA_MODELS = {
-    "usv_guidance_ca1": ("nmpc_linearize_usv_guidance_ca1", 8, 1, 16, 8,
-                         (0, 1, 3, 4, 7, 8), (5, 6)),
-    "usv_pf_ca": ("nmpc_linearize_usv_pf_ca", 14, 2, 8, 4,
-                  (0, 3, 4, 5, 9, 12, 13, 14, 15), (10, 11)),
+    "usv_guidance_ca1": (8, 1, 16, 8, (0, 1, 3, 4, 7, 8), (5, 6)),
+    "usv_pf_ca": (14, 2, 8, 4, (0, 3, 4, 5, 9, 12, 13, 14, 15), (10, 11)),
+    "usv_pf": (14, 2, 0, 0, (0, 3, 4, 5, 9, 12, 13, 14, 15), ()),
+    "usv_low_level": (8, 2, 0, 0, (0, 3, 4, 5, 6, 7, 8, 9), ()),
+    "usv_acados": (5, 2, 0, 0, (0, 1, 2, 3, 4, 5, 6), ()),
+    "usv_position_control": (8, 2, 0, 0, (2, 3, 4, 5, 6, 7, 8, 9), ()),
 }
 DTYPES = (torch.float32, torch.float64)
 
@@ -34,9 +37,9 @@ def linearize_lanes_cuda(xs, ubar, params, *, model, dt, integrator_steps=1):
         raise NotImplementedError(
             f"linearize kernel: model {model.name} has no CUDA form "
             f"(csrc/models/); CUDA forms exist for {sorted(CUDA_MODELS)}")
-    entry, nx, nu, np_, nh, f_dep, h_dep = CUDA_MODELS[model.name]
+    nx, nu, np_, nh, f_dep, h_dep = CUDA_MODELS[model.name]
     declared = (model.nx, model.nu, model.np_, model.nh,
-                tuple(model.f_dep), tuple(model.h_dep))
+                tuple(model.f_dep), tuple(model.h_dep or ()))
     if declared != (nx, nu, np_, nh, f_dep, h_dep):
         raise ValueError(f"linearize kernel: model {model.name} declares "
                          f"{declared}, its CUDA form is compiled for "
@@ -55,7 +58,9 @@ def linearize_lanes_cuda(xs, ubar, params, *, model, dt, integrator_steps=1):
     J = torch.empty((N, nx, nx + nu, L), **opts)
     hbar = torch.empty((nh, N, L), **opts)
     C = torch.empty((N, nh, nx, L), **opts)
-    code = getattr(lib, entry)(
+    # a model with no parameters or rows passes empty tensors (their
+    # pointers may be null): its form never reads params, nor writes hbar, C
+    code = getattr(lib, "nmpc_linearize_" + model.name)(
         int(xs.dtype == torch.float64), N, L, dt / integrator_steps,
         integrator_steps,
         *_build.launch_args(xs.device, xs, ubar, params, xn, J, hbar, C))

@@ -12,8 +12,10 @@ import torch
 
 from mpc_collisionavoidance_tpu_torch.kernels import _build
 
-# (nx, nu) pairs the kernel is instantiated for: the flagship and the hull
-SUPPORTED = ((8, 1), (14, 2))
+# (nx, nu) pairs the kernel is instantiated for: the flagship (8, 1), the
+# 14-state hulls usv_pf_ca and usv_pf (14, 2), usv_low_level and
+# usv_position_control (8, 2), usv_acados (5, 2)
+SUPPORTED = ((8, 1), (14, 2), (8, 2), (5, 2))
 DTYPES = (torch.float32, torch.float64)
 
 launches = 0

@@ -12,7 +12,7 @@ JAX package's Jacobians everywhere, kinks included:
   `jnp.abs`; `torch.abs` would give 0 there;
 - the drag switch is `where(u > 1.25, ...)`, the same comparison as
   `jnp.where`, so the one-sided derivative at the switch matches.
-The CUDA form of the same equations is `csrc/models/usv_pf_ca.cuh`.
+The CUDA form of the same equations is `csrc/models/hydro.cuh`.
 """
 
 import torch

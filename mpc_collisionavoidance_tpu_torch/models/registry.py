@@ -1,6 +1,6 @@
 """Registry of the ported model variants (counterpart of
 `mpc_collisionavoidance_tpu/models/registry.py`; the variants ported so
-far)."""
+far: the flagship and the hydrodynamic family)."""
 
 from typing import Callable, Dict
 
@@ -8,6 +8,10 @@ from mpc_collisionavoidance_tpu_torch.models import variants
 from mpc_collisionavoidance_tpu_torch.models.base import Model
 
 _BUILDERS: Dict[str, Callable[[], Model]] = {
+    "usv_acados": variants.usv_acados,
+    "usv_low_level": variants.usv_low_level,
+    "usv_position_control": variants.usv_position_control,
+    "usv_pf": variants.usv_pf,
     "usv_guidance_ca1": variants.usv_guidance_ca1,
     "usv_pf_ca": variants.usv_pf_ca,
 }

@@ -1,8 +1,10 @@
 """OCP model variants in torch (counterpart of
 `mpc_collisionavoidance_tpu/models/variants.py`).
 
-Ported so far: the flagship `usv_guidance_ca1` and the 14-state hull
-`usv_pf_ca`.  Dynamics and constraints are
+Ported so far: the flagship `usv_guidance_ca1`, the 14-state hull
+`usv_pf_ca` and the rest of the hydrodynamic family (`usv_acados`,
+`usv_low_level`, `usv_position_control`, `usv_pf`).  Dynamics and
+constraints are
 written over unpacked state components with broadcasting only, so the same
 text runs on (N, L) lane tensors and under `torch.func.jvp`.  The crab
 angle uses the native `torch.atan2`; the JAX package's polynomial atan2
@@ -74,6 +76,109 @@ def usv_guidance_ca1() -> Model:
     )
 
 
+def usv_acados() -> Model:
+    """5-state velocity/thrust model (reference
+    scripts/usv_acados/usv_model.py).
+
+    x = (u, v, r, Tport, Tstbd); U = (Tportdot, Tstbddot); c = 0.78.
+    Bounds: usv_model.py:129-147; x0: usv_model.py (0.001, 0, 0, 0, 0).
+    """
+    c = 0.78
+
+    def f(x, u_ctl, p):
+        u, v, r, tport, tstbd = x
+        tu, tr = hydro.thrust_map(tport, tstbd, c)
+        du, dv, dr = hydro.uvr_dot(u, v, r, tu, tr)
+        return torch.stack([du, dv, dr, u_ctl[0], u_ctl[1]])
+
+    return Model(
+        name="usv_acados", nx=5, nu=2, np_=0, f=f,
+        f_dep=(0, 1, 2, 3, 4, 5, 6),
+        x0=np.array([0.001, 0.0, 0.0, 0.0, 0.0]),
+        state_names=("u", "v", "r", "Tport", "Tstbd"),
+        control_names=("UTportdot", "UTstbddot"),
+        lbu=np.array([-30.0, -30.0]), ubu=np.array([30.0, 30.0]),
+        idxbu=np.array([0, 1]),
+        lbx=np.array([-1.5, -1.5, -1.0, -30.0, -30.0]),
+        ubx=np.array([1.5, 1.5, 1.0, 35.0, 35.0]),
+        idxbx=np.array([0, 1, 2, 3, 4]),
+    )
+
+
+def usv_low_level() -> Model:
+    """8-state inner-loop speed+heading model (reference
+    scripts/usv_low_level/usv_model.py).
+
+    x = (psi, sinpsi, cospsi, u, v, r, Tport, Tstbd); the heading enters via
+    its embedded (sin, cos) pair with d(sinpsi) = cos(psi) r,
+    d(cospsi) = -sin(psi) r; Tstbd integrates UTstbddot / c (c = 0.78).
+    """
+    c = 0.78
+
+    def f(x, u_ctl, p):
+        psi, _sinpsi, _cospsi, u, v, r, tport, tstbd = x
+        tu, tr = hydro.thrust_map(tport, tstbd, c)
+        du, dv, dr = hydro.uvr_dot(u, v, r, tu, tr)
+        return torch.stack([
+            r,
+            torch.cos(psi) * r,
+            -torch.sin(psi) * r,
+            du, dv, dr,
+            u_ctl[0],
+            u_ctl[1] / c,
+        ])
+
+    return Model(
+        name="usv_low_level", nx=8, nu=2, np_=0, f=f,
+        f_dep=(0, 3, 4, 5, 6, 7, 8, 9),
+        x0=np.array([0.0, 0.0, 1.0, 0.001, 0.0, 0.0, 0.0, 0.0]),
+        state_names=("psi", "sinpsi", "cospsi", "u", "v", "r", "Tport",
+                     "Tstbd"),
+        control_names=("UTportdot", "UTstbddot"),
+        lbu=np.array([-30.0, -30.0]), ubu=np.array([30.0, 30.0]),
+        idxbu=np.array([0, 1]),
+        lbx=np.array([-2.0, -2.0, -10.0, -30.0, -30.0]),
+        ubx=np.array([2.0, 2.0, 10.0, 35.0, 35.0]),
+        idxbx=np.array([3, 4, 5, 6, 7]),
+    )
+
+
+def usv_position_control() -> Model:
+    """8-state NED position control model (reference
+    scripts/usv_position_control/usv_model.py).
+
+    x = (x, y, psi, u, v, r, Tport, Tstbd); c = 0.78; both thrusts integrate
+    their rates directly (no /c on starboard here, per the reference).
+    """
+    c = 0.78
+
+    def f(x, u_ctl, p):
+        _x, _y, psi, u, v, r, tport, tstbd = x
+        tu, tr = hydro.thrust_map(tport, tstbd, c)
+        du, dv, dr = hydro.uvr_dot(u, v, r, tu, tr)
+        return torch.stack([
+            u * torch.cos(psi) - v * torch.sin(psi),
+            u * torch.sin(psi) + v * torch.cos(psi),
+            r,
+            du, dv, dr,
+            u_ctl[0],
+            u_ctl[1],
+        ])
+
+    return Model(
+        name="usv_position_control", nx=8, nu=2, np_=0, f=f,
+        f_dep=(2, 3, 4, 5, 6, 7, 8, 9),
+        x0=np.array([0.001] * 8),
+        state_names=("x", "y", "psi", "u", "v", "r", "Tport", "Tstbd"),
+        control_names=("UTportdot", "UTstbddot"),
+        lbu=np.array([-30.0, -30.0]), ubu=np.array([30.0, 30.0]),
+        idxbu=np.array([0, 1]),
+        lbx=np.array([-1.5, -1.5, -1.0, -30.0, -30.0]),
+        ubx=np.array([1.5, 1.5, 1.0, 35.0, 35.0]),
+        idxbx=np.array([3, 4, 5, 6, 7]),
+    )
+
+
 def _pf_dynamics(c):
     """14-state path-following dynamics of the pf family (reference
     scripts/usv_pf_ca/usv_model.py:137-160; the JAX package shares it
@@ -116,6 +221,23 @@ _PF_STATE_NAMES = ("psi", "sinpsi", "cospsi", "u", "v", "r", "ye",
 _PF_X0 = np.array([0.0, 0.0, 1.0, 0.001, 0.0, 0.0, 0.0,
                    1.0, -1.0, np.arctan2(3.8 - (-1.0), 1.0 - 1.0), 0.0, 0.0,
                    0.0, 0.0])
+
+
+def usv_pf() -> Model:
+    """14-state single-layer path-following model (reference
+    scripts/usv_pf/usv_model.py; c = 1.0 at :77)."""
+    return Model(
+        name="usv_pf", nx=14, nu=2, np_=0, f=_pf_dynamics(c=1.0),
+        f_dep=(0, 3, 4, 5, 9, 12, 13, 14, 15),
+        x0=_PF_X0.copy(),
+        state_names=_PF_STATE_NAMES,
+        control_names=("UTportdot", "UTstbddot"),
+        lbu=np.array([-30.0, -30.0]), ubu=np.array([30.0, 30.0]),
+        idxbu=np.array([0, 1]),
+        lbx=np.array([-2.0, -2.0, -10.0, -30.0, -30.0]),
+        ubx=np.array([2.0, 2.0, 10.0, 36.5, 36.5]),
+        idxbx=np.array([3, 4, 5, 12, 13]),
+    )
 
 
 def usv_pf_ca() -> Model:

@@ -1,6 +1,6 @@
 """Per-variant OCP builders (counterpart of
 `mpc_collisionavoidance_tpu/ocp/builders.py`; the flagship and the
-14-state hull so far).
+hydrodynamic family so far).
 
 The LINEAR_LS selection layout is identical across all variants: Vx stacks
 the identity over the states, Vu appends one row per control (reference
@@ -69,9 +69,64 @@ def usv_pf_ca(Tf: float = 1.0, N: int = 100) -> OCPSpec:
     return OCPSpec(model=m, N=N, Tf=Tf, cost=cost, soft=None)
 
 
+def usv_pf(Tf: float = 1.0, N: int = 100) -> OCPSpec:
+    """reference scripts/usv_pf/acados_settings.py:92-138."""
+    m = registry.get("usv_pf")
+    cost = _linear_ls(
+        m.nx, m.nu,
+        q_diag=[0, 0.3, 0.3, 80.0, 0, 0, 0.8, 0, 0, 0, 0, 0, 0.0001, 0.0001],
+        r_diag=[0.0, 0.0],
+        qe_diag=[0, 0.5, 0.5, 100.0, 0, 0, 1.0, 0, 0, 0, 0, 0, 0.0005, 0.0005],
+    )
+    return OCPSpec(model=m, N=N, Tf=Tf, cost=cost)
+
+
+def usv_acados(Tf: float = 1.0, N: int = 20) -> OCPSpec:
+    """reference scripts/usv_acados/acados_settings.py:75-121."""
+    m = registry.get("usv_acados")
+    cost = _linear_ls(
+        m.nx, m.nu,
+        q_diag=[1e3, 1e-3, 1e3, 1e-1, 1e-1],
+        r_diag=[1e-2, 1e-2],
+        qe_diag=[5e3, 5e-3, 5e3, 5e-1, 5e-1],
+    )
+    return OCPSpec(model=m, N=N, Tf=Tf, cost=cost)
+
+
+def usv_low_level(Tf: float = 1.0, N: int = 100) -> OCPSpec:
+    """reference scripts/usv_low_level/acados_settings.py:75-129; note the
+    nonzero default yref (cospsi reference = 1)."""
+    m = registry.get("usv_low_level")
+    cost = _linear_ls(
+        m.nx, m.nu,
+        q_diag=[0, 0.1, 0.1, 0.1, 0, 0.0, 1e-7, 0.0],
+        r_diag=[0.0, 0.0],
+        qe_diag=[0, 0.05, 0.05, 0.1, 0, 0.0, 1e-6, 0.0],
+        yref=[0, 0, 1, 0, 0, 0, 0, 0, 0, 0],
+        yref_e=[0, 0, 1, 0, 0, 0, 0, 0],
+    )
+    return OCPSpec(model=m, N=N, Tf=Tf, cost=cost)
+
+
+def usv_position_control(Tf: float = 1.0, N: int = 20) -> OCPSpec:
+    """reference scripts/usv_position_control/acados_settings.py:76-121."""
+    m = registry.get("usv_position_control")
+    cost = _linear_ls(
+        m.nx, m.nu,
+        q_diag=[1e5, 1e5, 1e-3, 1e-3, 1e-3, 1e-3, 1e-3, 1e-3],
+        r_diag=[1e-2, 1e-2],
+        qe_diag=[5e5, 5e5, 1e-3, 1e-3, 1e-3, 1e-3, 1e-3, 1e-3],
+    )
+    return OCPSpec(model=m, N=N, Tf=Tf, cost=cost)
+
+
 BUILDERS = {
     "usv_guidance_ca1": usv_guidance_ca1,
     "usv_pf_ca": usv_pf_ca,
+    "usv_pf": usv_pf,
+    "usv_acados": usv_acados,
+    "usv_low_level": usv_low_level,
+    "usv_position_control": usv_position_control,
 }
 
 

@@ -1,5 +1,5 @@
-"""Scenario library (copy of the flagship and hull parts of
-`mpc_collisionavoidance_tpu/sim/scenarios.py`, pure numpy).
+"""Scenario library (copy of the flagship and hydrodynamic-family parts
+of `mpc_collisionavoidance_tpu/sim/scenarios.py`, pure numpy).
 
 `guidance_ca1_default` reproduces the flagship closed-loop experiment of
 reference scripts/usv_guidance_ca1/main.py:73-113: a straight 30 m path
@@ -8,7 +8,9 @@ x = 4 from (4,-5) to (4,25), four r = 1.5 obstacles sitting ON the path at
 4 m of initial cross-track error.  Sentinel obstacles live at (100, 100)
 with radius 0 (reference acados_settings.py:185, main.py:76-77).
 `pf_ca_default` is the 14-state hull's experiment (reference
-scripts/usv_pf_ca/main.py:73-133).
+scripts/usv_pf_ca/main.py:73-133); `pf_default`, `low_level_default`,
+`acados_speed_default` and `position_control_default` are those of the
+obstacle-free models of the same family, each with its own references.
 """
 
 import dataclasses
@@ -77,3 +79,73 @@ def pf_ca_default(n_steps: int = 4000) -> Scenario:
     return Scenario("pf_ca_default", x0, pobs, robs, n_steps, float(ak),
                     np.array([[x1, y1], [x2, y2]]),
                     yref=yref, yref_e=yref[:14])
+
+
+def acados_speed_default(n_steps: int = 400) -> Scenario:
+    """usv_acados velocity/thrust experiment: track u_ref = 1.3 m/s from
+    rest (reference scripts/usv_acados/main.py:73,81: yref = (uref, 0...));
+    the in-repo C++ node uses u_des = 1.0 (src/acados_mpc.cpp:127)."""
+    uref = 1.3
+    yref = np.zeros(7)
+    yref[0] = uref
+    x0 = np.array([0.001, 0.0, 0.0, 0.0, 0.0])
+    return Scenario("acados_speed_default", x0, np.zeros(0), np.zeros(0),
+                    n_steps, 0.0, np.zeros((0, 2)),
+                    yref=yref, yref_e=yref[:5])
+
+
+def low_level_default(n_steps: int = 1000) -> Scenario:
+    """usv_low_level inner-loop experiment (reference
+    scripts/usv_low_level/main.py:78-102): step to psi_ref = 1.0 rad and
+    u_ref = 0.8 m/s from rest; yref = (0, sin psi_ref, cos psi_ref,
+    u_ref, 0...)."""
+    psi_ref, u_ref = 1.0, 0.8
+    x0 = np.array([0.0, 0.0, 1.0, 0.001, 0.0, 0.0, 0.0, 0.0])
+    yref = np.zeros(10)
+    yref[1], yref[2], yref[3] = np.sin(psi_ref), np.cos(psi_ref), u_ref
+    return Scenario("low_level_default", x0, np.zeros(0), np.zeros(0),
+                    n_steps, 0.0, np.zeros((0, 2)),
+                    yref=yref, yref_e=yref[:8])
+
+
+def position_control_default(n_steps: int = 200) -> Scenario:
+    """usv_position_control experiment (reference
+    scripts/usv_position_control/main.py:73-85): drive to (x, y) = (5, 1)
+    with uref = 1.0 in the cost; starts at the model's 0.001 defaults."""
+    x_ref, y_ref, uref = 5.0, 1.0, 1.0
+    x0 = np.full(8, 0.001)
+    yref = np.zeros(10)
+    yref[0], yref[1], yref[3] = x_ref, y_ref, uref
+    return Scenario("position_control_default", x0, np.zeros(0),
+                    np.zeros(0), n_steps, 0.0, np.zeros((0, 2)),
+                    yref=yref, yref_e=yref[:8])
+
+
+def pf_default(n_steps: int = 4000) -> Scenario:
+    """usv_pf path following without obstacles (reference
+    scripts/usv_pf/main.py:95-130): same frame/references as pf_ca."""
+    x1, y1, x2, y2 = 4.0, -5.0, 4.0, 25.0
+    ak = np.arctan2(y2 - y1, x2 - x1)
+    ye = -(0.0 - x1) * np.sin(ak) + (0.0 - y1) * np.cos(ak)
+    x0 = np.array([0.0, 0.0, 1.0, 0.001, 0.0, 0.0, ye,
+                   x1, y1, ak, 0.0, 0.0, 0.0, 0.0])
+    yref = np.zeros(16)
+    yref[1], yref[2], yref[3] = np.sin(ak), np.cos(ak), 0.7
+    return Scenario("pf_default", x0, np.zeros(0), np.zeros(0), n_steps,
+                    float(ak), np.array([[x1, y1], [x2, y2]]),
+                    yref=yref, yref_e=yref[:14])
+
+
+# Each ported model's default scenario, and the state coordinate that a
+# batch of it perturbs by 0.1 N(0, 1): the cross-track error ye where the
+# model has one (as bench.py:107-127), else the coordinate its cost tracks
+# (surge u for usv_low_level and usv_acados, north x for
+# usv_position_control).
+DEFAULTS = {
+    "usv_guidance_ca1": (guidance_ca1_default, 2),
+    "usv_pf_ca": (pf_ca_default, 6),
+    "usv_pf": (pf_default, 6),
+    "usv_low_level": (low_level_default, 3),
+    "usv_acados": (acados_speed_default, 0),
+    "usv_position_control": (position_control_default, 0),
+}

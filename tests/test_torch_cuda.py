@@ -24,6 +24,9 @@ from mpc_collisionavoidance_tpu_torch.ops.riccati_lanes import (
     lqr_solve_lanes_plain)
 from mpc_collisionavoidance_tpu_torch.sim import scenarios
 from mpc_collisionavoidance_tpu_torch.solver.batch import to_lanes
+# by its own name (pytest puts tests/ on sys.path): on the card's machine
+# an installed package named `tests` shadows this directory as a package
+from torch_family import FAMILY, random_point  # noqa: E402
 
 pytestmark = pytest.mark.cuda
 
@@ -70,11 +73,14 @@ def _random_lqr(N, nx, nu, L, seed, dtype, device):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
 @pytest.mark.parametrize("nx,nu,L,N", [
     (8, 1, 1, 30), (8, 1, 33, 30), (8, 1, 130, 30),
-    (14, 2, 1, 30), (14, 2, 33, 30), (14, 2, 130, 100)])
+    (14, 2, 1, 30), (14, 2, 33, 30), (14, 2, 130, 100),
+    (8, 2, 1, 20), (8, 2, 130, 100), (5, 2, 33, 20), (5, 2, 130, 2)])
 def test_riccati_kernel_matches_plain(card, nx, nu, L, N, dtype):
     """Ragged lane groups: L=1 (one lane of a 4-lane block), 33 and 130
     (a last block of 1 and 2 lanes); L=130 in float64 also takes the
-    16-byte copies, the other widths the element copies."""
+    16-byte copies, the other widths the element copies.  (8, 2) and
+    (5, 2) also at N=20 (usv_acados, usv_position_control) and N=2,
+    shorter than the tile rings."""
     d = _random_lqr(N, nx, nu, L, seed=L, dtype=dtype, device=card)
     before = riccati.launches
     got = riccati.lqr_solve_lanes_cuda(*d)
@@ -86,7 +92,7 @@ def test_riccati_kernel_matches_plain(card, nx, nu, L, N, dtype):
         torch.testing.assert_close(g, w, rtol=rtol, atol=atol)
 
 
-@pytest.mark.parametrize("nx,nu", [(8, 1), (14, 2)])
+@pytest.mark.parametrize("nx,nu", [(8, 1), (14, 2), (8, 2), (5, 2)])
 def test_riccati_kernel_nan_lane_leaves_the_others_bitwise(card, nx, nu):
     """One lane's A set to NaN: that lane goes non-finite, and every other
     lane (its block's neighbours included) is bitwise what it was."""
@@ -178,16 +184,72 @@ def test_linearize_hull_kernel_matches_plain(card, L, dtype):
         torch.testing.assert_close(g, w, rtol=max(rtol, 1e-12), atol=atol)
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("L", [1, 45])
+@pytest.mark.parametrize("name", FAMILY)
+def test_linearize_family_kernel_matches_plain(card, name, L, dtype):
+    """K2's forms with no parameters and no rows (empty params, hbar, C),
+    at the hull family's random points (tests/test_torch_hull_family.py:
+    both sides of the drag switch, the kinks of |v| and |r|)."""
+    # the builder's step (0.01 s, or 0.05 s at N=20) over 12 stages
+    spec = builders.build(name, N=12, Tf=12 * builders.build(name).dt)
+    args = [torch.as_tensor(a, dtype=dtype, device=card)
+            for a in random_point(name, 12, L, seed=L, dt=spec.dt)]
+    kw = dict(model=spec.model, dt=spec.dt,
+              integrator_steps=spec.integrator_steps)
+    before = linearize.launches
+    got = linearize.linearize_lanes_cuda(*args, **kw)
+    want = linearize_lanes_plain(*args, **kw)
+    torch.cuda.synchronize()
+    assert linearize.launches == before + 1
+    assert got[2].numel() == got[3].numel() == 0
+    rtol, atol = TOLS[dtype]
+    for g, w in zip(got, want):
+        torch.testing.assert_close(g, w, rtol=max(rtol, 1e-12), atol=atol)
+
+
+@pytest.mark.parametrize("name", FAMILY)
+def test_family_tick_on_card_matches_cpu(card, name):
+    """The float64 production tick of each model with no rows (empty
+    params and lh) on the card vs the CPU plain path, with the scenario's
+    references; the card runs K2 once and K1 at least 4 times."""
+    spec = builders.build(name, N=20)
+    factory, coord = scenarios.DEFAULTS[name]
+    sc = factory()
+    B = 6
+    rng = np.random.default_rng(0)
+    x0s = np.broadcast_to(sc.x0, (B, spec.model.nx)).copy()
+    x0s[:, coord] += 0.1 * rng.standard_normal(B)
+    outs = {}
+    for device in ("cpu", card):
+        solver = production_engine().build(spec, device=device,
+                                           dtype=torch.float64)
+        x, p = (to_lanes(torch.tensor(a)).to(device)
+                for a in (x0s, np.zeros((B, 0))))
+        counts = (riccati.launches, linearize.launches, ipm.launches)
+        _, out = solver.step_fn(solver.init_state(x0s), x, p, None,
+                                yref=sc.yref, yref_e=sc.yref_e)
+        outs[str(device)] = out
+        if device == card:
+            assert riccati.launches - counts[0] >= 4
+            assert (linearize.launches - counts[1],
+                    ipm.launches - counts[2]) == (1, 0)
+    cpu, gpu = outs["cpu"], outs[str(card)]
+    torch.testing.assert_close(gpu.u0.cpu(), cpu.u0, rtol=0, atol=5e-6)
+    torch.testing.assert_close(gpu.x1.cpu(), cpu.x1, rtol=0, atol=5e-6)
+    assert torch.equal(gpu.status.cpu(), cpu.status)
+
+
 def _fused_qp(name, L, dtype, device, N=12):
     """A LaneQP from the fused solver's own assembly at the OCP's default
-    scenario, ye perturbed."""
+    scenario, its coordinate perturbed."""
     spec = builders.build(name, N=N)
-    sc = (scenarios.guidance_ca1_default() if name == "usv_guidance_ca1"
-          else scenarios.pf_ca_default())
+    factory, coord = scenarios.DEFAULTS[name]
+    sc = factory()
     m = spec.model
     rng = np.random.default_rng(L)
     x0s = np.broadcast_to(sc.x0, (L, m.nx)).copy()
-    x0s[:, 2 if m.nx == 8 else 6] += 0.1 * rng.standard_normal(L)
+    x0s[:, coord] += 0.1 * rng.standard_normal(L)
     solver = SolverConfig(riccati="fused").build(spec, device=device,
                                                  dtype=dtype)
     lanes = [to_lanes(torch.tensor(np.asarray(a), dtype=dtype)).to(device)
@@ -200,7 +262,10 @@ def _fused_qp(name, L, dtype, device, N=12):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
 @pytest.mark.parametrize("name,L", [("usv_guidance_ca1", 1),
                                     ("usv_guidance_ca1", 37),
-                                    ("usv_pf_ca", 37)])
+                                    ("usv_pf_ca", 37), ("usv_pf", 37),
+                                    ("usv_low_level", 1),
+                                    ("usv_position_control", 37),
+                                    ("usv_acados", 37)])
 def test_fused_ipm_kernel_matches_plain(card, name, L, dtype):
     solver, qp = _fused_qp(name, L, dtype, card)
     args = (qp, solver.idxbu, solver.idxbx)
@@ -250,7 +315,7 @@ def test_fused_ipm_kernel_matches_plain_at_more_widths(card, name, L,
 
 def test_k1_and_k3_instances_do_not_spill(card):
     """ptxas' report in the build's nvcc.log: 0 bytes spill stores and
-    loads for the four K1 and the four K3 instances."""
+    loads for every K1 and K3 instance (chip_smoke.NO_SPILL)."""
     import chip_smoke
     chip_smoke.check_spills((_build.build().parent / "nvcc.log").read_text())
 
@@ -266,12 +331,13 @@ def test_fused_ipm_kernel_nan_lane(card):
         assert int((status == 2).sum()) == 1
 
 
-@pytest.mark.parametrize("name", ["usv_guidance_ca1", "usv_pf_ca"])
+@pytest.mark.parametrize("name", ["usv_guidance_ca1", "usv_pf_ca",
+                                  "usv_pf", "usv_low_level", "usv_acados",
+                                  "usv_position_control"])
 def test_fused_tick_launches_k3_once_and_never_k1(card, name):
     spec = builders.build(name, N=12)
     m = spec.model
-    sc = (scenarios.guidance_ca1_default() if m.nx == 8
-          else scenarios.pf_ca_default())
+    sc = scenarios.DEFAULTS[name][0]()
     B = 6
     x0s = np.broadcast_to(sc.x0, (B, m.nx)).copy()
     solver = SolverConfig(riccati="fused").build(spec, device=card,

@@ -1,11 +1,13 @@
 """K3's CUDA source run on the CPU, against the plain fused IPM.
 
-`csrc/ipm_lanes.cu`, its four instance files, `csrc/ipm_lanes.cuh` and
+`csrc/ipm_lanes.cu`, its instance files, `csrc/ipm_lanes.cuh` and
 `csrc/riccati_team.cuh` are compiled with g++ against the stand-in header
 of tests/torch_cuda_emulation.py (a std::thread per CUDA thread, one
 barrier per block, shuffles through the barrier, cp.async as a plain
 copy).  QPs come from the fused solver's own assembly at each OCP's
-default scenario (N=12, float64); the kernel's C entry is called as
+default scenario (N=12, float64; the structures with no h rows, usv_pf,
+usv_low_level, usv_position_control and usv_acados, also at N=20 and at
+N=2, shorter than the tile rings); the kernel's C entry is called as
 `kernels/ipm.py` calls it, and its dx, du, gap and status are held against
 `fused_ipm_lanes_plain`.  This checks the kernel's indexing where no card
 exists: the shared-memory layout, the row units of the stage-parallel
@@ -20,7 +22,7 @@ import pytest
 import torch
 
 from mpc_collisionavoidance_tpu_torch.config import SolverConfig
-from mpc_collisionavoidance_tpu_torch.kernels import ipm
+from mpc_collisionavoidance_tpu_torch.kernels import _build, ipm
 from mpc_collisionavoidance_tpu_torch.ocp import builders
 from mpc_collisionavoidance_tpu_torch.ops.ipm_lanes import (
     contiguous_qp, fused_ipm_lanes_plain, lane_status)
@@ -29,7 +31,8 @@ from mpc_collisionavoidance_tpu_torch.solver.batch import to_lanes
 from tests import torch_cuda_emulation as emulation
 
 N, ITERS, TOL = 12, 4, 1e-7
-OCPS = ("usv_guidance_ca1", "usv_pf_ca")
+OCPS = ("usv_guidance_ca1", "usv_pf_ca", "usv_pf", "usv_low_level",
+        "usv_position_control", "usv_acados")
 
 
 @pytest.fixture(scope="module")
@@ -38,21 +41,21 @@ def emulated(tmp_path_factory):
     return emulation.build(
         tmp_path_factory.mktemp("k3_emulated"),
         ["riccati_team.cuh", "ipm_lanes.cuh"],
-        ["ipm_lanes.cu", "ipm_lanes_flagship_float.cu",
-         "ipm_lanes_flagship_double.cu", "ipm_lanes_hull_float.cu",
-         "ipm_lanes_hull_double.cu"],
+        ["ipm_lanes.cu", *(p.name for p in sorted(
+            _build.CSRC.glob("ipm_lanes_*.cu")))],
         ["nmpc_fused_ipm_lanes", "nmpc_fused_ipm_scratch"])
 
 
-def _qp(name, L):
-    """A float64 LaneQP of the fused solver's assembly, ye perturbed."""
+def _qp(name, L, N=N):
+    """A float64 LaneQP of the fused solver's assembly at the model's
+    default scenario, its coordinate perturbed."""
     spec = builders.build(name, N=N)
-    sc = (scenarios.guidance_ca1_default() if name == OCPS[0]
-          else scenarios.pf_ca_default())
+    factory, coord = scenarios.DEFAULTS[name]
+    sc = factory()
     m = spec.model
     rng = np.random.default_rng(L)
     x0s = np.broadcast_to(sc.x0, (L, m.nx)).copy()
-    x0s[:, 2 if m.nx == 8 else 6] += 0.1 * rng.standard_normal(L)
+    x0s[:, coord] += 0.1 * rng.standard_normal(L)
     solver = SolverConfig(riccati="fused").build(spec, device="cpu",
                                                  dtype=torch.float64)
     lanes = [to_lanes(torch.tensor(np.asarray(a), dtype=torch.float64))
@@ -64,7 +67,8 @@ def _qp(name, L):
 
 def _run(lib, qp, idxbu, idxbx):
     """The C entry as kernels/ipm.py calls it, on CPU tensors."""
-    nx, nu, L = qp.A.shape[1], qp.B.shape[2], qp.B.shape[-1]
+    N, nx, nu, L = qp.B.shape[0], qp.A.shape[1], qp.B.shape[2], \
+        qp.B.shape[-1]
     structure = (nx, nu, len(idxbu), len(idxbx), qp.Ch.shape[1],
                  qp.Cs.shape[1])
     assert structure in ipm.STRUCTURES
@@ -89,6 +93,21 @@ def _run(lib, qp, idxbu, idxbx):
 @pytest.mark.parametrize("name", OCPS)
 def test_emulated_kernel_matches_plain(emulated, name, L):
     qp, idxbu, idxbx = _qp(name, L)
+    _check(emulated, qp, idxbu, idxbx)
+
+
+@pytest.mark.parametrize("N", [2, 20])
+@pytest.mark.parametrize("name", OCPS[2:])
+def test_emulated_kernel_matches_plain_at_short_horizons(emulated, name, N):
+    """The structures with no h rows at N=20 (usv_acados' and
+    usv_position_control's horizon) and N=2, shorter than the backward
+    ring's prefetch and the forward ring."""
+    qp, idxbu, idxbx = _qp(name, 3, N=N)
+    assert qp.Ch.shape[1] == qp.Cs.shape[1] == 0
+    _check(emulated, qp, idxbu, idxbx)
+
+
+def _check(emulated, qp, idxbu, idxbx):
     got = _run(emulated, qp, idxbu, idxbx)
     want = fused_ipm_lanes_plain(qp, idxbu, idxbx, iters=ITERS)
     for g, w in zip(got[:2], want[:2]):
@@ -97,7 +116,7 @@ def test_emulated_kernel_matches_plain(emulated, name, L):
     assert torch.equal(lane_status(*got, TOL), lane_status(*want, TOL))
 
 
-@pytest.mark.parametrize("name", OCPS)
+@pytest.mark.parametrize("name", OCPS[:3])
 def test_emulated_kernel_nan_lane(emulated, name):
     """A NaN in one lane's dx0: that lane gets status 2, and every other
     lane's outputs are bitwise what they were."""

@@ -1,0 +1,90 @@
+"""K2's CUDA source run on the CPU, against the plain linearization.
+
+`csrc/linearize_lanes.cu`, `csrc/dual.cuh` and the model forms
+`csrc/models/*.cuh` are compiled with g++ (ISO C++, `-pedantic-errors`:
+an array of size 0 is an error, as it is for nvcc) against the stand-in
+header of tests/torch_cuda_emulation.py (a std::thread per CUDA thread).
+Each model's C entry is called as `kernels/linearize.py` calls it; its
+xn, J, hbar and C are held against `linearize_lanes_plain`.  This checks
+the forms and the kernel's indexing where no card exists, including the
+models with no parameters and no constraint rows, whose params, hbar and
+C are empty (null pointers here) and must be neither read nor written.
+"""
+
+import ctypes
+
+import numpy as np
+import pytest
+import torch
+
+from mpc_collisionavoidance_tpu_torch.kernels import _build, linearize
+from mpc_collisionavoidance_tpu_torch.ocp import builders
+from mpc_collisionavoidance_tpu_torch.ops.linearize_lanes import (
+    linearize_lanes_plain)
+from tests import torch_cuda_emulation as emulation
+from tests.torch_family import FAMILY, random_point
+
+N, L = 5, 3
+# float32: the kernel-vs-reference tolerances of tests/test_torch_cuda.py
+TOLS = {torch.float32: (2e-4, 2e-5), torch.float64: (1e-12, 1e-10)}
+
+
+@pytest.fixture(scope="module")
+def emulated(tmp_path_factory):
+    """K2's C entries, built from the checkout's sources for the CPU."""
+    headers = ["dual.cuh", *(f"models/{p.name}" for p in sorted(
+        (_build.CSRC / "models").glob("*.cuh")))]
+    return emulation.build(tmp_path_factory.mktemp("k2_emulated"), headers,
+                           ["linearize_lanes.cu"],
+                           [f"nmpc_linearize_{name}"
+                            for name in linearize.CUDA_MODELS])
+
+
+def _spec(name):
+    """The model's OCP at its builder's step, over N stages."""
+    return builders.build(name, N=N, Tf=N * builders.build(name).dt)
+
+
+def _inputs(name, seed):
+    m = builders.build(name).model
+    if name in FAMILY:
+        return random_point(name, N, L, seed, dt=_spec(name).dt)
+    rng = np.random.default_rng(seed)
+    if name == "usv_pf_ca":
+        x, u, _ = random_point("usv_pf", N, L, seed)
+        return x, u, rng.uniform(-10.0, 20.0, size=(m.np_, L))
+    return (rng.normal(size=(m.nx, N, L)) * 0.5,
+            rng.normal(size=(m.nu, N, L)) * 0.2,
+            rng.uniform(2.0, 50.0, size=(m.np_, L)))
+
+
+def _run(lib, name, xs, ubar, params, dt, steps):
+    """The C entry as kernels/linearize.py calls it, on CPU tensors."""
+    nx, nu, _, nh, _, _ = linearize.CUDA_MODELS[name]
+    opts = dict(dtype=xs.dtype)
+    out = (torch.empty(nx, N, L, **opts), torch.empty(N, nx, nx + nu, L,
+                                                      **opts),
+           torch.empty(nh, N, L, **opts), torch.empty(N, nh, nx, L, **opts))
+    code = getattr(lib, f"nmpc_linearize_{name}")(
+        int(xs.dtype == torch.float64), N, L, dt / steps, steps,
+        *(ctypes.c_void_p(t.data_ptr()) for t in (xs, ubar, params, *out)),
+        None)
+    assert code == 0
+    return out
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("name", sorted(linearize.CUDA_MODELS))
+def test_emulated_kernel_matches_plain(emulated, name, dtype):
+    spec = _spec(name)
+    m = spec.model
+    args = [torch.as_tensor(a, dtype=dtype) for a in _inputs(name, seed=4)]
+    if m.np_ == 0:
+        assert args[2].shape == (0, L)
+    got = _run(emulated, name, *args, spec.dt, spec.integrator_steps)
+    want = linearize_lanes_plain(*args, model=m, dt=spec.dt,
+                                 integrator_steps=spec.integrator_steps)
+    rtol, atol = TOLS[dtype]
+    for what, g, w in zip(("xn", "J", "hbar", "C"), got, want):
+        assert g.shape == w.shape, what
+        torch.testing.assert_close(g, w, rtol=rtol, atol=atol, msg=what)

@@ -5,7 +5,8 @@ against the stand-in header of tests/torch_cuda_emulation.py (a
 std::thread per CUDA thread, one barrier per block, cp.async as a plain
 copy).  This checks the kernel's indexing where no card exists: the tile
 ring, the warp's rows and column parts, the transposed tiles, the 16-byte
-and element copies, the ragged last block and a NaN lane.
+and element copies, the ragged last block and a NaN lane, for every
+instance: (8, 1), (14, 2), (8, 2) and (5, 2).
 """
 
 import ctypes
@@ -41,24 +42,42 @@ def _run(lib, d):
     return dx, du
 
 
-def _lqr(nx, nu, L, dtype, seed):
+def _lqr(nx, nu, L, dtype, seed, N=7):
     return LaneLQR(*(torch.tensor(a, dtype=dtype)
-                     for a in random_lqr(N=7, nx=nx, nu=nu, L=L, seed=seed)))
+                     for a in random_lqr(N=N, nx=nx, nu=nu, L=L, seed=seed)))
+
+
+def _check(lib, d):
+    rtol, atol = ((2e-4, 2e-5) if d.A.dtype == torch.float32
+                  else (0.0, 1e-10))
+    for g, w in zip(_run(lib, d), lqr_solve_lanes_plain(d)):
+        torch.testing.assert_close(g, w, rtol=rtol, atol=atol)
+
+
+INSTANCES = [(8, 1), (14, 2), (8, 2), (5, 2)]
 
 
 @pytest.mark.parametrize("L", [1, 6, 8])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
-@pytest.mark.parametrize("nx,nu", [(8, 1), (14, 2)])
+@pytest.mark.parametrize("nx,nu", INSTANCES)
 def test_emulated_kernel_matches_plain(emulated, nx, nu, dtype, L):
     """L=1 and 6: ragged last blocks (element copies in float32, 16-byte
     copies in float64 at L=6); L=8: whole blocks, 16-byte copies."""
-    d = _lqr(nx, nu, L, dtype, seed=nx + L)
-    rtol, atol = (2e-4, 2e-5) if dtype == torch.float32 else (0.0, 1e-10)
-    for g, w in zip(_run(emulated, d), lqr_solve_lanes_plain(d)):
-        torch.testing.assert_close(g, w, rtol=rtol, atol=atol)
+    _check(emulated, _lqr(nx, nu, L, dtype, seed=nx + L))
 
 
-@pytest.mark.parametrize("nx,nu", [(8, 1), (14, 2)])
+@pytest.mark.parametrize("N", [1, 2, 20])
+@pytest.mark.parametrize("nx,nu", [(8, 2), (5, 2)])
+def test_emulated_kernel_matches_plain_at_short_horizons(emulated, nx, nu,
+                                                         N):
+    """N=20 (the horizon of usv_acados and usv_position_control), and N=1
+    and 2, shorter than the backward ring's prefetch (kRing - 1 = 2
+    stages) and the forward ring (4 tiles at (5, 2), 5 at (8, 2)): the
+    first and last stages of both rings."""
+    _check(emulated, _lqr(nx, nu, 5, torch.float64, seed=N, N=N))
+
+
+@pytest.mark.parametrize("nx,nu", INSTANCES)
 def test_emulated_kernel_nan_lane_leaves_the_others_bitwise(emulated, nx,
                                                             nu):
     L, lane = 9, 5

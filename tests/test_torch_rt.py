@@ -400,7 +400,8 @@ def test_unported_engine_and_model_raise(tmp_path):
     with pytest.raises(NotImplementedError, match="A7"):
         RTServer(str(tmp_path / "x.sock"), engine="vmap", device="cpu")
     with pytest.raises(ValueError, match="usv_pf_ca"):
-        RTServer(str(tmp_path / "x.sock"), model="usv_pf", device="cpu")
+        RTServer(str(tmp_path / "x.sock"), model="usv_guidance",
+                 device="cpu")
 
 
 def test_cuda_device_missing_is_an_error(tmp_path):
@@ -437,6 +438,34 @@ def test_wire_loop_matches_jax_server(tmp_path):
                            **kw)) as srv:
         ours = _loop1(srv.address, 5)
     _assert_replies_close(ours, ref, atol=1e-6)
+
+
+@pytest.mark.parametrize("model", ["usv_low_level", "usv_acados"])
+def test_wire_loop_of_a_model_with_no_rows_matches_jax_server(tmp_path,
+                                                              model):
+    """A model with no parameters and no constraint rows over v2 frames
+    (np = nh = 0, the scenario's yref): a 4-tick wire closed loop through
+    the JAX lane server and the port's, identical arguments, both float32;
+    identical statuses, u0/x1 to float32 round-off.  The thrust rates run
+    at 16-30 (one float32 ulp: 1.9e-6) in QPs with no control cost (R = 0
+    in usv_low_level's), and the two packages take their float32
+    operations in other orders: measured within 5.7e-6, held at 1e-6 of
+    the +-30 bound (atol 3e-5)."""
+    from mpc_collisionavoidance_tpu.rt.server import RTServer as JaxServer
+    kw = dict(model=model, N=20, Tf=1.0, ipm_iters=6, max_batch=4)
+    sc = scenarios.DEFAULTS[model][0]()
+    replies = []
+    for server in (JaxServer(str(tmp_path / "j.sock"), engine="lane", **kw),
+                   RTServer(str(tmp_path / "t.sock"), device="cpu", **kw)):
+        out, x0 = [], tuple(sc.x0)
+        with _Serving(server) as srv, \
+                contextlib.closing(_connect(srv.address)) as s:
+            for k in range(4):
+                out.append(_solve2(s, model, k, x0, yref=tuple(sc.yref)))
+                assert out[-1].seq == k and out[-1].status in (0, 1)
+                x0 = out[-1].x1
+        replies.append(out)
+    _assert_replies_close(replies[1], replies[0], atol=3e-5)
 
 
 # ---------------------------------------------------------------------------

@@ -122,6 +122,7 @@ def build(out, headers, units, entries):
         pytest.skip("g++ not found: the CUDA sources cannot be emulated")
     (out / "stand_in.h").write_text(STAND_IN)
     for name in headers:
+        (out / name).parent.mkdir(parents=True, exist_ok=True)
         (out / name).write_text(rewrite((_build.CSRC / name).read_text()))
     objs = []
     cmds = []
@@ -130,7 +131,8 @@ def build(out, headers, units, entries):
         cpp.write_text(rewrite((_build.CSRC / name).read_text()))
         objs.append(out / (name[:-3] + ".o"))
         cmds.append([gxx, "-std=c++20", "-O1", "-fPIC", "-pthread",
-                     "-Wno-unknown-pragmas", "-I", str(out), "-c", "-o",
+                     "-pedantic-errors", "-Wno-unknown-pragmas", "-I",
+                     str(out), "-c", "-o",
                      str(objs[-1]), str(cpp)])
     with concurrent.futures.ThreadPoolExecutor(len(cmds)) as pool:
         for proc in pool.map(_compile, cmds):

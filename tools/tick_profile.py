@@ -1,9 +1,10 @@
 """Where a tick's time goes on the card, per OCP, backend and batch.
 
-    python -m tools.tick_profile [--ticks 20] [--profiled 10] [--only NAME]
-                                 [--json PATH]
+    python -m tools.tick_profile [--ticks 20] [--profiled 10]
+                                 [--only NAME ...] [--json PATH]
 
-For the flagship and the hull, the production (sweep) and the fused tick,
+For every OCP the port runs on the card (the flagship, the hull and the
+hull family), the production (sweep) and the fused tick,
 at B=512 and B=1 (float32, the warm closed loop of `chip_smoke`'s
 workload, x0 <- x1): the median tick over `--ticks` warm ticks (CUDA events
 around the whole tick), then a torch.profiler window over `--profiled`
@@ -32,24 +33,25 @@ import chip_smoke
 from mpc_collisionavoidance_tpu_torch.kernels import _build
 
 CONFIGS = [(name, backend, Bn)
-           for name in (chip_smoke.FLAGSHIP, chip_smoke.HULL)
+           for name in (chip_smoke.FLAGSHIP, chip_smoke.HULL,
+                        *chip_smoke.FAMILY)
            for backend in ("sweep", "fused") for Bn in (512, 1)]
 
 
 def profile_config(name, backend, Bn, ticks, profiled):
     config = (chip_smoke._production() if backend == "sweep"
               else chip_smoke._fused())
-    solver, st, x, p, lh = chip_smoke._setup(name, Bn, torch.float32,
-                                             chip_smoke.DEVICE, config)
+    solver, st, x, p, lh, refs = chip_smoke._setup(
+        name, Bn, torch.float32, chip_smoke.DEVICE, config)
     for _ in range(3):                                  # warm-up
-        st, out = solver.step_fn(st, x, p, lh)
+        st, out = solver.step_fn(st, x, p, lh, **refs)
         x = out.x1
     times = []
     for _ in range(ticks):
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
-        st, out = solver.step_fn(st, x, p, lh)
+        st, out = solver.step_fn(st, x, p, lh, **refs)
         end.record()
         x = out.x1
         end.synchronize()
@@ -59,7 +61,7 @@ def profile_config(name, backend, Bn, ticks, profiled):
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         for _ in range(profiled):
-            st, out = solver.step_fn(st, x, p, lh)
+            st, out = solver.step_fn(st, x, p, lh, **refs)
             x = out.x1
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
@@ -88,8 +90,8 @@ def main(argv):
     ap = argparse.ArgumentParser()
     ap.add_argument("--ticks", type=int, default=20)
     ap.add_argument("--profiled", type=int, default=10)
-    ap.add_argument("--only", default=None,
-                    help="one OCP (usv_guidance_ca1 or usv_pf_ca)")
+    ap.add_argument("--only", nargs="*", default=None,
+                    help="these OCPs only (names of builders.BUILDERS)")
     ap.add_argument("--json", default=None, help="write the results here")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
@@ -103,7 +105,7 @@ def main(argv):
     _build.library()
     rows = []
     for name, backend, Bn in CONFIGS:
-        if args.only and name != args.only:
+        if args.only and name not in args.only:
             continue
         r = dict(profile_config(name, backend, Bn, args.ticks,
                                 args.profiled), card=card)
