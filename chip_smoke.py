@@ -9,17 +9,22 @@ nu=1, N=100, 8 soft obstacle rows), of the 14-state hull `usv_pf_ca`
 (nx=14, nu=2, N=100, 5 state-box rows, 4 hard obstacle rows) and of the
 hull family's models with neither parameters nor rows (`usv_pf` nx=14,
 `usv_low_level` nx=8 at N=100, `usv_acados` nx=5 and
-`usv_position_control` nx=8 at N=20; nu=2, 5 state-box rows), and the
-fused tick (`riccati="fused"`) of all six.  Phases:
+`usv_position_control` nx=8 at N=20; nu=2, 5 state-box rows) and of
+the kinematic guidance family (`usv_guidance_ca` nx=9 with 8 hard obstacle
+rows, `usv_guidance` nx=10, `usv_guidance2` nx=12, `usv_guidance3` nx=11,
+`usv_guidance4` nx=4, `usv_guidance5` nx=5; nu=1, N=100), and the fused
+tick (`riccati="fused"`) of all twelve.  Phases:
 
 1. environment: torch, device, `nvidia-smi` name and power limit, nvcc,
    and the kernels' build (nvcc at first use, into build/torch_kernels/);
-   ptxas must report 0 bytes spill stores and loads for the eight K1 and
-   the ten K3 instances (`NO_SPILL`);
+   ptxas must report 0 bytes spill stores and loads for the twenty K1
+   and the twenty-two K3 instances (`NO_SPILL`);
 2. K1 (Riccati sweep) vs its plain PyTorch version on the card: random
    SPD LQRs at each instance's main-path horizons (`K1_SHAPES`: (8, 1),
-   (14, 2) at N=100, (8, 2) at N=100 and 20, (5, 2) at N=20), L in {1,
-   130, 512}, float32 (rtol 2e-4, atol 2e-5) and float64 (atol 1e-10);
+   (14, 2) at N=100, (8, 2) at N=100 and 20, (5, 2) at N=20, the guidance
+   family's (9, 1), (10, 1), (12, 1), (11, 1), (4, 1), (5, 1) at N=100),
+   L in {1, 130, 512}, float32 (rtol 2e-4, atol 2e-5) and float64 (atol
+   1e-10);
    one lane's A set to NaN leaves every other lane's dx/du bitwise
    unchanged; each instance's time at L in {1, 128, 512} float32 and 512
    float64 (CUDA events over 50 back-to-back launches of the C entry)
@@ -87,16 +92,32 @@ fused tick (`riccati="fused"`) of all six.  Phases:
     `hull_family`); B=1 p50/p99 of both against the model's budget (10 ms
     usv_pf and usv_low_level, 50 ms usv_acados; usv_position_control has
     no node), printed; then usv_low_level served over v2 frames for 20
-    ticks (every reply checked, K2 = 1 and K1 >= 4 per tick).
+    ticks (every reply checked, K2 = 1 and K1 >= 4 per tick);
+13. the kinematic guidance family, phase 12's recipe: each model at its
+    builder's N=100 from its scenario (x0 perturbed on the coordinate
+    `scenarios.DEFAULTS` names; usv_guidance_ca with its obstacle table
+    and lh, usv_guidance..3 tracking their scenario's references): the
+    float64 production tick on the card vs the CPU plain tick at B=32;
+    the float32 production and fused ticks at B=512 with their launch
+    counts; 30-tick closed loops of both, converged_frac gated > 0.9
+    (JAX's lane engine meets it on every one of them,
+    tests/test_torch_guidance_family.py); B=1 p50/p99 of both against
+    the node's budget (50 ms usv_guidance_ca, 10 ms the others), printed;
+    then usv_guidance_ca served over v2 frames for 20 ticks (16 obstacle
+    parameters and lh per request, every reply checked, K2 = 1 and
+    K1 >= 4 per tick).  Phases 12 and 13 time B=1 over 20 ticks (phase 7
+    and the flagship's over 50).
 
 Each main path is driven with every launch count set to 0 just before and
 read just after.  Times come from CUDA events (the server's from the
-client's clock).  The line before the last is a JSON object with one entry
-per kernel (per instance for K1, per model form for K2, per structure for
-K3), each with its launches on the main paths (every one must be
-launched), its time, the plain version's, and its bound: the larger
-of the bytes it must move over the HBM rate and its FLOPs over the float
-peak (`bound`, `riccati_work`, `linearize_work`, `ipm_work`); the last line is
+client's clock); the plain versions' times are those of their checked
+calls at L=512 float32 (K2, K3: one call each) or the median of 5 (K1).
+The line before the last is a JSON object with one entry per kernel
+(per instance for K1, per model form for K2, per structure for K3), each
+with its launches on the main paths (every one must be launched), its
+time, the plain version's, and its bound: the larger of the bytes it
+must move over the HBM rate and its FLOPs over the float peak (`bound`,
+`riccati_work`, `linearize_work`, `ipm_work`); the last line is
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 float32 matrix products run in full float32 (TF32 off, set below).
 """
@@ -130,6 +151,18 @@ ACADOS, POSITION = "usv_acados", "usv_position_control"
 FAMILY_BUDGET_MS = {PF: 10.0, LOW_LEVEL: 10.0, ACADOS: 50.0, POSITION: None}
 FAMILY = tuple(FAMILY_BUDGET_MS)
 FAMILY_CPU_B = 32
+# the kinematic guidance family (phase 13), with each node's real-time
+# budget in ms: usv_guidance_ca's node runs at 20 Hz
+# (src/nmpc_guidance_ca.cpp:347), usv_guidance's at 100 Hz
+# (src/nmpc_guidance.cpp:335); usv_guidance2..5 are held to 10 ms on the
+# assumption that their nodes share that template (SURVEY.md N11-N14)
+GUIDANCE_CA = "usv_guidance_ca"
+GUIDANCE_BUDGET_MS = {GUIDANCE_CA: 50.0, "usv_guidance": 10.0,
+                      "usv_guidance2": 10.0, "usv_guidance3": 10.0,
+                      "usv_guidance4": 10.0, "usv_guidance5": 10.0}
+GUIDANCE = tuple(GUIDANCE_BUDGET_MS)
+# B=1 latency ticks of phases 12 and 13
+FAMILY_B1_TICKS = 20
 REPO = pathlib.Path(__file__).resolve().parent
 SERVER_LANES = 128                  # the server's default --max-batch
 
@@ -149,6 +182,19 @@ def _tick_ms(fn, reps):
         end.synchronize()
         times.append(start.elapsed_time(end))
     return float(np.median(times))
+
+
+def _timed(fn):
+    """(fn(), its CUDA-event time in ms): one call, the kernels' checked
+    plain-version call timed as it runs, so that no extra call is made."""
+    import torch
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    out = fn()
+    end.record()
+    end.synchronize()
+    return out, start.elapsed_time(end)
 
 
 def _max_err(got, want):
@@ -222,17 +268,17 @@ def environment():
     print(f"kernels built in {time.perf_counter() - t0:.1f} s: {lib}")
     # registers and spills of every kernel instance (ptxas -v)
     log = (lib.parent / "nvcc.log").read_text()
-    for line in log.splitlines():
-        if "Compiling entry function" in line or "spill" in line \
-                or "Used" in line:
-            print("  " + line.strip())
+    regs = register_report(log)
+    for name, (stores, loads) in spill_report(log).items():
+        print(f"  {name}: {regs.get(name, '?')} registers, spill "
+              f"{stores}/{loads} bytes")
     check_spills(log)
     return card
 
 
 # kernels whose every instance must compile without spills, and how many
-# instances each has (K1: 4 shapes, K3: 5 structures, each in two types)
-NO_SPILL = {"riccati_lanes_kernel": 8, "fused_ipm_kernel": 10}
+# instances each has (K1: 10 shapes, K3: 11 structures, each in two types)
+NO_SPILL = {"riccati_lanes_kernel": 20, "fused_ipm_kernel": 22}
 
 
 def spill_report(log):
@@ -246,6 +292,19 @@ def spill_report(log):
             words = line.replace(",", " ").split()
             report[name] = (int(words[words.index("spill") - 2]),
                             int(words[words.index("loads") - 3]))
+            name = None
+    return report
+
+
+def register_report(log):
+    """{entry function: registers} from ptxas' -v report in an nvcc log."""
+    report, name = {}, None
+    for line in log.splitlines():
+        if "Function properties for" in line:
+            name = line.split("Function properties for", 1)[1].strip()
+        elif name and "Used" in line and "registers" in line:
+            words = line.replace(",", " ").split()
+            report[name] = int(words[words.index("registers") - 1])
             name = None
     return report
 
@@ -334,8 +393,17 @@ def riccati_work(N, nx, nu, L, itemsize):
 # ~80 + 90 W of each f; a model's own terms and RK4's 13 + 13 W per state
 # come on top (usv_acados 710 per f at W = 7, usv_low_level 940 and
 # usv_position_control 990 at W = 8, usv_pf the hull's without its rows).
+# The guidance forms (models/guidance.cuh): the crab angle and the heading
+# error ~70 + 16 W, the NED rates ~46 + 18 W, the cross-track rate
+# ~44 + 12 W of each f (usv_guidance_ca 350 per f at W = 7 plus the
+# flagship's rows, usv_guidance 390 at W = 6, usv_guidance2 440 and
+# usv_guidance3 480 at W = 7, usv_guidance4 130 at W = 4, usv_guidance5
+# 150 at W = 5).
 _LINEARIZE_FLOPS = {FLAGSHIP: 2.8e3, HULL: 7.6e3, PF: 7.4e3,
-                    LOW_LEVEL: 4.7e3, POSITION: 4.9e3, ACADOS: 3.4e3}
+                    LOW_LEVEL: 4.7e3, POSITION: 4.9e3, ACADOS: 3.4e3,
+                    GUIDANCE_CA: 2.7e3, "usv_guidance": 2.5e3,
+                    "usv_guidance2": 3.0e3, "usv_guidance3": 3.1e3,
+                    "usv_guidance4": 0.8e3, "usv_guidance5": 1.0e3}
 
 
 def linearize_work(name, m, N, L, steps, itemsize):
@@ -409,7 +477,13 @@ def riccati_launcher(lib, d):
 K1_SHAPES = {(8, 1): ((100,), (FLAGSHIP,)),
              (14, 2): ((100,), (HULL, PF)),
              (8, 2): ((100, 20), (LOW_LEVEL, POSITION)),
-             (5, 2): ((20,), (ACADOS,))}
+             (5, 2): ((20,), (ACADOS,)),
+             (9, 1): ((100,), (GUIDANCE_CA,)),
+             (10, 1): ((100,), ("usv_guidance",)),
+             (12, 1): ((100,), ("usv_guidance2",)),
+             (11, 1): ((100,), ("usv_guidance3",)),
+             (4, 1): ((100,), ("usv_guidance4",)),
+             (5, 1): ((100,), ("usv_guidance5",))}
 # (L, dtype name) at which K1 is timed
 K1_TIMED = ((1, "float32"), (128, "float32"), (512, "float32"),
             (512, "float64"))
@@ -495,6 +569,9 @@ def check_riccati():
 _HYDRO = {HULL: (3, 4, 12, 13), PF: (3, 4, 12, 13),
           LOW_LEVEL: (3, 4, 6, 7), ACADOS: (0, 1, 3, 4),
           POSITION: (3, 4, 6, 7)}
+# the state coordinate of each guidance model's surge u
+_SURGE = {GUIDANCE_CA: 0, "usv_guidance": 5, "usv_guidance2": 5,
+          "usv_guidance3": 5, "usv_guidance4": 0, "usv_guidance5": 0}
 
 
 def _linearize_inputs(name, m, N, L, rng, dt):
@@ -506,10 +583,14 @@ def _linearize_inputs(name, m, N, L, rng, dt):
     longer step: the sway drag's stiffness, ~750 |v| per second, leaves
     RK4 stable only while |v| dt stays below ~1/750 (at usv_acados' and
     usv_position_control's 0.05 s a sway of 0.3 m/s blows the step up to
-    values whose float32 round-off exceeds any tolerance)."""
-    if name == FLAGSHIP:
-        return (rng.normal(size=(m.nx, N, L)) * 0.5,
-                rng.normal(size=(m.nu, N, L)) * 0.2,
+    values whose float32 round-off exceeds any tolerance).  The guidance
+    family's as the flagship's, with a forward surge of 0.2-1.5 m/s (away
+    from the crab angle's branch cut at u + 0.001 < 0, v = 0)."""
+    if name == FLAGSHIP or name in GUIDANCE:
+        xs = rng.normal(size=(m.nx, N, L)) * 0.5
+        if name in GUIDANCE:
+            xs[_SURGE[name]] = rng.uniform(0.2, 1.5, size=(N, L))
+        return (xs, rng.normal(size=(m.nu, N, L)) * 0.2,
                 rng.uniform(2.0, 50.0, size=(m.np_, L)))
     iu, iv, ip, istbd = _HYDRO[name]
     xs = rng.normal(size=(m.nx, N, L)) * 0.5
@@ -546,7 +627,8 @@ def check_linearize():
                 args = [torch.as_tensor(a, dtype=dtype, device=DEVICE)
                         for a in inputs]
                 got = linearize.linearize_lanes_cuda(*args, **kw)
-                want = linearize_lanes_plain(*args, **kw)
+                want, want_ms = _timed(lambda: linearize_lanes_plain(
+                    *args, **kw))
                 torch.cuda.synchronize()
                 err = _max_err(got, want)
                 worst[dtype] = max(worst[dtype], err)
@@ -565,8 +647,7 @@ def check_linearize():
                 if dtype == torch.float32 and L == B:
                     ms = _tick_ms(lambda: linearize.linearize_lanes_cuda(
                         *args, **kw), 50)
-                    plain_ms = _tick_ms(lambda: linearize_lanes_plain(
-                        *args, **kw), 5)
+                    plain_ms = want_ms
         bound_ms, by = bound(*linearize_work(name, m, N, B,
                                              spec.integrator_steps, 4), 4)
         print(f"K2 {name} at N={N} L={B} float32: kernel {ms:.4f} ms, plain "
@@ -582,8 +663,9 @@ def _setup(name, Bn, dtype, device, config, seed=SEED):
     coordinate perturbed by 0.1 N(0, 1) (ye for the flagship, the hulls;
     `scenarios.DEFAULTS` names the others').  The flagship and the hull
     use the builder's references, as bench.py does; the hull family's
-    models with no rows track their scenario's (`refs`, the keyword
-    arguments of step_fn and _build_qp)."""
+    models with no rows and the guidance family's track their scenario's
+    where it has them (`refs`, the keyword arguments of step_fn and
+    _build_qp)."""
     import torch
 
     from mpc_collisionavoidance_tpu_torch.ocp import builders
@@ -602,7 +684,7 @@ def _setup(name, Bn, dtype, device, config, seed=SEED):
         return to_lanes(torch.tensor(np.asarray(a), dtype=dtype)).to(device)
 
     refs = {}
-    if name in FAMILY:
+    if (name in FAMILY or name in GUIDANCE) and sc.yref is not None:
         refs = {k: torch.tensor(getattr(sc, k), dtype=dtype, device=device)
                 for k in ("yref", "yref_e")}
     state = solver.init_state(x0s)
@@ -690,7 +772,8 @@ K3_ITERS = 12
 # models whose main paths run it (usv_position_control shares
 # usv_low_level's (8, 2, 2, 5, 0, 0))
 K3_STRUCTURES = {FLAGSHIP: (FLAGSHIP,), HULL: (HULL,), PF: (PF,),
-                 LOW_LEVEL: (LOW_LEVEL, POSITION), ACADOS: (ACADOS,)}
+                 LOW_LEVEL: (LOW_LEVEL, POSITION), ACADOS: (ACADOS,),
+                 **{name: (name,) for name in GUIDANCE}}
 
 
 def _fused_nan_lane(name, qp, idxbu, idxbx, s_got, lane=7):
@@ -732,7 +815,8 @@ def check_fused_ipm():
                 qp, iu, ix = fused_qp(name, L, dtype, seed=L)
                 args = (qp, iu, ix)
                 got = ipm.fused_ipm_lanes_cuda(*args, iters=iters)
-                want = fused_ipm_lanes_plain(*args, iters=iters)
+                want, want_ms = _timed(lambda: fused_ipm_lanes_plain(
+                    *args, iters=iters))
                 torch.cuda.synchronize()
                 s_got, s_want = (lane_status(*o, tol) for o in (got, want))
                 err = _max_err(got[:2], want[:2])
@@ -764,8 +848,7 @@ def check_fused_ipm():
                             f"K3 {name} L={L} float32: du err {du_err:.3e} "
                             f"(limit 5e-3), status-0 shares {share}")
                 if L == B and dtype == torch.float32:
-                    plain_ms = _tick_ms(lambda: fused_ipm_lanes_plain(
-                        *args, iters=iters), 2)
+                    plain_ms = want_ms
                     _fused_nan_lane(name, *args, s_got)
         times = {}
         for L, dname in K3_TIMED:
@@ -1307,8 +1390,8 @@ def hull_family(card):
     both backends (converged_frac gated > 0.9 where JAX's lane engine
     meets it on the CPU in float32 at B=8: every production loop, the
     fused loops of FUSED_GATED); B=1 latency of both against each model's
-    budget (printed); then usv_low_level served over v2 frames.  Returns
-    {(model, label): launch counts} of its main-path runs."""
+    budget (printed, 20 ticks); then usv_low_level served over v2 frames.
+    Returns {(model, label): launch counts} of its main-path runs."""
     counts = {}
     for name in FAMILY:
         card_vs_cpu_tick(name, FAMILY_CPU_B)
@@ -1319,32 +1402,66 @@ def hull_family(card):
             closed_loop(name, config,
                         gate=label == "sweep" or name in FUSED_GATED,
                         failed_ok=name == ACADOS)
-            latency_b1(name, config, FAMILY_BUDGET_MS[name])
-    counts[(LOW_LEVEL, "served v2")] = served_low_level(card)
+            latency_b1(name, config, FAMILY_BUDGET_MS[name],
+                       ticks=FAMILY_B1_TICKS)
+    counts[(LOW_LEVEL, "served v2")] = served_v2(card, LOW_LEVEL)
     return counts
 
 
-def served_low_level(card, ticks=20):
-    """usv_low_level (N=100, Tf=1, production schedule) over v2 frames
-    with np = nh = 0 and the scenario's yref: `ticks` closed-loop
-    requests, every reply checked, every served tick K2 = 1, K1 >= 4."""
+def served_v2(card, model, ticks=20):
+    """`model` at its builder's N and Tf (production schedule) over v2
+    frames: its scenario's x0, obstacle parameters and lh in every request
+    (none for a model with no rows; usv_guidance_ca's 16 and 8, hard
+    rows), and the scenario's yref where it has one (else the builder's):
+    `ticks` closed-loop requests, every reply checked, every served tick
+    K2 = 1, K1 >= 4."""
+    from mpc_collisionavoidance_tpu_torch.ocp import builders
     from mpc_collisionavoidance_tpu_torch.sim import scenarios
-    sc = scenarios.low_level_default()
-    x0, yref = (tuple(float(v) for v in np.asarray(a, np.float32))
-                for a in (sc.x0, sc.yref))
+    spec = builders.build(model)
+    sc = scenarios.DEFAULTS[model][0]()
+    x0, p, lh, yref = (
+        tuple(float(v) for v in np.asarray(a, np.float32))
+        for a in (sc.x0, sc.params, sc.lh,
+                  () if sc.yref is None else sc.yref))
 
     def solve2(s, seq, x):
-        return _solve2(s, seq, x, (), (), yref, LOW_LEVEL)
+        return _solve2(s, seq, x, p, lh, yref, model)
 
-    c, _ = _served("usv_low_level v2 server",
-                   _latency_drive("usv_low_level v2", ticks, solve2, x0,
-                                  card),
-                   {"tick": _production_counts}, model=LOW_LEVEL, N=100,
-                   Tf=1.0, **_server_engine())
+    c, _ = _served(f"{model} v2 server",
+                   _latency_drive(f"{model} v2", ticks, solve2, x0, card),
+                   {"tick": _production_counts}, model=model, N=spec.N,
+                   Tf=spec.Tf, **_server_engine())
     if c["linearize_lanes"] != ticks:
-        raise AssertionError(f"usv_low_level served: {c} ({ticks} ticks "
-                             "of K2 = 1 expected)")
+        raise AssertionError(f"{model} served: {c} ({ticks} ticks of K2 = "
+                             "1 expected)")
     return c
+
+
+# ---- phase 13: the kinematic guidance family ----
+
+def guidance_family(card):
+    """Phase 13: usv_guidance_ca, usv_guidance, usv_guidance2..5 at their
+    builders' N=100 from their scenarios: the float64 card tick vs the CPU
+    plain tick at B=32; the float32 production and fused ticks at B=512
+    with their launch counts; 30-tick closed loops of both backends, all
+    gated (converged_frac > 0.9: JAX's lane engine meets it on the CPU in
+    float32 on every one, tests/test_torch_guidance_family.py::
+    test_jax_float32_closed_loop_converges); B=1 latency of both against
+    each node's budget (printed, 20 ticks); then usv_guidance_ca served
+    over v2 frames.  Returns {(model, label): launch counts} of its
+    main-path runs."""
+    counts = {}
+    for name in GUIDANCE:
+        card_vs_cpu_tick(name, FAMILY_CPU_B)
+        for label, config, expect in (
+                ("sweep", _production(), _production_counts),
+                ("fused", _fused(), _fused_counts)):
+            counts[(name, label)] = main_path_tick(name, config, expect)
+            closed_loop(name, config, gate=True)
+            latency_b1(name, config, GUIDANCE_BUDGET_MS[name],
+                       ticks=FAMILY_B1_TICKS)
+    counts[(GUIDANCE_CA, "served v2")] = served_v2(card, GUIDANCE_CA)
+    return counts
 
 
 def _production_counts(c):
@@ -1365,10 +1482,19 @@ def main():
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
+    t0 = time.perf_counter()
+
+    def phase_done(label):
+        print(f"[{time.perf_counter() - t0:.1f} s] {label} done")
+
     card = environment()
+    phase_done("phase 1")
     k1 = check_riccati()
+    phase_done("phase 2 (K1)")
     k2 = check_linearize()
+    phase_done("phase 3 (K2)")
     k3 = check_fused_ipm()
+    phase_done("phase 4 (K3)")
 
     # the flagship production tick
     card_vs_cpu_tick(FLAGSHIP, B)
@@ -1377,6 +1503,7 @@ def main():
     closed_loop(FLAGSHIP, _production(), gate=True)
     latency_b1(FLAGSHIP, _production(), 50.0)
     mission()
+    phase_done("phases 5-8 (the flagship)")
     # the hull production tick
     card_vs_cpu_tick(HULL, HULL_CPU_B)
     counts[(HULL, "sweep")] = main_path_tick(HULL, _production(),
@@ -1389,10 +1516,16 @@ def main():
                                                  _fused_counts)
         closed_loop(name, _fused(), gate=name == FLAGSHIP)
         latency_b1(name, _fused(), 50.0 if name == FLAGSHIP else 10.0)
+    phase_done("phases 9-10 (the hull, the fused ticks)")
     # the real-time server
     counts.update(serving(card))
+    phase_done("phase 11 (serving)")
     # the hull family's models with no rows
     counts.update(hull_family(card))
+    phase_done("phase 12 (the hull family)")
+    # the kinematic guidance family
+    counts.update(guidance_family(card))
+    phase_done("phase 13 (the guidance family)")
 
     def launched(kernel, models):
         return sum(c[kernel] for (m, _), c in counts.items() if m in models)
@@ -1405,7 +1538,7 @@ def main():
         r = k1[(nx, nu)]
         kernels.append(
             {"name": f"riccati_lanes[{nx}x{nu}]", "route": "cuda",
-             "source": f"{pkg}/csrc/riccati_lanes.cu",
+             "source": f"{pkg}/csrc/riccati_lanes.cuh",
              "replaces": "mpc_collisionavoidance_tpu/kernels/riccati_pallas.py:215",
              "launches": launched("riccati_lanes", models),
              "max_abs_err": r["err"], "ms": r["ms"],
@@ -1415,7 +1548,7 @@ def main():
         err32, err64, ms, plain_ms, bound_ms, by = k2[name]
         kernels.append(
             {"name": f"linearize_lanes[{name}]", "route": "cuda",
-             "source": f"{pkg}/csrc/linearize_lanes.cu",
+             "source": f"{pkg}/csrc/linearize_lanes.cuh",
              "replaces": "mpc_collisionavoidance_tpu/kernels/linearize_pallas.py:151",
              "launches": launched("linearize_lanes", (name,)),
              "max_abs_err": max(err32, err64), "ms": ms,

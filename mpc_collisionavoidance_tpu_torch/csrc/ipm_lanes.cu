@@ -1,6 +1,7 @@
 // C entry points of the fused whole-IPM solve K3 (the kernel and its
-// design notes are in ipm_lanes.cuh; the instances are compiled in
-// ipm_lanes_{flagship,hull,pf,low_level,acados}_{float,double}.cu).
+// design notes are in ipm_lanes.cuh; the instances, one per structure of
+// NMPC_K3_STRUCTURES and type, are compiled in
+// ipm_lanes_<structure>_{float,double}.cu).
 
 #include "ipm_lanes.cuh"
 
@@ -11,27 +12,34 @@ using nmpc::ipm::kMaxIdx;
 using nmpc::ipm::launch;
 using nmpc::ipm::scratch_per_stage;
 
-// the instantiated structures: the flagship usv_guidance_ca1, the hull
-// usv_pf_ca, and the hull family's models with no h rows: usv_pf,
-// usv_low_level with usv_position_control, usv_acados
-enum class Structure { kNone, kFlagship, kHull, kPf, kLowLevel, kAcados };
+// the structure (nx, nu, nbu, nbx, nHh, nS) of an instance
+struct Structure {
+  int nx, nu, nbu, nbx, nhh, ns;
+};
 
-Structure structure_of(int nx, int nu, int nbu, int nbx, int nhh, int ns) {
-  if (nx == 8 && nu == 1 && nbu == 1 && nbx == 0 && nhh == 0 && ns == 8)
-    return Structure::kFlagship;
-  if (nu != 2 || nbu != 2 || nbx != 5) return Structure::kNone;
-  if (nx == 14 && nhh == 4 && ns == 0) return Structure::kHull;
-  if (nhh != 0 || ns != 0) return Structure::kNone;
-  if (nx == 14) return Structure::kPf;
-  if (nx == 8) return Structure::kLowLevel;
-  if (nx == 5) return Structure::kAcados;
-  return Structure::kNone;
+template <int NX, int NU, int NBU, int NBX, int NHH, int NS>
+bool is(const Structure& s) {
+  return s.nx == NX && s.nu == NU && s.nbu == NBU && s.nbx == NBX &&
+         s.nhh == NHH && s.ns == NS;
+}
+
+template <int NX, int NU, int NBU, int NBX, int NHH, int NS>
+long long scratch_of(int N) {
+  return static_cast<long long>(N) * scratch_per_stage<NX, NU>();
+}
+
+bool known(const Structure& s) {
+#define NMPC_K3_KNOWN(S) \
+  if (is<S>(s)) return true;
+  NMPC_K3_STRUCTURES(NMPC_K3_KNOWN)
+#undef NMPC_K3_KNOWN
+  return false;
 }
 
 template <typename T>
-int run(Structure st, int N, int L, int iters, double tau, double sigma,
-        double mu0, const int* idxbu, int nbu, const int* idxbx, int nbx,
-        void* const* ptrs, cudaStream_t stream) {
+int run(const Structure& st, int N, int L, int iters, double tau,
+        double sigma, double mu0, const int* idxbu, int nbu,
+        const int* idxbx, int nbx, void* const* ptrs, cudaStream_t stream) {
   FusedArgs<T> a;
   const T* const* in = reinterpret_cast<const T* const*>(ptrs);
   a.A = in[0]; a.B = in[1]; a.c = in[2]; a.qx = in[3]; a.qu = in[4];
@@ -55,18 +63,11 @@ int run(Structure st, int N, int L, int iters, double tau, double sigma,
   a.sigma = static_cast<T>(sigma);
   a.mu0 = static_cast<T>(mu0);
   a.gap_floor = static_cast<T>(sizeof(T) == 8 ? 1e-13 : 3e-7);
-  switch (st) {
-    case Structure::kFlagship:
-      return launch<T, NMPC_FLAGSHIP>(a, stream);
-    case Structure::kHull:
-      return launch<T, NMPC_HULL>(a, stream);
-    case Structure::kPf:
-      return launch<T, NMPC_PF>(a, stream);
-    case Structure::kLowLevel:
-      return launch<T, NMPC_LOW_LEVEL>(a, stream);
-    default:
-      return launch<T, NMPC_ACADOS>(a, stream);
-  }
+#define NMPC_K3_RUN(S) \
+  if (is<S>(st)) return launch<T, S>(a, stream);
+  NMPC_K3_STRUCTURES(NMPC_K3_RUN)
+#undef NMPC_K3_RUN
+  return -1;
 }
 
 }  // namespace
@@ -76,19 +77,12 @@ int run(Structure st, int N, int L, int iters, double tau, double sigma,
 // if there is none.
 extern "C" long long nmpc_fused_ipm_scratch(int nx, int nu, int nbu, int nbx,
                                             int nhh, int ns, int N) {
-  switch (structure_of(nx, nu, nbu, nbx, nhh, ns)) {
-    case Structure::kFlagship:
-      return static_cast<long long>(N) * scratch_per_stage<8, 1>();
-    case Structure::kHull:
-    case Structure::kPf:
-      return static_cast<long long>(N) * scratch_per_stage<14, 2>();
-    case Structure::kLowLevel:
-      return static_cast<long long>(N) * scratch_per_stage<8, 2>();
-    case Structure::kAcados:
-      return static_cast<long long>(N) * scratch_per_stage<5, 2>();
-    default:
-      return -1;
-  }
+  const Structure st{nx, nu, nbu, nbx, nhh, ns};
+#define NMPC_K3_SCRATCH(S) \
+  if (is<S>(st)) return scratch_of<S>(N);
+  NMPC_K3_STRUCTURES(NMPC_K3_SCRATCH)
+#undef NMPC_K3_SCRATCH
+  return -1;
 }
 
 // ptrs: the 32 device pointers in FusedArgs order (A, B, c, qx, qu, dx0,
@@ -105,8 +99,8 @@ extern "C" int nmpc_fused_ipm_lanes(int is_double, int nx, int nu, int nbu,
                                     double mu0, const int* idxbu,
                                     const int* idxbx, void* const* ptrs,
                                     void* stream) {
-  const Structure st = structure_of(nx, nu, nbu, nbx, nhh, ns);
-  if (st == Structure::kNone) return -1;
+  const Structure st{nx, nu, nbu, nbx, nhh, ns};
+  if (!known(st)) return -1;
   if (N < 1 || L < 1 || iters < 0 || nbu > kMaxIdx || nbx > kMaxIdx)
     return -2;
   for (int j = 0; j < nbu; ++j)

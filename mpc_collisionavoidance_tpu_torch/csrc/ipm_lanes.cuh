@@ -72,12 +72,27 @@
 //                                7 per SM; double 57,184 B, 4 per SM (at
 //                                usv_position_control's N=20: 2,188);
 //   usv_acados (5, 2, 2, 5, 0, 0), N=20: 1,573 values: float 6,292 B,
-//                                31 per SM; double 12,584 B, 17 per SM.
+//                                31 per SM; double 12,584 B, 17 per SM;
+//   usv_guidance_ca (9, 1, 1, 1, 8, 0), N=100: 9,270 values: float
+//                                37,080 B, 6 per SM; double 74,160 B, 3;
+//   usv_guidance (10, 1, 1, 3, 0, 0), N=100: 5,870 values: float
+//                                23,480 B, 9 per SM; double 46,960 B, 4;
+//   usv_guidance2 (12, 1, 1, 1, 0, 0), N=100: 5,562 values: float
+//                                22,248 B, 10 per SM; double 44,496 B, 5;
+//   usv_guidance3 (11, 1, 1, 1, 0, 0), N=100: 5,106 values: float
+//                                20,424 B, 10 per SM; double 40,848 B, 5;
+//   usv_guidance4 (4, 1, 1, 0, 0, 0), N=100: 1,874 values: float 7,496 B,
+//                                27 per SM; double 14,992 B, 14;
+//   usv_guidance5 (5, 1, 1, 1, 0, 0), N=100: 2,790 values: float
+//                                11,160 B, 19 per SM; double 22,320 B, 10.
 // So at L=512 float32 runs in one wave (528 resident lanes or more),
-// float64 in two (one from usv_low_level down).  A horizon whose layout
+// float64 in two (one from usv_low_level down, and for the guidance
+// family but usv_guidance_ca).  A horizon whose layout
 // exceeds the 227 KB opt-in is refused (-3).  A structure with neither
 // hard nor soft rows (nHh = nS = 0) has box rows only: its tiles carry no
-// row block and its row units are the box pairs.
+// row block and its row units are the box pairs; usv_guidance4's
+// (4, 1, 1, 0, 0, 0) has no state box either, so its one row unit per
+// stage is the control pair, and xb_lo / xb_hi (N, 0, L) are never read.
 //
 // Registers.  A lane's warp keeps little in registers (its row of P, the
 // step's small per-lane values), but what the compiler hoists out of the
@@ -89,7 +104,17 @@
 // (`stage_lane`, the forward tile's scratch) are not unrolled.  Without
 // them the double instances of the structures with no h rows spilled
 // (usv_pf 28 / 72 bytes at 255 registers, usv_acados 16 / 36), though the
-// hull's, with more code, did not.
+// hull's, with more code, did not.  Double division's slow path is a call,
+// and values live across its call sites (the gap, loop-entry predicates)
+// are saved to local memory when the allocator runs out of registers it
+// may keep across a call; how many it keeps depends on the register target
+// it picks, which a minimum of blocks per SM in the launch bounds changes
+// (any minimum, 1 to 8, gives the same target).  Without one, the double
+// instances of usv_guidance and usv_guidance5 spill 28 / 52 and 28 / 52
+// bytes at 128 and 96 registers; with one they take 198 and 150 and spill
+// nothing.  A minimum on every instance moves usv_pf's double instance to
+// 255 registers and 16 / 24 bytes of spills instead.  So those two
+// instances, and only they, promise one block (`MinBlocks`).
 //
 // What bounds it on the H100: the lane's dependent chain.  12 iterations
 // each walk 100 backward and 100 forward stages of the warp step (K1's
@@ -267,8 +292,16 @@ __device__ __forceinline__ void stage_lane(T* dst, const T* src, size_t L,
   }
 }
 
+// Blocks per SM that an instance's launch bounds promise ptxas (0: no
+// promise), specialised below the instance list.  See "Registers" above.
 template <typename T, int NX, int NU, int NBU, int NBX, int NHH, int NS>
-__global__ void __launch_bounds__(kWarp)
+struct MinBlocks {
+  static constexpr int value = 0;
+};
+
+template <typename T, int NX, int NU, int NBU, int NBX, int NHH, int NS>
+__global__ void __launch_bounds__(
+    kWarp, (MinBlocks<T, NX, NU, NBU, NBX, NHH, NS>::value))
 fused_ipm_kernel(const FusedArgs<T> a) {
   using R = Rows<NBU, NBX, NHH, NS>;
   using U = Units<NBU, NBX, NHH, NS>;
@@ -806,19 +839,34 @@ int launch(const FusedArgs<T>& args, cudaStream_t stream) {
 #define NMPC_PF 14, 2, 2, 5, 0, 0        // usv_pf
 #define NMPC_LOW_LEVEL 8, 2, 2, 5, 0, 0  // usv_low_level, usv_position_control
 #define NMPC_ACADOS 5, 2, 2, 5, 0, 0     // usv_acados
-#define NMPC_DECLARE_INSTANCE(T, S) \
-  extern template int launch<T, S>(const FusedArgs<T>&, cudaStream_t);
-NMPC_DECLARE_INSTANCE(float, NMPC_FLAGSHIP)
-NMPC_DECLARE_INSTANCE(double, NMPC_FLAGSHIP)
-NMPC_DECLARE_INSTANCE(float, NMPC_HULL)
-NMPC_DECLARE_INSTANCE(double, NMPC_HULL)
-NMPC_DECLARE_INSTANCE(float, NMPC_PF)
-NMPC_DECLARE_INSTANCE(double, NMPC_PF)
-NMPC_DECLARE_INSTANCE(float, NMPC_LOW_LEVEL)
-NMPC_DECLARE_INSTANCE(double, NMPC_LOW_LEVEL)
-NMPC_DECLARE_INSTANCE(float, NMPC_ACADOS)
-NMPC_DECLARE_INSTANCE(double, NMPC_ACADOS)
+#define NMPC_GUIDANCE_CA 9, 1, 1, 1, 8, 0  // usv_guidance_ca
+#define NMPC_GUIDANCE 10, 1, 1, 3, 0, 0    // usv_guidance
+#define NMPC_GUIDANCE2 12, 1, 1, 1, 0, 0   // usv_guidance2
+#define NMPC_GUIDANCE3 11, 1, 1, 1, 0, 0   // usv_guidance3
+#define NMPC_GUIDANCE4 4, 1, 1, 0, 0, 0    // usv_guidance4
+#define NMPC_GUIDANCE5 5, 1, 1, 1, 0, 0    // usv_guidance5
+#define NMPC_K3_STRUCTURES(X)                                               \
+  X(NMPC_FLAGSHIP) X(NMPC_HULL) X(NMPC_PF) X(NMPC_LOW_LEVEL) X(NMPC_ACADOS) \
+  X(NMPC_GUIDANCE_CA) X(NMPC_GUIDANCE) X(NMPC_GUIDANCE2) X(NMPC_GUIDANCE3)  \
+  X(NMPC_GUIDANCE4) X(NMPC_GUIDANCE5)
+#define NMPC_DECLARE_INSTANCE(S)                                          \
+  extern template int launch<float, S>(const FusedArgs<float>&,          \
+                                       cudaStream_t);                     \
+  extern template int launch<double, S>(const FusedArgs<double>&,        \
+                                        cudaStream_t);
+NMPC_K3_STRUCTURES(NMPC_DECLARE_INSTANCE)
 #undef NMPC_DECLARE_INSTANCE
+
+// the double instances of usv_guidance and usv_guidance5 promise one block
+// per SM (see "Registers" above)
+template <>
+struct MinBlocks<double, NMPC_GUIDANCE> {
+  static constexpr int value = 1;
+};
+template <>
+struct MinBlocks<double, NMPC_GUIDANCE5> {
+  static constexpr int value = 1;
+};
 
 }  // namespace ipm
 }  // namespace nmpc

@@ -1,0 +1,14 @@
+// K3 instance for usv_guidance4 (nx=4, nu=1, one control box row,
+// no state box, no h rows), in double.  One translation unit per
+// instance, so that nvcc compiles the instances in parallel.
+
+#include "ipm_lanes.cuh"
+
+namespace nmpc {
+namespace ipm {
+
+template int launch<double, NMPC_GUIDANCE4>(const FusedArgs<double>&,
+                                            cudaStream_t);
+
+}  // namespace ipm
+}  // namespace nmpc

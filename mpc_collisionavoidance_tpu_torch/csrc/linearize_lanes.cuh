@@ -1,4 +1,7 @@
-// Fused RTI linearization (K2) for sm_90a.
+// Fused RTI linearization (K2) for sm_90a: the kernel, its launch and the
+// macro of its C entries.  Each model form (csrc/models/<name>.cuh) has its
+// own translation unit linearize_lanes_<name>.cu, so that nvcc compiles
+// the forms in parallel.
 //
 // Replaces mpc_collisionavoidance_tpu/kernels/linearize_pallas.py:
 // linearize_lanes_pallas.  Per (stage, lane) it computes
@@ -29,7 +32,10 @@
 // ~4 x 8 x 7 values per thread), which limits occupancy and may spill in
 // float64.  The 14-state hulls (usv_pf_ca, usv_pf: 9 f tangents) carry
 // ~4 x 14 x 10 dual values per thread, above the 255-register cap in both
-// precisions, so they spill to local memory.  Accepted for bring-up.
+// precisions, so they spill to local memory; so do the double forms of
+// the other hull models and of the guidance models with 9-12 states
+// (usv_guidance_ca, usv_guidance, usv_guidance2, usv_guidance3), whose
+// float forms fit in 224-254 registers.  Accepted for bring-up.
 //
 // A model with no parameters (NP = 0) reads none: the kernel hands its
 // form a size-1 dummy array, and the params pointer (of an empty tensor,
@@ -37,21 +43,18 @@
 // skips the constraint pass at compile time, so hbar and C (empty) are
 // never written.  No array has size 0.
 //
-// One C entry per model form (csrc/models/<name>.cuh): the flagship
-// usv_guidance_ca1, and the hull family usv_pf_ca, usv_pf, usv_low_level,
-// usv_acados and usv_position_control.
+// The C entries, one per model form: the flagship usv_guidance_ca1, the
+// hull family usv_pf_ca, usv_pf, usv_low_level, usv_acados and
+// usv_position_control (on models/hydro.cuh), and the kinematic guidance
+// family usv_guidance_ca, usv_guidance and usv_guidance2..5 (on
+// models/guidance.cuh, with the flagship).
+#pragma once
 
 #include <cuda_runtime.h>
 
 #include <cstddef>
 
 #include "dual.cuh"
-#include "models/usv_acados.cuh"
-#include "models/usv_guidance_ca1.cuh"
-#include "models/usv_low_level.cuh"
-#include "models/usv_pf.cuh"
-#include "models/usv_pf_ca.cuh"
-#include "models/usv_position_control.cuh"
 
 namespace {
 
@@ -216,10 +219,3 @@ int entry(int is_double, int N, int L, double dt_step, int steps,
     return entry<nmpc::FORM>(is_double, N, L, dt_step, steps, xs, ub, prm, \
                              xn, J, hbar, C, stream);                       \
   }
-
-NMPC_LINEARIZE_ENTRY(usv_guidance_ca1, UsvGuidanceCa1)
-NMPC_LINEARIZE_ENTRY(usv_pf_ca, UsvPfCa)
-NMPC_LINEARIZE_ENTRY(usv_pf, UsvPf)
-NMPC_LINEARIZE_ENTRY(usv_low_level, UsvLowLevel)
-NMPC_LINEARIZE_ENTRY(usv_acados, UsvAcados)
-NMPC_LINEARIZE_ENTRY(usv_position_control, UsvPositionControl)

@@ -5,11 +5,12 @@
 // x = (u, v, ye, chie, psied, xned, yned, psi), U = psied_dot,
 // p = (ox1, oy1, ..., ox8, oy8).  f and h are templates over the scalar
 // type S (float, double or a Dual of either), built only from the
-// operators and m_* functions of dual.cuh.  The crab angle uses the native
-// atan2.
+// operators and m_* functions of dual.cuh and the shared kinematics of
+// guidance.cuh.  The crab angle uses the native atan2.
 #pragma once
 
 #include "dual.cuh"
+#include "models/guidance.cuh"
 
 namespace nmpc {
 
@@ -32,17 +33,14 @@ struct UsvGuidanceCa1 {
                                            const scalar_t<S> (&)[NP],
                                            S (&xdot)[NX]) {
     using T = scalar_t<S>;
-    const S beta = m_atan2(x[1], x[0] + T(0.001));
-    const S psie = x[3] - beta;
+    const S psie = x[3] - Guidance::crab(x[0], x[1]);
     const S psie_rate = (x[4] - psie) / T(1.0);  // T1 = 1.0
-    const S sp = m_sin(x[7]), cp = m_cos(x[7]);
     xdot[0] = S(T(0));
     xdot[1] = S(T(0));
     xdot[2] = x[0] * m_sin(psie) + x[1] * m_cos(psie);
     xdot[3] = psie_rate;
     xdot[4] = u[0];
-    xdot[5] = x[0] * cp - x[1] * sp;
-    xdot[6] = x[0] * sp + x[1] * cp;
+    Guidance::ned_rates(x[0], x[1], x[7], xdot[5], xdot[6]);
     xdot[7] = psie_rate;
   }
 
@@ -51,12 +49,7 @@ struct UsvGuidanceCa1 {
   __device__ __forceinline__ static void h(const S (&x)[NX],
                                            const scalar_t<S> (&p)[NP],
                                            S (&out)[NH]) {
-#pragma unroll
-    for (int i = 0; i < NH; ++i) {
-      const S dx = x[5] - p[2 * i];
-      const S dy = x[6] - p[2 * i + 1];
-      out[i] = m_sqrt(dx * dx + dy * dy);
-    }
+    Guidance::obstacle_distances<NH>(x[5], x[6], p, out);
   }
 };
 

@@ -58,7 +58,9 @@ _ENTRIES = {
     #  xn, J, hbar, C, stream), one entry per model form
     **{f"nmpc_linearize_{name}": _LINEARIZE_ARGS for name in (
         "usv_guidance_ca1", "usv_pf_ca", "usv_pf", "usv_low_level",
-        "usv_acados", "usv_position_control")},
+        "usv_acados", "usv_position_control", "usv_guidance_ca",
+        "usv_guidance", "usv_guidance2", "usv_guidance3", "usv_guidance4",
+        "usv_guidance5")},
     # (is_double, nx, nu, nbu, nbx, nHh, nS, N, L, iters, tau, sigma, mu0,
     #  idxbu, idxbx, pointer array, stream)
     "nmpc_fused_ipm_lanes": ([_INT] * 10 + [_DBL] * 3

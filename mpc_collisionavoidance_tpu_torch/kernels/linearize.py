@@ -1,10 +1,11 @@
-"""Wrapper of the CUDA fused linearization `csrc/linearize_lanes.cu` (K2).
+"""Wrapper of the CUDA fused linearization `csrc/linearize_lanes.cuh` (K2).
 
 Replaces `mpc_collisionavoidance_tpu/kernels/linearize_pallas.py::
 linearize_lanes_pallas`.  The kernel is model-specific: each model with a
 CUDA form (`csrc/models/<name>.cuh`) has its own C entry, keyed here by
 `model.name`, and the model's dimensions and f_dep/h_dep must match the
-compiled form.  A model with no CUDA form raises `NotImplementedError`.
+compiled form (the entry's unit is `csrc/linearize_lanes_<name>.cu`).  A
+model with no CUDA form raises `NotImplementedError`.
 The wrapper takes CUDA tensors only; `ops.linearize_lanes.linearize_lanes`
 sends CPU tensors to the plain version.  `launches` counts kernel launches.
 """
@@ -22,6 +23,12 @@ CUDA_MODELS = {
     "usv_low_level": (8, 2, 0, 0, (0, 3, 4, 5, 6, 7, 8, 9), ()),
     "usv_acados": (5, 2, 0, 0, (0, 1, 2, 3, 4, 5, 6), ()),
     "usv_position_control": (8, 2, 0, 0, (2, 3, 4, 5, 6, 7, 8, 9), ()),
+    "usv_guidance_ca": (9, 1, 16, 8, (0, 1, 3, 4, 7, 8, 9), (5, 6)),
+    "usv_guidance": (10, 1, 0, 0, (2, 5, 6, 8, 9, 10), ()),
+    "usv_guidance2": (12, 1, 0, 0, (2, 5, 6, 7, 9, 11, 12), ()),
+    "usv_guidance3": (11, 1, 0, 0, (2, 5, 6, 7, 9, 10, 11), ()),
+    "usv_guidance4": (4, 1, 0, 0, (0, 1, 3, 4), ()),
+    "usv_guidance5": (5, 1, 0, 0, (0, 1, 3, 4, 5), ()),
 }
 DTYPES = (torch.float32, torch.float64)
 

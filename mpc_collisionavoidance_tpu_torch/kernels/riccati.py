@@ -1,4 +1,5 @@
-"""Wrapper of the CUDA Riccati sweep `csrc/riccati_lanes.cu` (K1).
+"""Wrapper of the CUDA Riccati sweep `csrc/riccati_lanes.cu` (K1; the
+kernel is `csrc/riccati_lanes.cuh`).
 
 Replaces `mpc_collisionavoidance_tpu/kernels/riccati_pallas.py::
 lqr_solve_lanes_pallas`.  The wrapper checks device, dtype, shapes and
@@ -12,10 +13,14 @@ import torch
 
 from mpc_collisionavoidance_tpu_torch.kernels import _build
 
-# (nx, nu) pairs the kernel is instantiated for: the flagship (8, 1), the
-# 14-state hulls usv_pf_ca and usv_pf (14, 2), usv_low_level and
-# usv_position_control (8, 2), usv_acados (5, 2)
-SUPPORTED = ((8, 1), (14, 2), (8, 2), (5, 2))
+# (nx, nu) pairs the kernel is instantiated for (csrc/riccati_lanes.cuh's
+# NMPC_K1_SHAPES): the flagship (8, 1), the 14-state hulls usv_pf_ca and
+# usv_pf (14, 2), usv_low_level and usv_position_control (8, 2),
+# usv_acados (5, 2), and the guidance family: usv_guidance_ca (9, 1),
+# usv_guidance (10, 1), usv_guidance2 (12, 1), usv_guidance3 (11, 1),
+# usv_guidance4 (4, 1), usv_guidance5 (5, 1)
+SUPPORTED = ((8, 1), (14, 2), (8, 2), (5, 2), (9, 1), (10, 1), (12, 1),
+             (11, 1), (4, 1), (5, 1))
 DTYPES = (torch.float32, torch.float64)
 
 launches = 0

@@ -1,6 +1,7 @@
 """Registry of the ported model variants (counterpart of
 `mpc_collisionavoidance_tpu/models/registry.py`; the variants ported so
-far: the flagship and the hydrodynamic family)."""
+far: the flagship, the hydrodynamic family and the kinematic guidance
+family)."""
 
 from typing import Callable, Dict
 
@@ -14,6 +15,12 @@ _BUILDERS: Dict[str, Callable[[], Model]] = {
     "usv_pf": variants.usv_pf,
     "usv_guidance_ca1": variants.usv_guidance_ca1,
     "usv_pf_ca": variants.usv_pf_ca,
+    "usv_guidance": variants.usv_guidance,
+    "usv_guidance2": variants.usv_guidance2,
+    "usv_guidance3": variants.usv_guidance3,
+    "usv_guidance4": variants.usv_guidance4,
+    "usv_guidance5": variants.usv_guidance5,
+    "usv_guidance_ca": variants.usv_guidance_ca,
 }
 
 

@@ -2,12 +2,13 @@
 `mpc_collisionavoidance_tpu/models/variants.py`).
 
 Ported so far: the flagship `usv_guidance_ca1`, the 14-state hull
-`usv_pf_ca` and the rest of the hydrodynamic family (`usv_acados`,
-`usv_low_level`, `usv_position_control`, `usv_pf`).  Dynamics and
-constraints are
-written over unpacked state components with broadcasting only, so the same
-text runs on (N, L) lane tensors and under `torch.func.jvp`.  The crab
-angle uses the native `torch.atan2`; the JAX package's polynomial atan2
+`usv_pf_ca`, the rest of the hydrodynamic family (`usv_acados`,
+`usv_low_level`, `usv_position_control`, `usv_pf`) and the kinematic
+guidance family (`usv_guidance`, `usv_guidance2`..`5`,
+`usv_guidance_ca`).  Dynamics and constraints are written over unpacked
+state components with broadcasting only, so the same text runs on (N, L)
+lane tensors and under `torch.func.jvp`.  The crab angle uses the native
+`torch.atan2`; the JAX package's polynomial atan2
 (`ops/kmath.py`) exists only to lower inside a TPU kernel.  The CUDA forms
 of the models are `csrc/models/<name>.cuh`.
 """
@@ -264,4 +265,214 @@ def usv_pf_ca() -> Model:
         idxbx=np.array([3, 4, 5, 12, 13]),
         h=h, nh=4,
         lh=np.zeros(4), uh=np.full(4, 1e6),
+    )
+
+
+# ---------------------------------------------------------------------------
+# Kinematic guidance family
+
+def usv_guidance() -> Model:
+    """10-state guidance v1 with first-order heading response (reference
+    scripts/usv_guidance/usv_model.py:60-115; T1 = 1.0)."""
+    T1 = 1.0
+
+    def f(x, u_ctl, p):
+        _nx, _ny, psi, _s, _c, u, v, _ye, ak, psid = x
+        xned_dot = u * torch.cos(psi) - v * torch.sin(psi)
+        yned_dot = u * torch.sin(psi) + v * torch.cos(psi)
+        psi_rate = (psid - psi) / T1
+        return torch.stack([
+            xned_dot,
+            yned_dot,
+            psi_rate,
+            torch.cos(psi) * psi_rate,
+            -torch.sin(psi) * psi_rate,
+            torch.zeros_like(psi),
+            torch.zeros_like(psi),
+            -xned_dot * torch.sin(ak) + yned_dot * torch.cos(ak),
+            torch.zeros_like(psi),
+            u_ctl[0],
+        ])
+
+    ak0 = np.arctan2(-15.0 - 2.0, 6.0 - 2.0)
+    ye0 = -(0.0 - 2.0) * np.sin(ak0) + (0.0 - 2.0) * np.cos(ak0)
+    return Model(
+        name="usv_guidance", nx=10, nu=1, np_=0, f=f,
+        f_dep=(2, 5, 6, 8, 9, 10),
+        x0=np.array([0.0, 0.0, 0.0, 0.0, 1.0, 0.0, 0.0, ye0, ak0, 0.0]),
+        state_names=("nedx", "nedy", "psi", "sinpsi", "cospsi", "u", "v",
+                     "ye", "ak", "psid"),
+        control_names=("Upsiddot",),
+        lbu=np.array([-1.5]), ubu=np.array([1.5]), idxbu=np.array([0]),
+        lbx=np.array([-2.0, -2.0, -np.pi]),
+        ubx=np.array([2.0, 2.0, np.pi]),
+        idxbx=np.array([5, 6, 9]),
+    )
+
+
+def usv_guidance2() -> Model:
+    """12-state guidance v2 with yaw-rate loop (reference
+    scripts/usv_guidance2/usv_model.py; T1 = 0.4)."""
+    T1 = 0.4
+
+    def f(x, u_ctl, p):
+        _nx, _ny, psi, _s, _c, u, v, r, _ye, ak, _psid, rd = x
+        xned_dot = u * torch.cos(psi) - v * torch.sin(psi)
+        yned_dot = u * torch.sin(psi) + v * torch.cos(psi)
+        return torch.stack([
+            xned_dot,
+            yned_dot,
+            r,
+            torch.cos(psi) * r,
+            -torch.sin(psi) * r,
+            torch.zeros_like(psi),
+            torch.zeros_like(psi),
+            (rd - r) / T1,
+            -xned_dot * torch.sin(ak) + yned_dot * torch.cos(ak),
+            torch.zeros_like(psi),
+            rd,
+            u_ctl[0],
+        ])
+
+    return Model(
+        name="usv_guidance2", nx=12, nu=1, np_=0, f=f,
+        f_dep=(2, 5, 6, 7, 9, 11, 12),
+        x0=np.array([0.0, 0.0, 0.0, 0.0, 1.0, 0.5, 0.0, 0.0,
+                     0.0, 0.0, 0.0, 0.0]),
+        state_names=("nedx", "nedy", "psi", "sinpsi", "cospsi", "u", "v", "r",
+                     "ye", "ak", "psid", "rd"),
+        control_names=("Urddot",),
+        lbu=np.array([-0.7]), ubu=np.array([0.7]), idxbu=np.array([0]),
+        lbx=np.array([-1.0]), ubx=np.array([1.0]), idxbx=np.array([11]),
+    )
+
+
+def usv_guidance3() -> Model:
+    """11-state guidance v3 with course-angle kinematics (reference
+    scripts/usv_guidance3/usv_model.py; chi = psi + beta, T1 = 1.0)."""
+    T1 = 1.0
+
+    def f(x, u_ctl, p):
+        _nx, _ny, psi, _s, _c, u, v, r, _ye, ak, rd = x
+        beta = torch.atan2(v, u + 0.001)
+        chi = psi + beta
+        xned_dot = u * torch.cos(psi) - v * torch.sin(psi)
+        yned_dot = u * torch.sin(psi) + v * torch.cos(psi)
+        return torch.stack([
+            xned_dot,
+            yned_dot,
+            r,
+            torch.cos(chi) * r,
+            -torch.sin(chi) * r,
+            torch.zeros_like(psi),
+            torch.zeros_like(psi),
+            (rd - r) / T1,
+            -xned_dot * torch.sin(ak) + yned_dot * torch.cos(ak),
+            torch.zeros_like(psi),
+            u_ctl[0],
+        ])
+
+    return Model(
+        name="usv_guidance3", nx=11, nu=1, np_=0, f=f,
+        f_dep=(2, 5, 6, 7, 9, 10, 11),
+        x0=np.array([0.0, 0.0, 0.0, 0.0, 1.0, 0.5, 0.0, 0.0, 0.0, 0.0, 0.0]),
+        state_names=("nedx", "nedy", "psi", "sinpsi", "cospsi", "u", "v", "r",
+                     "ye", "ak", "rd"),
+        control_names=("Urddot",),
+        lbu=np.array([-0.25]), ubu=np.array([0.25]), idxbu=np.array([0]),
+        lbx=np.array([-0.35]), ubx=np.array([0.35]), idxbx=np.array([10]),
+    )
+
+
+def usv_guidance4() -> Model:
+    """Minimal 4-state error-kinematics model; control IS the desired heading
+    error (reference scripts/usv_guidance4/usv_model.py; T1 = 0.2)."""
+    T1 = 0.2
+
+    def f(x, u_ctl, p):
+        u, v, _ye, chie = x
+        beta = torch.atan2(v, u + 0.001)
+        psie = chie - beta
+        return torch.stack([
+            torch.zeros_like(u),
+            torch.zeros_like(u),
+            u * torch.sin(psie) + v * torch.cos(psie),
+            (u_ctl[0] - psie) / T1,
+        ])
+
+    return Model(
+        name="usv_guidance4", nx=4, nu=1, np_=0, f=f,
+        f_dep=(0, 1, 3, 4),
+        x0=np.zeros(4),
+        state_names=("u", "v", "ye", "chie"),
+        control_names=("psied",),
+        lbu=np.array([-np.pi / 2]), ubu=np.array([np.pi / 2]),
+        idxbu=np.array([0]),
+    )
+
+
+def usv_guidance5() -> Model:
+    """5-state variant adding the rate-limited desired-heading state
+    (reference scripts/usv_guidance5/usv_model.py; T1 = 1.0)."""
+    T1 = 1.0
+
+    def f(x, u_ctl, p):
+        u, v, _ye, chie, psied = x
+        beta = torch.atan2(v, u + 0.001)
+        psie = chie - beta
+        return torch.stack([
+            torch.zeros_like(u),
+            torch.zeros_like(u),
+            u * torch.sin(psie) + v * torch.cos(psie),
+            (psied - psie) / T1,
+            u_ctl[0],
+        ])
+
+    return Model(
+        name="usv_guidance5", nx=5, nu=1, np_=0, f=f,
+        f_dep=(0, 1, 3, 4, 5),
+        x0=np.zeros(5),
+        state_names=("u", "v", "ye", "chie", "psied"),
+        control_names=("Upsieddot",),
+        lbu=np.array([-0.25]), ubu=np.array([0.25]), idxbu=np.array([0]),
+        lbx=np.array([-np.pi / 2]), ubx=np.array([np.pi / 2]),
+        idxbx=np.array([4]),
+    )
+
+
+def usv_guidance_ca() -> Model:
+    """9-state CA guidance with jerk-level input and 8 hard distance
+    constraints (reference scripts/usv_guidance_ca/usv_model.py; T1 = 1.0)."""
+    T1 = 1.0
+
+    def f(x, u_ctl, p):
+        u, v, _ye, chie, psied, _xn, _yn, psi, psieddot = x
+        beta = torch.atan2(v, u + 0.001)
+        psie = chie - beta
+        return torch.stack([
+            torch.zeros_like(u),
+            torch.zeros_like(u),
+            u * torch.sin(psie) + v * torch.cos(psie),
+            (psied - psie) / T1,
+            psieddot,
+            u * torch.cos(psi) - v * torch.sin(psi),
+            u * torch.sin(psi) + v * torch.cos(psi),
+            (psied - psie) / T1,
+            u_ctl[0],
+        ])
+
+    def h(x, p):
+        return _obstacle_distances(x[5], x[6], p, 8)
+
+    return Model(
+        name="usv_guidance_ca", nx=9, nu=1, np_=16, f=f,
+        f_dep=(0, 1, 3, 4, 7, 8, 9), h_dep=(5, 6),
+        x0=np.zeros(9),
+        state_names=("u", "v", "ye", "chie", "psied", "xned", "yned", "psi",
+                     "psieddot"),
+        control_names=("Upsieddotdot",),
+        lbu=np.array([-1.0]), ubu=np.array([1.0]), idxbu=np.array([0]),
+        lbx=np.array([-1.0]), ubx=np.array([1.0]), idxbx=np.array([8]),
+        h=h, nh=8,
+        lh=np.zeros(8), uh=np.full(8, 1e6),
     )

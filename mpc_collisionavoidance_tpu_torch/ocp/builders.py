@@ -1,6 +1,6 @@
 """Per-variant OCP builders (counterpart of
-`mpc_collisionavoidance_tpu/ocp/builders.py`; the flagship and the
-hydrodynamic family so far).
+`mpc_collisionavoidance_tpu/ocp/builders.py`; the flagship, the
+hydrodynamic family and the kinematic guidance family so far).
 
 The LINEAR_LS selection layout is identical across all variants: Vx stacks
 the identity over the states, Vu appends one row per control (reference
@@ -120,6 +120,79 @@ def usv_position_control(Tf: float = 1.0, N: int = 20) -> OCPSpec:
     return OCPSpec(model=m, N=N, Tf=Tf, cost=cost)
 
 
+def usv_guidance_ca(Tf: float = 5.0, N: int = 100) -> OCPSpec:
+    """reference scripts/usv_guidance_ca/acados_settings.py:75-120 —
+    hard distance constraints (no idxsh), Q = diag(0,0,0.05,0.025,0,...)."""
+    m = registry.get("usv_guidance_ca")
+    cost = _linear_ls(
+        m.nx, m.nu,
+        q_diag=[0, 0, 0.05, 0.025, 0, 0, 0, 0, 0],
+        r_diag=[0.0],
+        qe_diag=[0, 0, 0.1, 0.05, 0, 0, 0, 0, 0],
+    )
+    return OCPSpec(model=m, N=N, Tf=Tf, cost=cost, soft=None)
+
+
+def usv_guidance(Tf: float = 1.0, N: int = 100) -> OCPSpec:
+    """reference scripts/usv_guidance/acados_settings.py:75-120."""
+    m = registry.get("usv_guidance")
+    cost = _linear_ls(
+        m.nx, m.nu,
+        q_diag=[0, 0, 0, 0.1, 0.1, 0, 0, 0.8, 0, 0],
+        r_diag=[0.01],
+        qe_diag=[0, 0, 0, 0.1, 0.1, 0, 0, 0.8, 0, 0],
+    )
+    return OCPSpec(model=m, N=N, Tf=Tf, cost=cost)
+
+
+def usv_guidance2(Tf: float = 1.0, N: int = 100) -> OCPSpec:
+    """reference scripts/usv_guidance2/acados_settings.py:75-120."""
+    m = registry.get("usv_guidance2")
+    cost = _linear_ls(
+        m.nx, m.nu,
+        q_diag=[0, 0, 0, 0.05, 0.05, 0, 0, 0.02, 0.1, 0, 0.0, 0.0],
+        r_diag=[0.0],
+        qe_diag=[0, 0, 0, 0.1, 0.1, 0, 0, 0.03, 0.2, 0, 0.0, 0.0],
+    )
+    return OCPSpec(model=m, N=N, Tf=Tf, cost=cost)
+
+
+def usv_guidance3(Tf: float = 1.0, N: int = 100) -> OCPSpec:
+    """reference scripts/usv_guidance3/acados_settings.py:75-120."""
+    m = registry.get("usv_guidance3")
+    cost = _linear_ls(
+        m.nx, m.nu,
+        q_diag=[0, 0, 0, 0.05, 0.05, 0, 0, 0.0, 0.07, 0, 0.1],
+        r_diag=[0.03],
+        qe_diag=[0, 0, 0, 0.1, 0.1, 0, 0, 0.0, 0.2, 0, 0.2],
+    )
+    return OCPSpec(model=m, N=N, Tf=Tf, cost=cost)
+
+
+def usv_guidance4(Tf: float = 1.0, N: int = 100) -> OCPSpec:
+    """reference scripts/usv_guidance4/acados_settings.py:75-120."""
+    m = registry.get("usv_guidance4")
+    cost = _linear_ls(
+        m.nx, m.nu,
+        q_diag=[0, 0, 0.1, 0.3],
+        r_diag=[0.2],
+        qe_diag=[0, 0, 0.2, 0.5],
+    )
+    return OCPSpec(model=m, N=N, Tf=Tf, cost=cost)
+
+
+def usv_guidance5(Tf: float = 1.0, N: int = 100) -> OCPSpec:
+    """reference scripts/usv_guidance5/acados_settings.py:75-120."""
+    m = registry.get("usv_guidance5")
+    cost = _linear_ls(
+        m.nx, m.nu,
+        q_diag=[0, 0, 0.1, 0.05, 0.0],
+        r_diag=[0.01],
+        qe_diag=[0, 0, 0.2, 0.1, 0.0],
+    )
+    return OCPSpec(model=m, N=N, Tf=Tf, cost=cost)
+
+
 BUILDERS = {
     "usv_guidance_ca1": usv_guidance_ca1,
     "usv_pf_ca": usv_pf_ca,
@@ -127,6 +200,12 @@ BUILDERS = {
     "usv_acados": usv_acados,
     "usv_low_level": usv_low_level,
     "usv_position_control": usv_position_control,
+    "usv_guidance_ca": usv_guidance_ca,
+    "usv_guidance": usv_guidance,
+    "usv_guidance2": usv_guidance2,
+    "usv_guidance3": usv_guidance3,
+    "usv_guidance4": usv_guidance4,
+    "usv_guidance5": usv_guidance5,
 }
 
 

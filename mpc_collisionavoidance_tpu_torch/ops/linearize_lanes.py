@@ -8,7 +8,7 @@ one rollout under `torch.func.jvp` per column in f_dep (and per column of
 h in h_dep).  Skipped columns are exact identity (states f does not read)
 or exact zeros (controls f does not read, states h does not read).
 `linearize_lanes` dispatches by device: CPU tensors take the plain
-version, CUDA tensors the kernel `csrc/linearize_lanes.cu`.
+version, CUDA tensors the kernel `csrc/linearize_lanes.cuh`.
 
 Layouts: in  xs (nx, N, L), ubar (nu, N, L), params (np, L);
          out xn (nx, N, L), J (N, nx, nx+nu, L), hbar (nh, N, L),

@@ -1,5 +1,6 @@
-"""Scenario library (copy of the flagship and hydrodynamic-family parts
-of `mpc_collisionavoidance_tpu/sim/scenarios.py`, pure numpy).
+"""Scenario library (copy of the flagship, hydrodynamic-family and
+kinematic-guidance parts of `mpc_collisionavoidance_tpu/sim/scenarios.py`,
+pure numpy).
 
 `guidance_ca1_default` reproduces the flagship closed-loop experiment of
 reference scripts/usv_guidance_ca1/main.py:73-113: a straight 30 m path
@@ -11,6 +12,10 @@ with radius 0 (reference acados_settings.py:185, main.py:76-77).
 scripts/usv_pf_ca/main.py:73-133); `pf_default`, `low_level_default`,
 `acados_speed_default` and `position_control_default` are those of the
 obstacle-free models of the same family, each with its own references.
+`guidance_ca_default` is the hard-row guidance model's buoy run (reference
+scripts/usv_guidance_ca/main.py), `guidance_default` and
+`guidance2_default`..`guidance5_default` the obstacle-free guidance
+models' segment-following runs.
 """
 
 import dataclasses
@@ -56,6 +61,29 @@ def guidance_ca1_default(n_steps: int = 1000) -> Scenario:
         x0=x0, params=pobs, lh=robs, n_steps=n_steps, ak=float(ak),
         waypoints=np.array([[x1, y1], [x2, y2]]),
     )
+
+
+def guidance_ca_default(n_steps: int = 1000) -> Scenario:
+    """reference scripts/usv_guidance_ca/main.py:73-122: obstacles slightly
+    off-path, radius 0.5 with the runtime lh pushed as radius + 0.2
+    (main.py:122) — these rows are HARD (no slack band)."""
+    obsx = np.array([3.0, 4.0, 3.7, 4.4])
+    obsy = np.array([3.0, 8.0, 16.0, 20.0])
+    radius = np.full(8, 0.0)
+    radius[:4] = 0.5 + 0.2
+    pobs = np.full(16, SENTINEL_POS)
+    robs = np.zeros(8)
+    for i in range(4):
+        pobs[2 * i] = obsx[i]
+        pobs[2 * i + 1] = obsy[i]
+        robs[i] = radius[i]
+    x1, y1, x2, y2 = 4.0, -5.0, 4.0, 25.0
+    ak = np.arctan2(y2 - y1, x2 - x1)
+    ye = -(0.0 - x1) * np.sin(ak) + (0.0 - y1) * np.cos(ak)
+    psie = 0.0 - ak
+    x0 = np.array([0.7, 0.0, ye, psie, psie, 0.0, 0.0, 0.0, 0.0])
+    return Scenario("guidance_ca_default", x0, pobs, robs, n_steps, float(ak),
+                    np.array([[x1, y1], [x2, y2]]))
 
 
 def pf_ca_default(n_steps: int = 4000) -> Scenario:
@@ -121,6 +149,71 @@ def position_control_default(n_steps: int = 200) -> Scenario:
                     yref=yref, yref_e=yref[:8])
 
 
+def _segment_frame(x1, y1, x2, y2, nedx=0.0, nedy=0.0):
+    ak = float(np.arctan2(y2 - y1, x2 - x1))
+    ye = float(-(nedx - x1) * np.sin(ak) + (nedy - y1) * np.cos(ak))
+    return ak, ye
+
+
+def guidance_default(n_steps: int = 2000) -> Scenario:
+    """usv_guidance kinematic guidance experiment (reference
+    scripts/usv_guidance/main.py:87-120): u = 0.5, segment
+    (3,-5) -> (10,5), yref heads along the segment (sin ak, cos ak)."""
+    ak, ye = _segment_frame(3.0, -5.0, 10.0, 5.0)
+    x0 = np.array([0, 0, 0, 0, 1.0, 0.5, 0, ye, ak, 0.0])
+    yref = np.zeros(11)
+    yref[3], yref[4] = np.sin(ak), np.cos(ak)
+    return Scenario("guidance_default", x0, np.zeros(0), np.zeros(0),
+                    n_steps, ak, np.array([[3.0, -5.0], [10.0, 5.0]]),
+                    yref=yref, yref_e=yref[:10])
+
+
+def guidance2_default(n_steps: int = 2000) -> Scenario:
+    """usv_guidance2 (reference scripts/usv_guidance2/main.py:86-126):
+    adds yaw-rate states r, rd; same segment and references."""
+    ak, ye = _segment_frame(3.0, -5.0, 10.0, 5.0)
+    x0 = np.array([0, 0, 0, 0, 1.0, 0.5, 0, 0, ye, ak, 0.0, 0.0])
+    yref = np.zeros(13)
+    yref[3], yref[4] = np.sin(ak), np.cos(ak)
+    return Scenario("guidance2_default", x0, np.zeros(0), np.zeros(0),
+                    n_steps, ak, np.array([[3.0, -5.0], [10.0, 5.0]]),
+                    yref=yref, yref_e=yref[:12])
+
+
+def guidance3_default(n_steps: int = 2000) -> Scenario:
+    """usv_guidance3 course-angle variant (reference
+    scripts/usv_guidance3/main.py:89-132): segment (4,-5) -> (4,25),
+    u = 0.5, u_ref = 0.7 in the reference vector."""
+    ak, ye = _segment_frame(4.0, -5.0, 4.0, 25.0)
+    x0 = np.array([0, 0, 0, 0, 1.0, 0.5, 0, 0, ye, ak, 0.0])
+    yref = np.zeros(12)
+    yref[3], yref[4], yref[5] = np.sin(ak), np.cos(ak), 0.7
+    return Scenario("guidance3_default", x0, np.zeros(0), np.zeros(0),
+                    n_steps, ak, np.array([[4.0, -5.0], [4.0, 25.0]]),
+                    yref=yref, yref_e=yref[:11])
+
+
+def guidance4_default(n_steps: int = 3000) -> Scenario:
+    """usv_guidance4 minimal error model (reference
+    scripts/usv_guidance4/main.py:89-103): u = 0.7, segment
+    (4,-5) -> (4,25), all-zero references (drive ye, chie -> 0)."""
+    ak, ye = _segment_frame(4.0, -5.0, 4.0, 25.0)
+    psie = 0.0 - ak
+    x0 = np.array([0.7, 0.0, ye, psie])
+    return Scenario("guidance4_default", x0, np.zeros(0), np.zeros(0),
+                    n_steps, ak, np.array([[4.0, -5.0], [4.0, 25.0]]))
+
+
+def guidance5_default(n_steps: int = 3000) -> Scenario:
+    """usv_guidance5 (reference scripts/usv_guidance5/main.py:89-103):
+    guidance4 plus the rate-limited heading-reference state."""
+    ak, ye = _segment_frame(4.0, -5.0, 4.0, 25.0)
+    psie = 0.0 - ak
+    x0 = np.array([0.7, 0.0, ye, psie, psie])
+    return Scenario("guidance5_default", x0, np.zeros(0), np.zeros(0),
+                    n_steps, ak, np.array([[4.0, -5.0], [4.0, 25.0]]))
+
+
 def pf_default(n_steps: int = 4000) -> Scenario:
     """usv_pf path following without obstacles (reference
     scripts/usv_pf/main.py:95-130): same frame/references as pf_ca."""
@@ -140,7 +233,9 @@ def pf_default(n_steps: int = 4000) -> Scenario:
 # batch of it perturbs by 0.1 N(0, 1): the cross-track error ye where the
 # model has one (as bench.py:107-127), else the coordinate its cost tracks
 # (surge u for usv_low_level and usv_acados, north x for
-# usv_position_control).
+# usv_position_control).  guidance_ca_default, guidance4_default and
+# guidance5_default carry no yref: those models track the builder's zero
+# reference.
 DEFAULTS = {
     "usv_guidance_ca1": (guidance_ca1_default, 2),
     "usv_pf_ca": (pf_ca_default, 6),
@@ -148,4 +243,10 @@ DEFAULTS = {
     "usv_low_level": (low_level_default, 3),
     "usv_acados": (acados_speed_default, 0),
     "usv_position_control": (position_control_default, 0),
+    "usv_guidance_ca": (guidance_ca_default, 2),
+    "usv_guidance": (guidance_default, 7),
+    "usv_guidance2": (guidance2_default, 8),
+    "usv_guidance3": (guidance3_default, 8),
+    "usv_guidance4": (guidance4_default, 2),
+    "usv_guidance5": (guidance5_default, 2),
 }

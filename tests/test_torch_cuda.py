@@ -26,7 +26,8 @@ from mpc_collisionavoidance_tpu_torch.sim import scenarios
 from mpc_collisionavoidance_tpu_torch.solver.batch import to_lanes
 # by its own name (pytest puts tests/ on sys.path): on the card's machine
 # an installed package named `tests` shadows this directory as a package
-from torch_family import FAMILY, random_point  # noqa: E402
+from torch_family import (FAMILY, GUIDANCE, guidance_point,  # noqa: E402
+                          random_point)
 
 pytestmark = pytest.mark.cuda
 
@@ -74,13 +75,17 @@ def _random_lqr(N, nx, nu, L, seed, dtype, device):
 @pytest.mark.parametrize("nx,nu,L,N", [
     (8, 1, 1, 30), (8, 1, 33, 30), (8, 1, 130, 30),
     (14, 2, 1, 30), (14, 2, 33, 30), (14, 2, 130, 100),
-    (8, 2, 1, 20), (8, 2, 130, 100), (5, 2, 33, 20), (5, 2, 130, 2)])
+    (8, 2, 1, 20), (8, 2, 130, 100), (5, 2, 33, 20), (5, 2, 130, 2),
+    (9, 1, 33, 100), (10, 1, 130, 100), (12, 1, 1, 100), (12, 1, 130, 100),
+    (11, 1, 33, 100), (4, 1, 130, 100), (4, 1, 33, 2), (5, 1, 1, 100),
+    (5, 1, 130, 100)])
 def test_riccati_kernel_matches_plain(card, nx, nu, L, N, dtype):
     """Ragged lane groups: L=1 (one lane of a 4-lane block), 33 and 130
     (a last block of 1 and 2 lanes); L=130 in float64 also takes the
     16-byte copies, the other widths the element copies.  (8, 2) and
     (5, 2) also at N=20 (usv_acados, usv_position_control) and N=2,
-    shorter than the tile rings."""
+    shorter than the tile rings; the guidance family's instances at
+    their N=100, (4, 1) also at N=2."""
     d = _random_lqr(N, nx, nu, L, seed=L, dtype=dtype, device=card)
     before = riccati.launches
     got = riccati.lqr_solve_lanes_cuda(*d)
@@ -92,7 +97,7 @@ def test_riccati_kernel_matches_plain(card, nx, nu, L, N, dtype):
         torch.testing.assert_close(g, w, rtol=rtol, atol=atol)
 
 
-@pytest.mark.parametrize("nx,nu", [(8, 1), (14, 2), (8, 2), (5, 2)])
+@pytest.mark.parametrize("nx,nu", riccati.SUPPORTED)
 def test_riccati_kernel_nan_lane_leaves_the_others_bitwise(card, nx, nu):
     """One lane's A set to NaN: that lane goes non-finite, and every other
     lane (its block's neighbours included) is bitwise what it was."""
@@ -184,17 +189,26 @@ def test_linearize_hull_kernel_matches_plain(card, L, dtype):
         torch.testing.assert_close(g, w, rtol=max(rtol, 1e-12), atol=atol)
 
 
+def _family_point(name, N, L, seed, dt):
+    if name in GUIDANCE:
+        return guidance_point(name, N, L, seed)
+    return random_point(name, N, L, seed, dt=dt)
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
 @pytest.mark.parametrize("L", [1, 45])
-@pytest.mark.parametrize("name", FAMILY)
+@pytest.mark.parametrize("name", FAMILY + GUIDANCE)
 def test_linearize_family_kernel_matches_plain(card, name, L, dtype):
-    """K2's forms with no parameters and no rows (empty params, hbar, C),
-    at the hull family's random points (tests/test_torch_hull_family.py:
-    both sides of the drag switch, the kinks of |v| and |r|)."""
-    # the builder's step (0.01 s, or 0.05 s at N=20) over 12 stages
+    """K2's hull family forms with no parameters and no rows (empty
+    params, hbar, C), at the hull family's random points
+    (tests/test_torch_hull_family.py: both sides of the drag switch, the
+    kinks of |v| and |r|), and the guidance family's forms (usv_guidance_ca
+    with its obstacle table and 8 rows) at forward surge."""
+    # the builder's step (0.01 s, 0.05 s at N=20 or N=100 over 5 s) over
+    # 12 stages
     spec = builders.build(name, N=12, Tf=12 * builders.build(name).dt)
     args = [torch.as_tensor(a, dtype=dtype, device=card)
-            for a in random_point(name, 12, L, seed=L, dt=spec.dt)]
+            for a in _family_point(name, 12, L, seed=L, dt=spec.dt)]
     kw = dict(model=spec.model, dt=spec.dt,
               integrator_steps=spec.integrator_steps)
     before = linearize.launches
@@ -202,32 +216,35 @@ def test_linearize_family_kernel_matches_plain(card, name, L, dtype):
     want = linearize_lanes_plain(*args, **kw)
     torch.cuda.synchronize()
     assert linearize.launches == before + 1
-    assert got[2].numel() == got[3].numel() == 0
+    assert (got[2].numel() == got[3].numel() == 0) == (spec.model.nh == 0)
     rtol, atol = TOLS[dtype]
     for g, w in zip(got, want):
         torch.testing.assert_close(g, w, rtol=max(rtol, 1e-12), atol=atol)
 
 
-@pytest.mark.parametrize("name", FAMILY)
+@pytest.mark.parametrize("name", FAMILY + GUIDANCE)
 def test_family_tick_on_card_matches_cpu(card, name):
-    """The float64 production tick of each model with no rows (empty
-    params and lh) on the card vs the CPU plain path, with the scenario's
-    references; the card runs K2 once and K1 at least 4 times."""
+    """The float64 production tick of each model of the hull family with
+    no rows and of the guidance family on the card vs the CPU plain path,
+    with the scenario's obstacle table, lh and references; the card runs
+    K2 once and K1 at least 4 times."""
     spec = builders.build(name, N=20)
     factory, coord = scenarios.DEFAULTS[name]
     sc = factory()
+    m = spec.model
     B = 6
     rng = np.random.default_rng(0)
-    x0s = np.broadcast_to(sc.x0, (B, spec.model.nx)).copy()
+    x0s = np.broadcast_to(sc.x0, (B, m.nx)).copy()
     x0s[:, coord] += 0.1 * rng.standard_normal(B)
     outs = {}
     for device in ("cpu", card):
         solver = production_engine().build(spec, device=device,
                                            dtype=torch.float64)
-        x, p = (to_lanes(torch.tensor(a)).to(device)
-                for a in (x0s, np.zeros((B, 0))))
+        x, p, lh = (to_lanes(torch.tensor(np.asarray(a))).to(device)
+                    for a in (x0s, np.broadcast_to(sc.params, (B, m.np_)),
+                              np.broadcast_to(sc.lh, (B, m.nh))))
         counts = (riccati.launches, linearize.launches, ipm.launches)
-        _, out = solver.step_fn(solver.init_state(x0s), x, p, None,
+        _, out = solver.step_fn(solver.init_state(x0s), x, p, lh,
                                 yref=sc.yref, yref_e=sc.yref_e)
         outs[str(device)] = out
         if device == card:
@@ -265,7 +282,13 @@ def _fused_qp(name, L, dtype, device, N=12):
                                     ("usv_pf_ca", 37), ("usv_pf", 37),
                                     ("usv_low_level", 1),
                                     ("usv_position_control", 37),
-                                    ("usv_acados", 37)])
+                                    ("usv_acados", 37),
+                                    ("usv_guidance_ca", 37),
+                                    ("usv_guidance", 37),
+                                    ("usv_guidance2", 1),
+                                    ("usv_guidance3", 37),
+                                    ("usv_guidance4", 37),
+                                    ("usv_guidance5", 37)])
 def test_fused_ipm_kernel_matches_plain(card, name, L, dtype):
     solver, qp = _fused_qp(name, L, dtype, card)
     args = (qp, solver.idxbu, solver.idxbx)
@@ -320,8 +343,10 @@ def test_k1_and_k3_instances_do_not_spill(card):
     chip_smoke.check_spills((_build.build().parent / "nvcc.log").read_text())
 
 
-def test_fused_ipm_kernel_nan_lane(card):
-    solver, qp = _fused_qp("usv_guidance_ca1", 37, torch.float64, card)
+@pytest.mark.parametrize("name", ["usv_guidance_ca1", "usv_guidance_ca",
+                                  "usv_guidance4"])
+def test_fused_ipm_kernel_nan_lane(card, name):
+    solver, qp = _fused_qp(name, 37, torch.float64, card)
     dx0 = qp.dx0.clone()
     dx0[0, 5] = float("nan")
     bad = qp._replace(dx0=dx0)
@@ -333,7 +358,8 @@ def test_fused_ipm_kernel_nan_lane(card):
 
 @pytest.mark.parametrize("name", ["usv_guidance_ca1", "usv_pf_ca",
                                   "usv_pf", "usv_low_level", "usv_acados",
-                                  "usv_position_control"])
+                                  "usv_position_control", "usv_guidance_ca",
+                                  "usv_guidance4"])
 def test_fused_tick_launches_k3_once_and_never_k1(card, name):
     spec = builders.build(name, N=12)
     m = spec.model

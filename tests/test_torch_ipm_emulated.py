@@ -5,9 +5,10 @@
 of tests/torch_cuda_emulation.py (a std::thread per CUDA thread, one
 barrier per block, shuffles through the barrier, cp.async as a plain
 copy).  QPs come from the fused solver's own assembly at each OCP's
-default scenario (N=12, float64; the structures with no h rows, usv_pf,
-usv_low_level, usv_position_control and usv_acados, also at N=20 and at
-N=2, shorter than the tile rings); the kernel's C entry is called as
+default scenario (N=12, float64; the structures with no h rows, the hull
+family's usv_pf, usv_low_level, usv_position_control, usv_acados and the
+guidance family's usv_guidance, usv_guidance2..5, also at N=1, 2 and 20,
+shorter than the tile rings); the kernel's C entry is called as
 `kernels/ipm.py` calls it, and its dx, du, gap and status are held against
 `fused_ipm_lanes_plain`.  This checks the kernel's indexing where no card
 exists: the shared-memory layout, the row units of the stage-parallel
@@ -32,7 +33,11 @@ from tests import torch_cuda_emulation as emulation
 
 N, ITERS, TOL = 12, 4, 1e-7
 OCPS = ("usv_guidance_ca1", "usv_pf_ca", "usv_pf", "usv_low_level",
-        "usv_position_control", "usv_acados")
+        "usv_position_control", "usv_acados", "usv_guidance_ca",
+        "usv_guidance", "usv_guidance2", "usv_guidance3", "usv_guidance4",
+        "usv_guidance5")
+# the OCPs with neither hard nor soft rows
+NO_ROWS = tuple(n for n in OCPS if builders.build(n).model.nh == 0)
 
 
 @pytest.fixture(scope="module")
@@ -46,9 +51,9 @@ def emulated(tmp_path_factory):
         ["nmpc_fused_ipm_lanes", "nmpc_fused_ipm_scratch"])
 
 
-def _qp(name, L, N=N):
-    """A float64 LaneQP of the fused solver's assembly at the model's
-    default scenario, its coordinate perturbed."""
+def _qp(name, L, N=N, dtype=torch.float64):
+    """A LaneQP of the fused solver's assembly at the model's default
+    scenario, its coordinate perturbed."""
     spec = builders.build(name, N=N)
     factory, coord = scenarios.DEFAULTS[name]
     sc = factory()
@@ -57,8 +62,8 @@ def _qp(name, L, N=N):
     x0s = np.broadcast_to(sc.x0, (L, m.nx)).copy()
     x0s[:, coord] += 0.1 * rng.standard_normal(L)
     solver = SolverConfig(riccati="fused").build(spec, device="cpu",
-                                                 dtype=torch.float64)
-    lanes = [to_lanes(torch.tensor(np.asarray(a), dtype=torch.float64))
+                                                 dtype=dtype)
+    lanes = [to_lanes(torch.tensor(np.asarray(a), dtype=dtype))
              for a in (x0s, np.broadcast_to(sc.params, (L, m.np_)),
                        np.broadcast_to(sc.lh, (L, m.nh)))]
     qp = contiguous_qp(solver._build_qp(solver.init_state(x0s), *lanes))
@@ -81,7 +86,8 @@ def _run(lib, qp, idxbu, idxbx):
     tensors = [getattr(qp, f) for f in ipm._LANE_FIELDS + ipm._STATIC_FIELDS]
     ptrs = [t.data_ptr() for t in (*tensors, dx, du, gap, eq_res, scratch)]
     code = lib.nmpc_fused_ipm_lanes(
-        1, *structure, N, L, ITERS, 0.995, 0.1, 1.0,
+        int(qp.A.dtype == torch.float64), *structure, N, L, ITERS, 0.995,
+        0.1, 1.0,
         (ctypes.c_int * max(len(idxbu), 1))(*idxbu),
         (ctypes.c_int * max(len(idxbx), 1))(*idxbx),
         (ctypes.c_void_p * len(ptrs))(*ptrs), None)
@@ -96,15 +102,30 @@ def test_emulated_kernel_matches_plain(emulated, name, L):
     _check(emulated, qp, idxbu, idxbx)
 
 
-@pytest.mark.parametrize("N", [2, 20])
-@pytest.mark.parametrize("name", OCPS[2:])
+@pytest.mark.parametrize("N", [1, 2, 20])
+@pytest.mark.parametrize("name", NO_ROWS)
 def test_emulated_kernel_matches_plain_at_short_horizons(emulated, name, N):
     """The structures with no h rows at N=20 (usv_acados' and
-    usv_position_control's horizon) and N=2, shorter than the backward
-    ring's prefetch and the forward ring."""
+    usv_position_control's horizon), N=2 and N=1, shorter than the
+    backward ring's prefetch and the forward ring; usv_guidance4's
+    (4, 1, 1, 0, 0, 0) has no state box either (xb_lo, xb_hi (N, 0, L))."""
     qp, idxbu, idxbx = _qp(name, 3, N=N)
     assert qp.Ch.shape[1] == qp.Cs.shape[1] == 0
     _check(emulated, qp, idxbu, idxbx)
+
+
+@pytest.mark.parametrize("name", OCPS)
+def test_emulated_kernel_matches_plain_in_float32(emulated, name):
+    """The float32 instance of every structure at L=5: du within the
+    float32 gap-floor ball that chip_smoke.py's phase 4 allows (5e-3),
+    the same lanes converged."""
+    qp, idxbu, idxbx = _qp(name, 5, dtype=torch.float32)
+    got = _run(emulated, qp, idxbu, idxbx)
+    want = fused_ipm_lanes_plain(qp, idxbu, idxbx, iters=ITERS)
+    assert all(torch.isfinite(g).all() for g in got)
+    assert float((got[1] - want[1]).abs().max()) <= 5e-3
+    assert torch.equal(lane_status(*got, TOL) == 0,
+                       lane_status(*want, TOL) == 0)
 
 
 def _check(emulated, qp, idxbu, idxbx):
@@ -116,7 +137,8 @@ def _check(emulated, qp, idxbu, idxbx):
     assert torch.equal(lane_status(*got, TOL), lane_status(*want, TOL))
 
 
-@pytest.mark.parametrize("name", OCPS[:3])
+@pytest.mark.parametrize("name", OCPS[:3] + ("usv_guidance_ca",
+                                              "usv_guidance4"))
 def test_emulated_kernel_nan_lane(emulated, name):
     """A NaN in one lane's dx0: that lane gets status 2, and every other
     lane's outputs are bitwise what they were."""

@@ -1,14 +1,16 @@
 """K2's CUDA source run on the CPU, against the plain linearization.
 
-`csrc/linearize_lanes.cu`, `csrc/dual.cuh` and the model forms
-`csrc/models/*.cuh` are compiled with g++ (ISO C++, `-pedantic-errors`:
+`csrc/linearize_lanes.cuh`, its units `csrc/linearize_lanes_<model>.cu`,
+`csrc/dual.cuh` and the model forms `csrc/models/*.cuh` are compiled with
+g++ (ISO C++, `-pedantic-errors`:
 an array of size 0 is an error, as it is for nvcc) against the stand-in
 header of tests/torch_cuda_emulation.py (a std::thread per CUDA thread).
 Each model's C entry is called as `kernels/linearize.py` calls it; its
 xn, J, hbar and C are held against `linearize_lanes_plain`.  This checks
 the forms and the kernel's indexing where no card exists, including the
 models with no parameters and no constraint rows, whose params, hbar and
-C are empty (null pointers here) and must be neither read nor written.
+C are empty (null pointers here) and must be neither read nor written:
+the hull family's and the guidance family's, in both precisions.
 """
 
 import ctypes
@@ -22,7 +24,8 @@ from mpc_collisionavoidance_tpu_torch.ocp import builders
 from mpc_collisionavoidance_tpu_torch.ops.linearize_lanes import (
     linearize_lanes_plain)
 from tests import torch_cuda_emulation as emulation
-from tests.torch_family import FAMILY, random_point
+from tests.torch_family import (FAMILY, GUIDANCE, guidance_point,
+                                random_point)
 
 N, L = 5, 3
 # float32: the kernel-vs-reference tolerances of tests/test_torch_cuda.py
@@ -34,8 +37,10 @@ def emulated(tmp_path_factory):
     """K2's C entries, built from the checkout's sources for the CPU."""
     headers = ["dual.cuh", *(f"models/{p.name}" for p in sorted(
         (_build.CSRC / "models").glob("*.cuh")))]
-    return emulation.build(tmp_path_factory.mktemp("k2_emulated"), headers,
-                           ["linearize_lanes.cu"],
+    return emulation.build(tmp_path_factory.mktemp("k2_emulated"),
+                           ["linearize_lanes.cuh", *headers],
+                           [f"linearize_lanes_{name}.cu"
+                            for name in linearize.CUDA_MODELS],
                            [f"nmpc_linearize_{name}"
                             for name in linearize.CUDA_MODELS])
 
@@ -49,6 +54,8 @@ def _inputs(name, seed):
     m = builders.build(name).model
     if name in FAMILY:
         return random_point(name, N, L, seed, dt=_spec(name).dt)
+    if name in GUIDANCE:
+        return guidance_point(name, N, L, seed)
     rng = np.random.default_rng(seed)
     if name == "usv_pf_ca":
         x, u, _ = random_point("usv_pf", N, L, seed)

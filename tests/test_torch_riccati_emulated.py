@@ -1,12 +1,13 @@
 """K1's CUDA source run on the CPU, against the plain sweep.
 
-`csrc/riccati_lanes.cu` and `csrc/riccati_team.cuh` are compiled with g++
+`csrc/riccati_lanes.cu`, its instance files `riccati_lanes_*.cu`,
+`csrc/riccati_lanes.cuh` and `csrc/riccati_team.cuh` are compiled with g++
 against the stand-in header of tests/torch_cuda_emulation.py (a
 std::thread per CUDA thread, one barrier per block, cp.async as a plain
 copy).  This checks the kernel's indexing where no card exists: the tile
 ring, the warp's rows and column parts, the transposed tiles, the 16-byte
 and element copies, the ragged last block and a NaN lane, for every
-instance: (8, 1), (14, 2), (8, 2) and (5, 2).
+instance (`kernels/riccati.py::SUPPORTED`) in both precisions.
 """
 
 import ctypes
@@ -15,6 +16,7 @@ import numpy as np
 import pytest
 import torch
 
+from mpc_collisionavoidance_tpu_torch.kernels import _build, riccati
 from mpc_collisionavoidance_tpu_torch.ops.riccati_lanes import (
     LaneLQR, lqr_solve_lanes_plain)
 from tests import torch_cuda_emulation as emulation
@@ -24,9 +26,12 @@ from tests.test_torch_riccati import random_lqr
 @pytest.fixture(scope="module")
 def emulated(tmp_path_factory):
     """K1's C entry, built from the checkout's sources for the CPU."""
-    return emulation.build(tmp_path_factory.mktemp("k1_emulated"),
-                           ["riccati_team.cuh"], ["riccati_lanes.cu"],
-                           ["nmpc_riccati_lanes"])
+    return emulation.build(
+        tmp_path_factory.mktemp("k1_emulated"),
+        ["riccati_team.cuh", "riccati_lanes.cuh"],
+        ["riccati_lanes.cu", *(p.name for p in sorted(
+            _build.CSRC.glob("riccati_lanes_*.cu")))],
+        ["nmpc_riccati_lanes"])
 
 
 def _run(lib, d):
@@ -54,7 +59,7 @@ def _check(lib, d):
         torch.testing.assert_close(g, w, rtol=rtol, atol=atol)
 
 
-INSTANCES = [(8, 1), (14, 2), (8, 2), (5, 2)]
+INSTANCES = list(riccati.SUPPORTED)
 
 
 @pytest.mark.parametrize("L", [1, 6, 8])
@@ -67,13 +72,13 @@ def test_emulated_kernel_matches_plain(emulated, nx, nu, dtype, L):
 
 
 @pytest.mark.parametrize("N", [1, 2, 20])
-@pytest.mark.parametrize("nx,nu", [(8, 2), (5, 2)])
+@pytest.mark.parametrize("nx,nu", INSTANCES)
 def test_emulated_kernel_matches_plain_at_short_horizons(emulated, nx, nu,
                                                          N):
     """N=20 (the horizon of usv_acados and usv_position_control), and N=1
     and 2, shorter than the backward ring's prefetch (kRing - 1 = 2
     stages) and the forward ring (4 tiles at (5, 2), 5 at (8, 2)): the
-    first and last stages of both rings."""
+    first and last stages of both rings, for every instance."""
     _check(emulated, _lqr(nx, nu, 5, torch.float64, seed=N, N=N))
 
 

@@ -400,7 +400,7 @@ def test_unported_engine_and_model_raise(tmp_path):
     with pytest.raises(NotImplementedError, match="A7"):
         RTServer(str(tmp_path / "x.sock"), engine="vmap", device="cpu")
     with pytest.raises(ValueError, match="usv_pf_ca"):
-        RTServer(str(tmp_path / "x.sock"), model="usv_guidance",
+        RTServer(str(tmp_path / "x.sock"), model="race_cars",
                  device="cpu")
 
 
@@ -466,6 +466,32 @@ def test_wire_loop_of_a_model_with_no_rows_matches_jax_server(tmp_path,
                 x0 = out[-1].x1
         replies.append(out)
     _assert_replies_close(replies[1], replies[0], atol=3e-5)
+
+
+@pytest.mark.parametrize("model", ["usv_guidance_ca", "usv_guidance4"])
+def test_wire_loop_of_a_guidance_model_matches_jax_server(tmp_path, model):
+    """A guidance model over v2 frames: usv_guidance_ca with its 16
+    obstacle parameters, runtime lh and 8 hard rows, and usv_guidance4
+    with np = nh = 0 and no state box; the scenario's x0 and the
+    builder's yref (the scenarios carry none).  A 5-tick wire closed loop
+    through the JAX lane server and the port's, identical arguments, both
+    float32; identical statuses, u0/x1 to float32 round-off (measured
+    within 1.5e-7, held at 1e-6 as the flagship's loop is)."""
+    from mpc_collisionavoidance_tpu.rt.server import RTServer as JaxServer
+    kw = dict(model=model, N=20, Tf=1.0, ipm_iters=6, max_batch=4)
+    sc = scenarios.DEFAULTS[model][0]()
+    replies = []
+    for server in (JaxServer(str(tmp_path / "j.sock"), engine="lane", **kw),
+                   RTServer(str(tmp_path / "t.sock"), device="cpu", **kw)):
+        out, x0 = [], tuple(sc.x0)
+        with _Serving(server) as srv, \
+                contextlib.closing(_connect(srv.address)) as s:
+            for k in range(5):
+                out.append(_solve2(s, model, k, x0, sc.params, sc.lh))
+                assert out[-1].seq == k and out[-1].status in (0, 1)
+                x0 = out[-1].x1
+        replies.append(out)
+    _assert_replies_close(replies[1], replies[0], atol=1e-6)
 
 
 # ---------------------------------------------------------------------------

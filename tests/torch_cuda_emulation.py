@@ -34,7 +34,7 @@ STAND_IN = r"""
 #define __device__
 #define __host__
 #define __forceinline__ inline
-#define __launch_bounds__(x)
+#define __launch_bounds__(...)
 #define __align__(x)
 #define __restrict__
 using std::isfinite;

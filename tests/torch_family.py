@@ -1,6 +1,6 @@
-"""The hull family's models with no obstacle rows, for the tests of the
-port (this module imports no JAX: tests/test_torch_cuda.py runs on the
-card, where there is none)."""
+"""The hull family's models with no obstacle rows and the kinematic
+guidance family, for the tests of the port (this module imports no JAX:
+tests/test_torch_cuda.py runs on the card, where there is none)."""
 
 import numpy as np
 
@@ -34,3 +34,25 @@ def random_point(name, N, L, seed, dt=0.01):
     x[[ip, istbd]] = rng.uniform(-20.0, 30.0, size=(2, N, L))
     u = rng.normal(size=(m.nu, N, L)) * 5.0
     return x, u, np.zeros((0, L))
+
+
+# the kinematic guidance family, in porting order, with the state
+# coordinate of each model's surge u
+GUIDANCE = ("usv_guidance_ca", "usv_guidance", "usv_guidance2",
+            "usv_guidance3", "usv_guidance4", "usv_guidance5")
+SURGE = {"usv_guidance_ca": 0, "usv_guidance": 5, "usv_guidance2": 5,
+         "usv_guidance3": 5, "usv_guidance4": 0, "usv_guidance5": 0}
+
+
+def guidance_point(name, N, L, seed):
+    """(x (nx, N, L), u (1, N, L), p (np, L)) of a guidance model: states
+    ~0.5 N(0, 1) with a forward surge of 0.2-1.5 m/s (away from the crab
+    angle's branch cut at u + 0.001 < 0, v = 0), controls ~0.2 N(0, 1);
+    usv_guidance_ca's 8 obstacle centres 2-50 m out, as the flagship's
+    (tests/test_linearize_pallas.py)."""
+    m = registry.get(name)
+    rng = np.random.default_rng(seed)
+    x = rng.normal(size=(m.nx, N, L)) * 0.5
+    x[SURGE[name]] = rng.uniform(0.2, 1.5, size=(N, L))
+    u = rng.normal(size=(m.nu, N, L)) * 0.2
+    return x, u, rng.uniform(2.0, 50.0, size=(m.np_, L))

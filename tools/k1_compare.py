@@ -1,12 +1,19 @@
 """Time K1, the lane Riccati sweep, of this checkout against other builds of
 the same C entry (`nmpc_riccati_lanes`), in one process on one card.
 
-    python -m tools.k1_compare [NAME=path/to/riccati_lanes.cu ...] [--json PATH]
+    python -m tools.k1_compare [NAME=PATH ...] [--shapes NXxNU ...]
+                               [--json PATH]
 
-Each NAME=PATH source is compiled by its own nvcc (the flags of
-`kernels/_build.py`, `-I` the port's csrc/) into build/k1_compare/NAME/,
-and its ptxas register/spill report is printed.  For both K1 instances at
-N=100 and L in {1, 128, 512} float32 and 512 float64, every build's dx/du
+PATH is a build's K1 source: one `riccati_lanes.cu` holding the kernel
+and its instances (K1 before its split into instance files), or a
+directory holding a build's `riccati_lanes.cu`, its instance files and,
+where they differ, its own headers.  Each PATH's .cu files are compiled by
+their own nvcc processes, in parallel (the flags of `kernels/_build.py`,
+`-I` the directory, `-I` the port's csrc/), into build/k1_compare/NAME/,
+and its ptxas register/spill report is printed.  For each K1 instance of
+`--shapes` (default: every one in `chip_smoke.K1_SHAPES`; a build that
+lacks one fails) at N=100 and L in {1, 128, 512} float32 and 512
+float64, every build's dx/du
 is held against the checkout's kernel ("repo"; float32 rtol 2e-4 atol
 2e-5, float64 atol 1e-10; a build named probe_* is a timing probe with
 parts of the work cut out, so its error is recorded and not held), then all
@@ -35,19 +42,32 @@ OUT = _build.REPO_ROOT / "build" / "k1_compare"
 N = 100
 
 
+def _nvcc(cmd):
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc failed:\n{proc.stderr[-4000:]}")
+    return proc.stdout + proc.stderr
+
+
 def build_variant(name, src):
-    """Compile `src` into build/k1_compare/<name>/; returns (library,
-    ptxas report lines)."""
+    """Compile the .cu file `src`, or every .cu of the directory `src`,
+    into build/k1_compare/<name>/ and link them; returns (library, ptxas
+    report lines)."""
+    src = pathlib.Path(src).resolve()
+    units = sorted(src.glob("*.cu")) if src.is_dir() else [src]
+    inc = src if src.is_dir() else src.parent
     out = OUT / name
     out.mkdir(parents=True, exist_ok=True)
+    objs = [out / (u.stem + ".o") for u in units]
+    flags = [*_build.NVCC_FLAGS, "-I", str(inc), "-I", str(_build.CSRC)]
+    with concurrent.futures.ThreadPoolExecutor(len(units)) as pool:
+        logs = list(pool.map(_nvcc, [
+            [_build.find_nvcc(), *flags, "-c", "-o", str(o), str(u)]
+            for u, o in zip(units, objs)]))
     lib = out / "libk1.so"
-    proc = subprocess.run(
-        [_build.find_nvcc(), *_build.NVCC_FLAGS, "-shared", "-I",
-         str(_build.CSRC), "-o", str(lib), str(src)],
-        capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed for {name}:\n{proc.stderr[-4000:]}")
-    report = [ln.strip() for ln in (proc.stdout + proc.stderr).splitlines()
+    _nvcc([_build.find_nvcc(), *_build.ARCH_FLAGS, "-shared", "-o",
+           str(lib), *map(str, objs)])
+    report = [ln.strip() for ln in "".join(logs).splitlines()
               if "entry function" in ln or "spill" in ln or "Used" in ln]
     dll = ctypes.CDLL(str(lib))
     dll.nmpc_riccati_lanes.argtypes = _build._ENTRIES["nmpc_riccati_lanes"]
@@ -86,6 +106,8 @@ def sass_census(lib):
 def main(argv):
     ap = argparse.ArgumentParser()
     ap.add_argument("variants", nargs="*", metavar="NAME=PATH")
+    ap.add_argument("--shapes", nargs="*", default=None, metavar="NXxNU",
+                    help="these K1 instances only (e.g. 8x1 14x2)")
     ap.add_argument("--json", default=None, help="write the results here")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
@@ -114,8 +136,10 @@ def main(argv):
                 f"{op} {k}" for op, k in ops.items() if k))
     others = [n for n in libs if n != "repo"]
     order = [*others, "repo", "repo", *reversed(others)]
+    shapes = (chip_smoke.K1_SHAPES if args.shapes is None else
+              [tuple(map(int, a.split("x"))) for a in args.shapes])
     rows = []
-    for nx, nu in chip_smoke.K1_SHAPES:
+    for nx, nu in shapes:
         for L, dname in chip_smoke.K1_TIMED:
             dtype = getattr(torch, dname)
             rtol, atol = (2e-4, 2e-5) if dname == "float32" else (0.0, 1e-10)

@@ -3,8 +3,9 @@
     python -m tools.tick_profile [--ticks 20] [--profiled 10]
                                  [--only NAME ...] [--json PATH]
 
-For every OCP the port runs on the card (the flagship, the hull and the
-hull family), the production (sweep) and the fused tick,
+For every OCP the port runs on the card (the flagship, the hull, the
+hull family and the guidance family), the production (sweep) and the
+fused tick,
 at B=512 and B=1 (float32, the warm closed loop of `chip_smoke`'s
 workload, x0 <- x1): the median tick over `--ticks` warm ticks (CUDA events
 around the whole tick), then a torch.profiler window over `--profiled`
@@ -34,7 +35,7 @@ from mpc_collisionavoidance_tpu_torch.kernels import _build
 
 CONFIGS = [(name, backend, Bn)
            for name in (chip_smoke.FLAGSHIP, chip_smoke.HULL,
-                        *chip_smoke.FAMILY)
+                        *chip_smoke.FAMILY, *chip_smoke.GUIDANCE)
            for backend in ("sweep", "fused") for Bn in (512, 1)]
 
 
