@@ -7,18 +7,21 @@ numpy, never `jax` and never the JAX package (whose `__init__` pulls in
 jax), so the pure-numpy pieces (`ocp/spec.py`, `sim/scenarios.py`) are
 copies.
 
-The slice ported so far is the production RTI tick on the flagship OCP
-`usv_guidance_ca1`:
+Ported: the lane engine's RTI tick on every model of the JAX package's
+zoo, its real-time server, and all three of its TPU kernels:
 
-models   : Model container + the flagship dynamics/constraints in torch
-ocp      : OCPSpec and the flagship builder
-sim      : the flagship scenario
+models   : Model container + every model's dynamics/constraints in torch
+ocp      : OCPSpec and the builders
+sim      : the scenarios
+utils    : the race track (table, curvature interpolant, transforms)
 ops      : lane algebra, the Riccati sweep, the fused linearization and
            the lane primal-dual IPM (plain PyTorch versions + dispatch)
 kernels  : hand-written CUDA kernels for sm_90a (Riccati sweep, fused
-           linearization), built with nvcc at first use and bound by ctypes
+           linearization, fused IPM), built with nvcc at first use and
+           bound by ctypes
 solver   : LaneRTISolver (lane layout, instance axis minor-most)
 config   : SolverConfig and the production schedule
+rt       : the real-time server and its frames
 interop  : numpy carry-over of QPs / LQRs / warm starts from the JAX package
 
 Device picks the path: CUDA tensors run the kernels, CPU tensors the plain

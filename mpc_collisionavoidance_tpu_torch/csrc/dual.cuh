@@ -41,6 +41,10 @@ __device__ __forceinline__ float m_cos(float a) { return cosf(a); }
 __device__ __forceinline__ double m_cos(double a) { return ::cos(a); }
 __device__ __forceinline__ float m_sqrt(float a) { return sqrtf(a); }
 __device__ __forceinline__ double m_sqrt(double a) { return ::sqrt(a); }
+__device__ __forceinline__ float m_tanh(float a) { return tanhf(a); }
+__device__ __forceinline__ double m_tanh(double a) { return ::tanh(a); }
+__device__ __forceinline__ float m_floor(float a) { return floorf(a); }
+__device__ __forceinline__ double m_floor(double a) { return ::floor(a); }
 __device__ __forceinline__ float m_atan2(float y, float x) {
   return atan2f(y, x);
 }
@@ -130,6 +134,16 @@ __device__ __forceinline__ Dual<T, ND> operator*(const Dual<T, ND>& a, T b) {
   for (int i = 0; i < ND; ++i) r.d[i] = a.d[i] * b;
   return r;
 }
+// d(a / b) = da / b - (a / b) db / b
+template <typename T, int ND>
+__device__ __forceinline__ Dual<T, ND> operator/(const Dual<T, ND>& a,
+                                                 const Dual<T, ND>& b) {
+  Dual<T, ND> r;
+  r.v = a.v / b.v;
+#pragma unroll
+  for (int i = 0; i < ND; ++i) r.d[i] = (a.d[i] - r.v * b.d[i]) / b.v;
+  return r;
+}
 template <typename T, int ND>
 __device__ __forceinline__ Dual<T, ND> operator/(const Dual<T, ND>& a, T b) {
   Dual<T, ND> r;
@@ -165,6 +179,16 @@ __device__ __forceinline__ Dual<T, ND> m_sqrt(const Dual<T, ND>& a) {
   const T inv2 = T(0.5) / r.v;
 #pragma unroll
   for (int i = 0; i < ND; ++i) r.d[i] = a.d[i] * inv2;
+  return r;
+}
+// d tanh(a) = (1 - tanh(a)^2) da
+template <typename T, int ND>
+__device__ __forceinline__ Dual<T, ND> m_tanh(const Dual<T, ND>& a) {
+  Dual<T, ND> r;
+  r.v = m_tanh(a.v);
+  const T g = T(1) - r.v * r.v;
+#pragma unroll
+  for (int i = 0; i < ND; ++i) r.d[i] = g * a.d[i];
   return r;
 }
 // JAX's derivative of |x|: +dx where x >= 0 (at 0 too), -dx below

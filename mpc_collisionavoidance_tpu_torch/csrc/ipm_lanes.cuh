@@ -84,10 +84,14 @@
 //   usv_guidance4 (4, 1, 1, 0, 0, 0), N=100: 1,874 values: float 7,496 B,
 //                                27 per SM; double 14,992 B, 14;
 //   usv_guidance5 (5, 1, 1, 1, 0, 0), N=100: 2,790 values: float
-//                                11,160 B, 19 per SM; double 22,320 B, 10.
+//                                11,160 B, 19 per SM; double 22,320 B, 10;
+//   race_cars (6, 2, 2, 1, 3, 2), N=50: 4,500 values: float 18,000 B,
+//                                12 per SM; double 36,000 B, 6;
+//   race_cars_dev (6, 2, 2, 0, 0, 6), N=50: 5,742 values: float
+//                                22,968 B, 9 per SM; double 45,936 B, 4.
 // So at L=512 float32 runs in one wave (528 resident lanes or more),
-// float64 in two (one from usv_low_level down, and for the guidance
-// family but usv_guidance_ca).  A horizon whose layout
+// float64 in two (one from usv_low_level down, for the guidance family
+// but usv_guidance_ca, and for the race car).  A horizon whose layout
 // exceeds the 227 KB opt-in is refused (-3).  A structure with neither
 // hard nor soft rows (nHh = nS = 0) has box rows only: its tiles carry no
 // row block and its row units are the box pairs; usv_guidance4's
@@ -111,10 +115,12 @@
 // it picks, which a minimum of blocks per SM in the launch bounds changes
 // (any minimum, 1 to 8, gives the same target).  Without one, the double
 // instances of usv_guidance and usv_guidance5 spill 28 / 52 and 28 / 52
-// bytes at 128 and 96 registers; with one they take 198 and 150 and spill
-// nothing.  A minimum on every instance moves usv_pf's double instance to
-// 255 registers and 16 / 24 bytes of spills instead.  So those two
-// instances, and only they, promise one block (`MinBlocks`).
+// bytes at 128 and 96 registers, and race_cars' (6, 2, 2, 1, 3, 2) 4 / 8
+// bytes at 128; with one, usv_guidance's and usv_guidance5's take 198
+// and 150 and spill nothing.  A minimum on every instance moves usv_pf's
+// double instance to 255 registers and 16 / 24 bytes of spills instead.
+// So those three instances, and only they, promise one block
+// (`MinBlocks`).
 //
 // What bounds it on the H100: the lane's dependent chain.  12 iterations
 // each walk 100 backward and 100 forward stages of the warp step (K1's
@@ -845,10 +851,12 @@ int launch(const FusedArgs<T>& args, cudaStream_t stream) {
 #define NMPC_GUIDANCE3 11, 1, 1, 1, 0, 0   // usv_guidance3
 #define NMPC_GUIDANCE4 4, 1, 1, 0, 0, 0    // usv_guidance4
 #define NMPC_GUIDANCE5 5, 1, 1, 1, 0, 0    // usv_guidance5
+#define NMPC_RACE 6, 2, 2, 1, 3, 2         // race_cars
+#define NMPC_RACE_DEV 6, 2, 2, 0, 0, 6     // race_cars_dev
 #define NMPC_K3_STRUCTURES(X)                                               \
   X(NMPC_FLAGSHIP) X(NMPC_HULL) X(NMPC_PF) X(NMPC_LOW_LEVEL) X(NMPC_ACADOS) \
   X(NMPC_GUIDANCE_CA) X(NMPC_GUIDANCE) X(NMPC_GUIDANCE2) X(NMPC_GUIDANCE3)  \
-  X(NMPC_GUIDANCE4) X(NMPC_GUIDANCE5)
+  X(NMPC_GUIDANCE4) X(NMPC_GUIDANCE5) X(NMPC_RACE) X(NMPC_RACE_DEV)
 #define NMPC_DECLARE_INSTANCE(S)                                          \
   extern template int launch<float, S>(const FusedArgs<float>&,          \
                                        cudaStream_t);                     \
@@ -857,14 +865,18 @@ int launch(const FusedArgs<T>& args, cudaStream_t stream) {
 NMPC_K3_STRUCTURES(NMPC_DECLARE_INSTANCE)
 #undef NMPC_DECLARE_INSTANCE
 
-// the double instances of usv_guidance and usv_guidance5 promise one block
-// per SM (see "Registers" above)
+// the double instances of usv_guidance, usv_guidance5 and race_cars
+// promise one block per SM (see "Registers" above)
 template <>
 struct MinBlocks<double, NMPC_GUIDANCE> {
   static constexpr int value = 1;
 };
 template <>
 struct MinBlocks<double, NMPC_GUIDANCE5> {
+  static constexpr int value = 1;
+};
+template <>
+struct MinBlocks<double, NMPC_RACE> {
   static constexpr int value = 1;
 };
 

@@ -37,6 +37,13 @@
 // (usv_guidance_ca, usv_guidance, usv_guidance2, usv_guidance3), whose
 // float forms fit in 224-254 registers.  Accepted for bring-up.
 //
+// A form whose f reads a curvature table (the curved race track,
+// models/track.cuh) says so with kTrack = true; its C entry takes the
+// table, its length M and the lap's arc length, and the kernel hands them
+// to f.  Every other form's entry passes none, and its f is called
+// without.  The table's gathers are four loads per f evaluation from an
+// L1-resident array of M values, and come on top of a form's FLOPs.
+//
 // A model with no parameters (NP = 0) reads none: the kernel hands its
 // form a size-1 dummy array, and the params pointer (of an empty tensor,
 // possibly null) is never read.  A model with no constraint rows (NH = 0)
@@ -47,14 +54,18 @@
 // hull family usv_pf_ca, usv_pf, usv_low_level, usv_acados and
 // usv_position_control (on models/hydro.cuh), and the kinematic guidance
 // family usv_guidance_ca, usv_guidance and usv_guidance2..5 (on
-// models/guidance.cuh, with the flagship).
+// models/guidance.cuh, with the flagship), and the race car's two forms,
+// race_cars on the straight track and race_cars_track on a curved one
+// (models/race_cars.cuh).
 #pragma once
 
 #include <cuda_runtime.h>
 
 #include <cstddef>
+#include <type_traits>
 
 #include "dual.cuh"
+#include "models/track.cuh"
 
 namespace {
 
@@ -76,13 +87,34 @@ __device__ __forceinline__ constexpr int h_pos(int k) {
   return pos;
 }
 
+// whether form M's f reads a curvature table (M::kTrack, false if absent)
+template <typename M, typename = void>
+struct reads_track : std::false_type {};
+template <typename M>
+struct reads_track<M, std::void_t<decltype(M::kTrack)>>
+    : std::bool_constant<M::kTrack> {};
+
+// f of form M, with the table if it reads one
+template <typename M, typename S, typename T, int NPA>
+__device__ __forceinline__ void eval_f(const S (&x)[M::NX],
+                                       const S (&u)[M::NU],
+                                       const T (&p)[NPA],
+                                       const nmpc::Curvature<T>& tab,
+                                       S (&xdot)[M::NX]) {
+  if constexpr (reads_track<M>::value)
+    M::f(x, u, p, tab, xdot);
+  else
+    M::f(x, u, p, xdot);
+}
+
 template <typename T, typename M>
 __global__ void __launch_bounds__(kBlock)
 linearize_lanes_kernel(const T* __restrict__ xs, const T* __restrict__ ub,
                        const T* __restrict__ prm, T* __restrict__ xn,
                        T* __restrict__ J, T* __restrict__ hbar,
-                       T* __restrict__ C, int N, int L, T half_h, T h,
-                       T sixth_h, int steps) {
+                       T* __restrict__ C, const T* __restrict__ kap,
+                       int M_tab, T track_length, int N, int L, T half_h,
+                       T h, T sixth_h, int steps) {
   constexpr int NX = M::NX, NU = M::NU, NXU = M::NX + M::NU;
   const size_t gid = static_cast<size_t>(blockIdx.x) * blockDim.x +
                      threadIdx.x;
@@ -98,6 +130,8 @@ linearize_lanes_kernel(const T* __restrict__ xs, const T* __restrict__ ub,
   T p[M::NP > 0 ? M::NP : 1] = {};
 #pragma unroll
   for (int i = 0; i < M::NP; ++i) p[i] = prm[static_cast<size_t>(i) * L + l];
+
+  const nmpc::Curvature<T> tab{kap, M_tab, track_length};
 
   // ---- RK4 rollout with |f_dep| forward tangents ----
   using DF = nmpc::Dual<T, M::N_FDEP>;
@@ -117,25 +151,25 @@ linearize_lanes_kernel(const T* __restrict__ xs, const T* __restrict__ ub,
   for (int step = 0; step < steps; ++step) {
     // acc = k1 + 2 k2 + 2 k3 + k4, summed left to right as the reference
     DF k[NX], acc[NX], tmp[NX];
-    M::f(x, u, p, k);
+    eval_f<M>(x, u, p, tab, k);
 #pragma unroll
     for (int i = 0; i < NX; ++i) {
       acc[i] = k[i];
       tmp[i] = x[i] + half_h * k[i];
     }
-    M::f(tmp, u, p, k);
+    eval_f<M>(tmp, u, p, tab, k);
 #pragma unroll
     for (int i = 0; i < NX; ++i) {
       acc[i] = acc[i] + T(2) * k[i];
       tmp[i] = x[i] + half_h * k[i];
     }
-    M::f(tmp, u, p, k);
+    eval_f<M>(tmp, u, p, tab, k);
 #pragma unroll
     for (int i = 0; i < NX; ++i) {
       acc[i] = acc[i] + T(2) * k[i];
       tmp[i] = x[i] + h * k[i];
     }
-    M::f(tmp, u, p, k);
+    eval_f<M>(tmp, u, p, tab, k);
 #pragma unroll
     for (int i = 0; i < NX; ++i) x[i] = x[i] + sixth_h * (acc[i] + k[i]);
   }
@@ -177,7 +211,8 @@ linearize_lanes_kernel(const T* __restrict__ xs, const T* __restrict__ ub,
 template <typename T, typename M>
 int launch(int N, int L, double dt_step, int steps, const void* xs,
            const void* ub, const void* prm, void* xn, void* J, void* hbar,
-           void* C, cudaStream_t stream) {
+           void* C, const void* kap, int M_tab, double track_length,
+           cudaStream_t stream) {
   const size_t threads = static_cast<size_t>(N) * L;
   const int grid = static_cast<int>((threads + kBlock - 1) / kBlock);
   // the reference scales by Python floats computed in double, then rounds
@@ -186,7 +221,8 @@ int launch(int N, int L, double dt_step, int steps, const void* xs,
   kernel<<<grid, kBlock, 0, stream>>>(
       static_cast<const T*>(xs), static_cast<const T*>(ub),
       static_cast<const T*>(prm), static_cast<T*>(xn), static_cast<T*>(J),
-      static_cast<T*>(hbar), static_cast<T*>(C), N, L,
+      static_cast<T*>(hbar), static_cast<T*>(C), static_cast<const T*>(kap),
+      M_tab, static_cast<T>(track_length), N, L,
       static_cast<T>(0.5 * dt_step), static_cast<T>(dt_step),
       static_cast<T>(dt_step / 6.0), steps);
   return static_cast<int>(cudaGetLastError());
@@ -195,14 +231,17 @@ int launch(int N, int L, double dt_step, int steps, const void* xs,
 template <typename M>
 int entry(int is_double, int N, int L, double dt_step, int steps,
           const void* xs, const void* ub, const void* prm, void* xn, void* J,
-          void* hbar, void* C, void* stream) {
+          void* hbar, void* C, const void* kap, int M_tab,
+          double track_length, void* stream) {
   if (N < 1 || L < 1 || steps < 1) return -2;
+  if (reads_track<M>::value && (M_tab < 1 || !(track_length > 0.0)))
+    return -2;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (is_double)
     return launch<double, M>(N, L, dt_step, steps, xs, ub, prm, xn, J, hbar,
-                             C, st);
+                             C, kap, M_tab, track_length, st);
   return launch<float, M>(N, L, dt_step, steps, xs, ub, prm, xn, J, hbar, C,
-                          st);
+                          kap, M_tab, track_length, st);
 }
 
 }  // namespace
@@ -210,12 +249,25 @@ int entry(int is_double, int N, int L, double dt_step, int steps,
 // One C entry per model form, nmpc_linearize_<model>(is_double, N, L,
 // dt_step, steps, xs, ubar, params, xn, J, hbar, C, stream), with
 // dt_step = dt / integrator_steps.  Each returns cudaGetLastError() after
-// the launch (0 = success) or -2 for an empty problem.
+// the launch (0 = success) or -2 for an empty problem (or an empty
+// table).  A form that reads a curvature table has the entry
+// nmpc_linearize_<model>(..., hbar, C, table, M, track_length, stream),
+// the table a (M,) array of the working type.
 #define NMPC_LINEARIZE_ENTRY(NAME, FORM)                                    \
   extern "C" int nmpc_linearize_##NAME(                                     \
       int is_double, int N, int L, double dt_step, int steps,              \
       const void* xs, const void* ub, const void* prm, void* xn, void* J,  \
       void* hbar, void* C, void* stream) {                                  \
     return entry<nmpc::FORM>(is_double, N, L, dt_step, steps, xs, ub, prm, \
-                             xn, J, hbar, C, stream);                       \
+                             xn, J, hbar, C, nullptr, 0, 0.0, stream);      \
+  }
+#define NMPC_LINEARIZE_TRACK_ENTRY(NAME, FORM)                              \
+  extern "C" int nmpc_linearize_##NAME(                                     \
+      int is_double, int N, int L, double dt_step, int steps,              \
+      const void* xs, const void* ub, const void* prm, void* xn, void* J,  \
+      void* hbar, void* C, const void* kap, int M_tab,                     \
+      double track_length, void* stream) {                                 \
+    return entry<nmpc::FORM>(is_double, N, L, dt_step, steps, xs, ub, prm, \
+                             xn, J, hbar, C, kap, M_tab, track_length,     \
+                             stream);                                       \
   }

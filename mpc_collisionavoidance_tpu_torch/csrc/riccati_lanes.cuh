@@ -281,11 +281,13 @@ int launch(const void* A, const void* B, const void* c, const void* Q,
 // (14, 2) usv_pf_ca and usv_pf; (8, 2) usv_low_level and
 // usv_position_control; (5, 2) usv_acados; (9, 1) usv_guidance_ca;
 // (10, 1) usv_guidance; (12, 1) usv_guidance2; (11, 1) usv_guidance3;
-// (4, 1) usv_guidance4; (5, 1) usv_guidance5.  Declared here, defined in
+// (4, 1) usv_guidance4; (5, 1) usv_guidance5; (6, 2) race_cars and
+// race_cars_dev (the 8-row team of (8, 2) with two rows idle).  Declared
+// here, defined in
 // riccati_lanes_<nx>x<nu>_<type>.cu.
 #define NMPC_K1_SHAPES(X) \
   X(8, 1) X(14, 2) X(8, 2) X(5, 2) X(9, 1) X(10, 1) X(12, 1) X(11, 1) \
-  X(4, 1) X(5, 1)
+  X(4, 1) X(5, 1) X(6, 2)
 #define NMPC_K1_LAUNCH(T, NX, NU)                                           \
   int launch<T, NX, NU>(const void*, const void*, const void*, const void*, \
                         const void*, const void*, const void*, const void*, \

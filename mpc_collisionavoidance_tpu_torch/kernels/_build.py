@@ -46,6 +46,9 @@ _PTR = ctypes.c_void_p
 _INT = ctypes.c_int
 _DBL = ctypes.c_double
 _LINEARIZE_ARGS = [_INT, _INT, _INT, _DBL, _INT] + [_PTR] * 8
+# a form that reads a curvature table: the table, its length M and the
+# lap's arc length before the stream
+_LINEARIZE_TRACK_ARGS = _LINEARIZE_ARGS[:-1] + [_PTR, _INT, _DBL, _PTR]
 
 # C entry points: name -> argtypes.  Every launching entry returns
 # cudaGetLastError() after its launch (0 = cudaSuccess) or a negative code
@@ -60,7 +63,9 @@ _ENTRIES = {
         "usv_guidance_ca1", "usv_pf_ca", "usv_pf", "usv_low_level",
         "usv_acados", "usv_position_control", "usv_guidance_ca",
         "usv_guidance", "usv_guidance2", "usv_guidance3", "usv_guidance4",
-        "usv_guidance5")},
+        "usv_guidance5", "race_cars")},
+    # the same, then (table, M, track_length, stream)
+    "nmpc_linearize_race_cars_track": _LINEARIZE_TRACK_ARGS,
     # (is_double, nx, nu, nbu, nbx, nHh, nS, N, L, iters, tau, sigma, mu0,
     #  idxbu, idxbx, pointer array, stream)
     "nmpc_fused_ipm_lanes": ([_INT] * 10 + [_DBL] * 3

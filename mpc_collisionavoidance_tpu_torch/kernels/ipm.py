@@ -24,12 +24,15 @@ from mpc_collisionavoidance_tpu_torch.kernels import _build
 
 # (nx, nu, nbu, nbx, nHh, nS) instantiated (csrc/ipm_lanes.cuh's
 # NMPC_K3_STRUCTURES): the flagship usv_guidance_ca1, the hull usv_pf_ca,
-# usv_pf, usv_low_level with usv_position_control, usv_acados, and the
-# guidance family usv_guidance_ca, usv_guidance, usv_guidance2..5
+# usv_pf, usv_low_level with usv_position_control, usv_acados, the
+# guidance family usv_guidance_ca, usv_guidance, usv_guidance2..5, and the
+# race car race_cars (hard and soft rows) and race_cars_dev (soft rows
+# only, the softened state box among them)
 STRUCTURES = ((8, 1, 1, 0, 0, 8), (14, 2, 2, 5, 4, 0), (14, 2, 2, 5, 0, 0),
               (8, 2, 2, 5, 0, 0), (5, 2, 2, 5, 0, 0), (9, 1, 1, 1, 8, 0),
               (10, 1, 1, 3, 0, 0), (12, 1, 1, 1, 0, 0), (11, 1, 1, 1, 0, 0),
-              (4, 1, 1, 0, 0, 0), (5, 1, 1, 1, 0, 0))
+              (4, 1, 1, 0, 0, 0), (5, 1, 1, 1, 0, 0), (6, 2, 2, 1, 3, 2),
+              (6, 2, 2, 0, 0, 6))
 DTYPES = (torch.float32, torch.float64)
 
 # LaneQP fields in the order of the C entry's pointer array

@@ -5,10 +5,16 @@ linearize_lanes_pallas`.  The kernel is model-specific: each model with a
 CUDA form (`csrc/models/<name>.cuh`) has its own C entry, keyed here by
 `model.name`, and the model's dimensions and f_dep/h_dep must match the
 compiled form (the entry's unit is `csrc/linearize_lanes_<name>.cu`).  A
-model with no CUDA form raises `NotImplementedError`.
+model that carries a curvature table (`models.base.TrackModel`, the race
+car on a curved track) takes its name's form in `TRACK_FORMS` instead,
+whose entry `nmpc_linearize_<name>_track` also receives the table; the
+two forms of one name differ in f_dep.  A model with no CUDA form raises
+`NotImplementedError`.
 The wrapper takes CUDA tensors only; `ops.linearize_lanes.linearize_lanes`
 sends CPU tensors to the plain version.  `launches` counts kernel launches.
 """
+
+import ctypes
 
 import torch
 
@@ -29,6 +35,12 @@ CUDA_MODELS = {
     "usv_guidance3": (11, 1, 0, 0, (2, 5, 6, 7, 9, 10, 11), ()),
     "usv_guidance4": (4, 1, 0, 0, (0, 1, 3, 4), ()),
     "usv_guidance5": (5, 1, 0, 0, (0, 1, 3, 4, 5), ()),
+    "race_cars": (6, 2, 0, 5, (2, 3, 4, 5, 6, 7), (1, 3, 4, 5)),
+}
+# model name -> the same, of its form that reads a curvature table, whose C
+# entry is nmpc_linearize_<name>_track
+TRACK_FORMS = {
+    "race_cars": (6, 2, 0, 5, (0, 1, 2, 3, 4, 5, 6, 7), (1, 3, 4, 5)),
 }
 DTYPES = (torch.float32, torch.float64)
 
@@ -40,11 +52,14 @@ def linearize_lanes_cuda(xs, ubar, params, *, model, dt, integrator_steps=1):
     (xn (nx, N, L), J (N, nx, nx+nu, L), hbar (nh, N, L),
     C (N, nh, nx, L))."""
     global launches
-    if model.name not in CUDA_MODELS:
+    curved = getattr(model, "kapparef", None) is not None
+    forms = TRACK_FORMS if curved else CUDA_MODELS
+    if model.name not in forms:
         raise NotImplementedError(
             f"linearize kernel: model {model.name} has no CUDA form "
-            f"(csrc/models/); CUDA forms exist for {sorted(CUDA_MODELS)}")
-    nx, nu, np_, nh, f_dep, h_dep = CUDA_MODELS[model.name]
+            f"{'with a curvature table ' if curved else ''}(csrc/models/); "
+            f"CUDA forms exist for {sorted(forms)}")
+    nx, nu, np_, nh, f_dep, h_dep = forms[model.name]
     declared = (model.nx, model.nu, model.np_, model.nh,
                 tuple(model.f_dep), tuple(model.h_dep or ()))
     if declared != (nx, nu, np_, nh, f_dep, h_dep):
@@ -67,10 +82,17 @@ def linearize_lanes_cuda(xs, ubar, params, *, model, dt, integrator_steps=1):
     C = torch.empty((N, nh, nx, L), **opts)
     # a model with no parameters or rows passes empty tensors (their
     # pointers may be null): its form never reads params, nor writes hbar, C
-    code = getattr(lib, "nmpc_linearize_" + model.name)(
-        int(xs.dtype == torch.float64), N, L, dt / integrator_steps,
-        integrator_steps,
-        *_build.launch_args(xs.device, xs, ubar, params, xn, J, hbar, C))
+    *ptrs, stream = _build.launch_args(xs.device, xs, ubar, params, xn, J,
+                                       hbar, C)
+    if curved:
+        table = model.kappa_table(xs.device, xs.dtype)
+        entry = getattr(lib, f"nmpc_linearize_{model.name}_track")
+        ptrs += [ctypes.c_void_p(table.data_ptr()), table.numel(),
+                 float(model.track_length)]
+    else:
+        entry = getattr(lib, "nmpc_linearize_" + model.name)
+    code = entry(int(xs.dtype == torch.float64), N, L, dt / integrator_steps,
+                 integrator_steps, *ptrs, stream)
     _build.check(code, f"linearize_lanes[{model.name}]")
     launches += 1
     return xn, J, hbar, C

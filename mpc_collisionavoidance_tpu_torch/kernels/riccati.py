@@ -18,9 +18,10 @@ from mpc_collisionavoidance_tpu_torch.kernels import _build
 # usv_pf (14, 2), usv_low_level and usv_position_control (8, 2),
 # usv_acados (5, 2), and the guidance family: usv_guidance_ca (9, 1),
 # usv_guidance (10, 1), usv_guidance2 (12, 1), usv_guidance3 (11, 1),
-# usv_guidance4 (4, 1), usv_guidance5 (5, 1)
+# usv_guidance4 (4, 1), usv_guidance5 (5, 1), and the race car race_cars,
+# race_cars_dev (6, 2)
 SUPPORTED = ((8, 1), (14, 2), (8, 2), (5, 2), (9, 1), (10, 1), (12, 1),
-             (11, 1), (4, 1), (5, 1))
+             (11, 1), (4, 1), (5, 1), (6, 2))
 DTYPES = (torch.float32, torch.float64)
 
 launches = 0

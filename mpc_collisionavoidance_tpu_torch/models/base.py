@@ -70,3 +70,34 @@ class Model:
             raise ValueError(f"{self.name}: x0 shape {self.x0.shape}")
         if self.h is not None and self.nh <= 0:
             raise ValueError(f"{self.name}: h given with nh={self.nh}")
+
+
+@dataclasses.dataclass(frozen=True)
+class TrackModel(Model):
+    """A model whose f reads a track's curvature table (the race car on a
+    curved track).  It carries the table itself, besides the interpolant
+    that f closes over, so that the linearization kernel receives it as
+    an argument: `kapparef` holds the uniform samples of kappa(s) over
+    one lap of `track_length` (`utils/track.py`)."""
+
+    kapparef: Optional[Array] = None
+    track_length: float = 0.0
+
+    def __post_init__(self):
+        super().__post_init__()
+        if self.kapparef is None or self.kapparef.ndim != 1 or \
+                self.track_length <= 0.0:
+            raise ValueError(f"{self.name}: a curvature table (M,) and a "
+                             f"positive track length are required")
+        # the table's copies on devices, made at first use (not a field)
+        object.__setattr__(self, "_tables", {})
+
+    def kappa_table(self, device, dtype):
+        """`kapparef` as a tensor on `device` in `dtype`, copied there once
+        (a tick on the card reads it without a host-to-device copy)."""
+        key = (str(device), dtype)
+        if key not in self._tables:
+            import torch
+            self._tables[key] = torch.as_tensor(self.kapparef, dtype=dtype,
+                                                device=device)
+        return self._tables[key]

@@ -1,7 +1,5 @@
-"""Registry of the ported model variants (counterpart of
-`mpc_collisionavoidance_tpu/models/registry.py`; the variants ported so
-far: the flagship, the hydrodynamic family and the kinematic guidance
-family)."""
+"""Registry of the model variants (counterpart of
+`mpc_collisionavoidance_tpu/models/registry.py`: the same thirteen)."""
 
 from typing import Callable, Dict
 
@@ -21,6 +19,7 @@ _BUILDERS: Dict[str, Callable[[], Model]] = {
     "usv_guidance4": variants.usv_guidance4,
     "usv_guidance5": variants.usv_guidance5,
     "usv_guidance_ca": variants.usv_guidance_ca,
+    "race_cars": variants.race_cars,
 }
 
 

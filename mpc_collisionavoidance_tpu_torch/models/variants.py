@@ -5,7 +5,7 @@ Ported so far: the flagship `usv_guidance_ca1`, the 14-state hull
 `usv_pf_ca`, the rest of the hydrodynamic family (`usv_acados`,
 `usv_low_level`, `usv_position_control`, `usv_pf`) and the kinematic
 guidance family (`usv_guidance`, `usv_guidance2`..`5`,
-`usv_guidance_ca`).  Dynamics and constraints are written over unpacked
+`usv_guidance_ca`), and the race car `race_cars`.  Dynamics and constraints are written over unpacked
 state components with broadcasting only, so the same text runs on (N, L)
 lane tensors and under `torch.func.jvp`.  The crab angle uses the native
 `torch.atan2`; the JAX package's polynomial atan2
@@ -17,7 +17,8 @@ import numpy as np
 import torch
 
 from mpc_collisionavoidance_tpu_torch.models import hydro
-from mpc_collisionavoidance_tpu_torch.models.base import Model
+from mpc_collisionavoidance_tpu_torch.models.base import Model, TrackModel
+from mpc_collisionavoidance_tpu_torch.utils import track as trk
 
 
 def _obstacle_distances(xp, yp, p, n_obs):
@@ -476,3 +477,73 @@ def usv_guidance_ca() -> Model:
         h=h, nh=8,
         lh=np.zeros(8), uh=np.full(8, 1e6),
     )
+
+
+# ---------------------------------------------------------------------------
+# Race car (the upstream acados demo the repo was forked from)
+# ---------------------------------------------------------------------------
+
+def race_cars(track=None) -> Model:
+    """Frenet-frame spatial bicycle model (reference
+    scripts/race_cars/bycicle_model.py:60-120).
+
+    `track`: a `utils.track.Track` whose curvature interpolant kappa(s)
+    enters the dynamics (the reference's kapparef_s bspline); None is the
+    straight track, kappa = 0.  The JAX package takes the interpolant as
+    an injectable `kappa_fn`; here the model is built from the table,
+    which it carries (`TrackModel`) for the CUDA form to read.  The
+    independent variable is arc length s, not time: the dynamics below are
+    the reference's d/ds expressions verbatim.
+    """
+    m, C1, C2 = 0.043, 0.5, 15.5
+    Cm1, Cm2, Cr0, Cr2 = 0.28, 0.05, 0.011, 0.006
+    straight = track is None
+    if straight:
+        def kappa_fn(s):
+            return torch.zeros_like(s)
+    else:
+        kappa_fn = trk.make_kappa_fn(track)
+
+    def f(x, u_ctl, p):
+        s, n, alpha, v, D, delta = x
+        Fxd = (Cm1 - Cm2 * v) * D - Cr2 * v * v - Cr0 * torch.tanh(5 * v)
+        sdota = (v * torch.cos(alpha + C1 * delta)) / (1 - kappa_fn(s) * n)
+        return torch.stack([
+            sdota,
+            v * torch.sin(alpha + C1 * delta),
+            v * C2 * delta - kappa_fn(s) * sdota,
+            Fxd / m * torch.cos(C1 * delta),
+            u_ctl[0],
+            u_ctl[1],
+        ])
+
+    def h(x, p):
+        """(a_long, a_lat, n, D, delta) constraint vector
+        (reference bycicle_model.py:113-167)."""
+        s, n, alpha, v, D, delta = x
+        Fxd = (Cm1 - Cm2 * v) * D - Cr2 * v * v - Cr0 * torch.tanh(5 * v)
+        a_long = Fxd / m
+        a_lat = C2 * v * v * delta + Fxd * torch.sin(C1 * delta) / m
+        return torch.stack([a_long, a_lat, n, D, delta])
+
+    kw = dict(
+        name="race_cars", nx=6, nu=2, np_=0, f=f,
+        # straight track (kappa = 0): f never reads s or n; a curvature
+        # interpolant reads both -> dense
+        f_dep=((2, 3, 4, 5, 6, 7) if straight
+               else (0, 1, 2, 3, 4, 5, 6, 7)),
+        h_dep=(1, 3, 4, 5),
+        x0=np.array([-2.0, 0.0, 0.0, 0.0, 0.0, 0.0]),
+        state_names=("s", "n", "alpha", "v", "D", "delta"),
+        control_names=("derD", "derDelta"),
+        lbu=np.array([-10.0, -2.0]), ubu=np.array([10.0, 2.0]),
+        idxbu=np.array([0, 1]),
+        lbx=np.array([-12.0]), ubx=np.array([12.0]), idxbx=np.array([1]),
+        h=h, nh=5,
+        lh=np.array([-4.0, -4.0, -0.12, -1.0, -0.40]),
+        uh=np.array([4.0, 4.0, 0.12, 1.0, 0.40]),
+    )
+    if straight:
+        return Model(**kw)
+    return TrackModel(**kw, kapparef=np.asarray(track.kapparef, float),
+                      track_length=float(track.length))

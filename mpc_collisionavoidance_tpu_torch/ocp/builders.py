@@ -1,6 +1,6 @@
 """Per-variant OCP builders (counterpart of
-`mpc_collisionavoidance_tpu/ocp/builders.py`; the flagship, the
-hydrodynamic family and the kinematic guidance family so far).
+`mpc_collisionavoidance_tpu/ocp/builders.py`: all fourteen of its
+builders).
 
 The LINEAR_LS selection layout is identical across all variants: Vx stacks
 the identity over the states, Vu appends one row per control (reference
@@ -9,8 +9,9 @@ scripts/usv_guidance_ca1/acados_settings.py:92-103).
 
 import numpy as np
 
-from mpc_collisionavoidance_tpu_torch.models import registry
+from mpc_collisionavoidance_tpu_torch.models import registry, variants
 from mpc_collisionavoidance_tpu_torch.ocp.spec import (LinearLSCost, OCPSpec,
+                                                       SoftBoxPenalty,
                                                        SoftPenalty)
 
 
@@ -193,6 +194,70 @@ def usv_guidance5(Tf: float = 1.0, N: int = 100) -> OCPSpec:
     return OCPSpec(model=m, N=N, Tf=Tf, cost=cost)
 
 
+def race_cars(Tf: float = 1.0, N: int = 50, track=None) -> OCPSpec:
+    """reference scripts/race_cars/acados_settings.py:75-144 (upstream acados
+    demo).  This variant DOES apply unscale = N/Tf to W and 1/unscale to W_e
+    (:85-88), cancelling acados' dt cost scaling; we store the scaled W with
+    cost_scaling="dt" to reproduce the same effective weights.  Softened rows
+    idxsh = [0, 2] (a_long and track width n, :142); note it also uses 3 RK4
+    substeps per interval (:155).
+
+    `track`: a utils.track.Track — its curvature table enters the dynamics
+    (the reference's kapparef_s bspline, bycicle_model.py:46-55).  None =
+    straight track (kappa = 0)."""
+    m = (registry.get("race_cars") if track is None
+         else variants.race_cars(track=track))
+    ny = m.nx + m.nu
+    unscale = N / Tf
+    Vx = np.zeros((ny, m.nx)); Vx[: m.nx, : m.nx] = np.eye(m.nx)
+    Vu = np.zeros((ny, m.nu)); Vu[m.nx:, :] = np.eye(m.nu)
+    Q = np.diag([1e-1, 1e-8, 1e-8, 1e-8, 1e-3, 5e-3])
+    R = np.diag([1e-3, 5e-3])
+    Qe = np.diag([5e0, 1e1, 1e-8, 1e-8, 5e-3, 2e-3])
+    cost = LinearLSCost(
+        Vx=Vx, Vu=Vu,
+        W=unscale * np.block([[Q, np.zeros((m.nx, m.nu))],
+                              [np.zeros((m.nu, m.nx)), R]]),
+        yref=np.array([1.0, 0, 0, 0, 0, 0, 0, 0]),
+        Vx_e=np.eye(m.nx), W_e=Qe / unscale, yref_e=np.zeros(m.nx),
+    )
+    soft = SoftPenalty(
+        idxsh=np.array([0, 2]),
+        zl=100 * np.ones(2), Zl=np.zeros(2),
+        zu=100 * np.ones(2), Zu=np.zeros(2),
+        lsh=np.zeros(2), ush=np.zeros(2),
+    )
+    return OCPSpec(model=m, N=N, Tf=Tf, cost=cost, soft=soft,
+                   integrator_steps=3)
+
+
+def race_cars_dev(Tf: float = 1.0, N: int = 50, track=None) -> OCPSpec:
+    """reference scripts/race_cars/acados_settings_dev.py:32-118 — the dev
+    variant of the race-car OCP: ALL nh=5 h rows softened (idxsh=range(nh),
+    :106), the track-width state bound softened too (nsbx=1, idxsbx=[0] into
+    idxbx=[1], lsbx=usbx=0, :81-85), quadratic slack weights Zl=Zu=1 on top
+    of zl=zu=100 (:66-70).  The reference drives it with SQP to
+    convergence (:112-118); the lane engine runs it tick by tick.
+    Cost/unscale identical to race_cars."""
+    base = race_cars(Tf=Tf, N=N, track=track)
+    m = base.model
+    ns = m.nh
+    soft = SoftPenalty(
+        idxsh=np.arange(ns),
+        zl=100 * np.ones(ns), Zl=np.ones(ns),
+        zu=100 * np.ones(ns), Zu=np.ones(ns),
+        lsh=np.zeros(ns), ush=np.zeros(ns),
+    )
+    soft_bx = SoftBoxPenalty(
+        idxsbx=np.array([0]),
+        zl=100 * np.ones(1), Zl=np.ones(1),
+        zu=100 * np.ones(1), Zu=np.ones(1),
+        lsbx=np.zeros(1), usbx=np.zeros(1),
+    )
+    return OCPSpec(model=m, N=N, Tf=Tf, cost=base.cost, soft=soft,
+                   soft_bx=soft_bx, integrator_steps=base.integrator_steps)
+
+
 BUILDERS = {
     "usv_guidance_ca1": usv_guidance_ca1,
     "usv_pf_ca": usv_pf_ca,
@@ -206,6 +271,8 @@ BUILDERS = {
     "usv_guidance3": usv_guidance3,
     "usv_guidance4": usv_guidance4,
     "usv_guidance5": usv_guidance5,
+    "race_cars": race_cars,
+    "race_cars_dev": race_cars_dev,
 }
 
 

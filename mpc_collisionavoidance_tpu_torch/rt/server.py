@@ -109,8 +109,8 @@ class RTServer:
         if engine != "lane":
             raise ValueError(f"unknown engine {engine!r}")
         if model not in builders.BUILDERS:
-            raise ValueError(f"model {model!r} is not ported; the port "
-                             f"serves {sorted(builders.BUILDERS)}")
+            raise ValueError(f"unknown model {model!r}; the port serves "
+                             f"{sorted(builders.BUILDERS)}")
         self.device = require_device(device)
         self.path = path
         spec = builders.build(model, Tf=Tf, N=N)

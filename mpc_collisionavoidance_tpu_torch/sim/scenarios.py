@@ -16,11 +16,19 @@ obstacle-free models of the same family, each with its own references.
 scripts/usv_guidance_ca/main.py), `guidance_default` and
 `guidance2_default`..`guidance5_default` the obstacle-free guidance
 models' segment-following runs.
+
+`race_cars_default` and `race_cars_dev_default` are the port's own: the
+JAX package has no race scenario, so they are built from its race recipe
+(the model's x0 rolling at v = 0.5, tests/test_lane_engine.py:197-200, on
+the synthetic curved track, cli.py:185-186, with the builder's
+reference).  They carry their `track`, which the OCP is built with.
 """
 
 import dataclasses
 
 import numpy as np
+
+from mpc_collisionavoidance_tpu_torch.utils import track as trk
 
 SENTINEL_POS = 100.0  # "far away" obstacle placeholder (reference main.py:76)
 
@@ -36,6 +44,7 @@ class Scenario:
     waypoints: np.ndarray   # (n_wp, 2) for guidance-level sims
     yref: np.ndarray = None    # runtime stage reference (None = builder's)
     yref_e: np.ndarray = None
+    track: trk.Track = None    # the race track (None: not a race)
 
 
 def guidance_ca1_default(n_steps: int = 1000) -> Scenario:
@@ -229,11 +238,29 @@ def pf_default(n_steps: int = 4000) -> Scenario:
                     yref=yref, yref_e=yref[:14])
 
 
+def race_cars_default(n_steps: int = 500) -> Scenario:
+    """race_cars on the synthetic curved track: the model's x0 (s = -2)
+    rolling at v = 0.5 m/s, the builder's reference; the model's own
+    constraint bounds as lh.  500 steps are 10 s at the builder's
+    shooting interval Tf/N = 20 ms."""
+    x0 = np.array([-2.0, 0.0, 0.0, 0.5, 0.0, 0.0])
+    return Scenario("race_cars_default", x0, np.zeros(0),
+                    np.array([-4.0, -4.0, -0.12, -1.0, -0.40]), n_steps,
+                    0.0, np.zeros((0, 2)),
+                    track=trk.make_synthetic_track())
+
+
+def race_cars_dev_default(n_steps: int = 500) -> Scenario:
+    """race_cars_dev on the same track from the same start."""
+    return dataclasses.replace(race_cars_default(n_steps),
+                               name="race_cars_dev_default")
+
+
 # Each ported model's default scenario, and the state coordinate that a
 # batch of it perturbs by 0.1 N(0, 1): the cross-track error ye where the
 # model has one (as bench.py:107-127), else the coordinate its cost tracks
 # (surge u for usv_low_level and usv_acados, north x for
-# usv_position_control).  guidance_ca_default, guidance4_default and
+# usv_position_control, the lateral offset n for the race car).  guidance_ca_default, guidance4_default and
 # guidance5_default carry no yref: those models track the builder's zero
 # reference.
 DEFAULTS = {
@@ -249,4 +276,6 @@ DEFAULTS = {
     "usv_guidance3": (guidance3_default, 8),
     "usv_guidance4": (guidance4_default, 2),
     "usv_guidance5": (guidance5_default, 2),
+    "race_cars": (race_cars_default, 1),
+    "race_cars_dev": (race_cars_dev_default, 1),
 }

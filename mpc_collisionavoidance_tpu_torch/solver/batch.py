@@ -70,9 +70,6 @@ class LaneRTISolver:
         `device`, `dtype`: where and in what precision the solver runs; the
         static cost blocks are moved there once, here."""
         check_schedule(riccati, centering, mu0, extra_iters)
-        if spec.soft_bx is not None:
-            raise NotImplementedError("soft state-box rows are not ported "
-                                      "yet")
         self.spec = spec
         self.ipm_iters = int(ipm_iters)
         self.ipm_tol = ipm_tol
@@ -108,14 +105,53 @@ class LaneRTISolver:
         self.yref = dev(cost.yref)
         self.yref_e = dev(cost.yref_e)
 
+        # soft-row static weights in the order [softened h rows | softened
+        # state-box rows] (JAX `LaneRTISolver.__init__`); a softened
+        # state-box row leaves the hard box family and becomes a soft row
+        # with a constant selection Jacobian (acados idxsbx semantics,
+        # reference scripts/race_cars/acados_settings_dev.py:81-85)
+        parts = []
+        if spec.soft is not None:
+            sp = spec.soft
+            parts.append((sp.zl, sp.Zl, sp.zu, sp.Zu, sp.lsh, sp.ush))
+        if spec.soft_bx is not None:
+            sb = spec.soft_bx
+            parts.append((sb.zl, sb.Zl, sb.zu, sb.Zu, sb.lsbx, sb.usbx))
+        if parts:
+            zl, Zl, zu, Zu, lsh, ush = (
+                np.concatenate([np.asarray(p[i], float) for p in parts])
+                for i in range(6))
+            self.zl, self.Zl = dev(scale * zl)[:, None], \
+                dev(scale * Zl)[:, None]
+            self.zu, self.Zu = dev(scale * zu)[:, None], \
+                dev(scale * Zu)[:, None]
+            self.lsh, self.ush = dev(lsh)[:, None], dev(ush)[:, None]
+        else:
+            self.zl = self.Zl = self.zu = self.Zu = self.lsh = self.ush = \
+                torch.zeros((0, 1), dtype=dtype, device=self.device)
+        idxbx_all = np.asarray(m.idxbx, dtype=np.int64).reshape(-1)
+        lbx_all = np.asarray(m.lbx, float).reshape(-1)
+        ubx_all = np.asarray(m.ubx, float).reshape(-1)
+        sbx_rows = (np.asarray(spec.soft_bx.idxsbx, dtype=np.int64)
+                    .reshape(-1) if spec.soft_bx is not None
+                    else np.zeros((0,), dtype=np.int64))
+        hard_bx = np.setdiff1d(np.arange(idxbx_all.size), sbx_rows)
+
         self.idxbu = tuple(int(i) for i in np.asarray(m.idxbu).reshape(-1))
-        self.idxbx = tuple(int(i) for i in np.asarray(m.idxbx).reshape(-1))
+        self.idxbx = tuple(int(i) for i in idxbx_all[hard_bx])
         self.lbu = dev(np.asarray(m.lbu).reshape(-1))
         self.ubu = dev(np.asarray(m.ubu).reshape(-1))
-        self.lbx = dev(np.asarray(m.lbx).reshape(-1))
-        self.ubx = dev(np.asarray(m.ubx).reshape(-1))
+        self.lbx = dev(lbx_all[hard_bx])
+        self.ubx = dev(ubx_all[hard_bx])
         self.xmask = (torch.arange(N, device=self.device) > 0).to(
             dtype)[:, None, None]                         # (N, 1, 1)
+        # the soft state-box rows: states, bounds, selection rows
+        self.sbx_state_idx = tuple(int(i) for i in idxbx_all[sbx_rows])
+        self.lbx_s = dev(lbx_all[sbx_rows])
+        self.ubx_s = dev(ubx_all[sbx_rows])
+        E_sbx = np.zeros((len(sbx_rows), m.nx))
+        E_sbx[np.arange(len(sbx_rows)), idxbx_all[sbx_rows]] = 1.0
+        self.E_sbx = dev(E_sbx)                           # (n_sbx, nx)
 
         # h rows split into hard and soft (same ordering as the reference)
         self.soft_idx = (tuple(int(i) for i in spec.soft.idxsh)
@@ -124,20 +160,12 @@ class LaneRTISolver:
         if m.nh:
             self.lh = dev(m.lh)
             self.uh = dev(m.uh)
-        if spec.soft is not None:
-            sp = spec.soft
-            self.zl, self.Zl = dev(scale * sp.zl)[:, None], \
-                dev(scale * sp.Zl)[:, None]
-            self.zu, self.Zu = dev(scale * sp.zu)[:, None], \
-                dev(scale * sp.Zu)[:, None]
-            self.lsh, self.ush = dev(sp.lsh)[:, None], dev(sp.ush)[:, None]
-        else:
-            self.zl = self.Zl = self.zu = self.Zu = self.lsh = self.ush = \
-                torch.zeros((0, 1), dtype=dtype, device=self.device)
         self._hi = torch.as_tensor(self.hard_idx, dtype=torch.long,
                                    device=self.device)
         self._si = torch.as_tensor(self.soft_idx, dtype=torch.long,
                                    device=self.device)
+        self._sbi = torch.as_tensor(self.sbx_state_idx, dtype=torch.long,
+                                    device=self.device)
 
     # ------------------------------------------------------------------
     def _tensor(self, a):
@@ -231,6 +259,22 @@ class LaneRTISolver:
         hofs = hbar[:, si]
         slh = lh_full[si][None].expand(N, len(si), L)
         suh = uh_full[si][None].expand(N, len(si), L)
+
+        # ---- soft state-box rows appended to the soft family: constant
+        # selection Jacobian, stage 0 masked with an O(1) inactive band
+        # (JAX `_build_qp`, solver/batch.py:394-417) ----
+        n_sbx = len(self.sbx_state_idx)
+        if n_sbx:
+            Cs_bx = (self.E_sbx[None, :, :, None].expand(N, n_sbx, nx, L)
+                     * self.xmask[:, :, None, :])
+            hofs_bx = xs[self._sbi].transpose(0, 1) * self.xmask
+            inner = self.xmask > 0
+            slh_bx = torch.where(inner, self.lbx_s[None, :, None], -1.0)
+            suh_bx = torch.where(inner, self.ubx_s[None, :, None], 1.0)
+            Cs = torch.cat([Cs, Cs_bx], dim=1)
+            hofs = torch.cat([hofs, hofs_bx], dim=1)
+            slh = torch.cat([slh, slh_bx.expand(N, n_sbx, L)], dim=1)
+            suh = torch.cat([suh, suh_bx.expand(N, n_sbx, L)], dim=1)
 
         return LaneQP(
             A=A, B=Bm, c=c, dx0=x0 - xbar[:, 0, :],

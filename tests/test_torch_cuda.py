@@ -28,6 +28,7 @@ from mpc_collisionavoidance_tpu_torch.solver.batch import to_lanes
 # an installed package named `tests` shadows this directory as a package
 from torch_family import (FAMILY, GUIDANCE, guidance_point,  # noqa: E402
                           random_point)
+from torch_race import RACE_CASES, race_point, race_spec  # noqa: E402
 
 pytestmark = pytest.mark.cuda
 
@@ -78,14 +79,15 @@ def _random_lqr(N, nx, nu, L, seed, dtype, device):
     (8, 2, 1, 20), (8, 2, 130, 100), (5, 2, 33, 20), (5, 2, 130, 2),
     (9, 1, 33, 100), (10, 1, 130, 100), (12, 1, 1, 100), (12, 1, 130, 100),
     (11, 1, 33, 100), (4, 1, 130, 100), (4, 1, 33, 2), (5, 1, 1, 100),
-    (5, 1, 130, 100)])
+    (5, 1, 130, 100), (6, 2, 1, 50), (6, 2, 130, 50), (6, 2, 33, 2)])
 def test_riccati_kernel_matches_plain(card, nx, nu, L, N, dtype):
     """Ragged lane groups: L=1 (one lane of a 4-lane block), 33 and 130
     (a last block of 1 and 2 lanes); L=130 in float64 also takes the
     16-byte copies, the other widths the element copies.  (8, 2) and
     (5, 2) also at N=20 (usv_acados, usv_position_control) and N=2,
     shorter than the tile rings; the guidance family's instances at
-    their N=100, (4, 1) also at N=2."""
+    their N=100, (4, 1) also at N=2; the race car's (6, 2) at its N=50
+    and N=2."""
     d = _random_lqr(N, nx, nu, L, seed=L, dtype=dtype, device=card)
     before = riccati.launches
     got = riccati.lqr_solve_lanes_cuda(*d)
@@ -257,12 +259,80 @@ def test_family_tick_on_card_matches_cpu(card, name):
     assert torch.equal(gpu.status.cpu(), cpu.status)
 
 
+def _spec(name, sc, **kw):
+    """The OCP of the scenario `sc`: on its track, if it races on one."""
+    return builders.build(name, **kw, **(
+        {} if sc.track is None else {"track": sc.track}))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("L", [1, 45])
+@pytest.mark.parametrize("curved", [False, True])
+def test_linearize_race_kernel_matches_plain(card, curved, L, dtype):
+    """K2's race car forms, 3 RK4 substeps: the straight track's (no
+    table) and the curved track's, which reads the curvature table from
+    the card, at arc lengths across the seam, negative and in the second
+    lap; the table is copied to the card once per device and dtype."""
+    spec = race_spec("race_cars", curved, N=12, Tf=12 * 0.02)
+    args = [torch.as_tensor(a, dtype=dtype, device=card)
+            for a in race_point(12, L, seed=L)]
+    kw = dict(model=spec.model, dt=spec.dt,
+              integrator_steps=spec.integrator_steps)
+    before = linearize.launches
+    got = linearize.linearize_lanes_cuda(*args, **kw)
+    got2 = linearize.linearize_lanes_cuda(*args, **kw)
+    want = linearize_lanes_plain(*args, **kw)
+    torch.cuda.synchronize()
+    assert linearize.launches == before + 2
+    assert all(torch.equal(a, b) for a, b in zip(got, got2))
+    rtol, atol = TOLS[dtype]
+    for g, w in zip(got, want):
+        torch.testing.assert_close(g, w, rtol=max(rtol, 1e-12), atol=atol)
+
+
+@pytest.mark.parametrize("schedule", ["production", "fused"])
+@pytest.mark.parametrize("name,curved", RACE_CASES)
+def test_race_tick_on_card_matches_cpu(card, name, curved, schedule):
+    """The float64 production and fused ticks of the race OCPs on the card
+    vs the CPU plain path at N=50, B=6, from the race scenario (n
+    perturbed); the card runs K2 once and K1 at least 4 times (production)
+    or K3 once and no K1 (fused)."""
+    spec = race_spec(name, curved)
+    factory, coord = scenarios.DEFAULTS[name]
+    sc = factory()
+    B = 6
+    rng = np.random.default_rng(0)
+    x0s = np.broadcast_to(sc.x0, (B, 6)).copy()
+    x0s[:, coord] += 0.1 * rng.standard_normal(B)
+    config = (production_engine() if schedule == "production"
+              else SolverConfig(riccati="fused"))
+    outs = {}
+    for device in ("cpu", card):
+        solver = config.build(spec, device=device, dtype=torch.float64)
+        x, p, lh = (to_lanes(torch.tensor(np.asarray(a))).to(device)
+                    for a in (x0s, np.zeros((B, 0)),
+                              np.broadcast_to(sc.lh, (B, 5))))
+        counts = (riccati.launches, linearize.launches, ipm.launches)
+        _, out = solver.step_fn(solver.init_state(x0s), x, p, lh)
+        outs[str(device)] = out
+        if device == card:
+            k1 = riccati.launches - counts[0]
+            assert (k1 >= 4) if schedule == "production" else (k1 == 0)
+            assert (linearize.launches - counts[1],
+                    ipm.launches - counts[2]) == (
+                        1, int(schedule == "fused"))
+    cpu, gpu = outs["cpu"], outs[str(card)]
+    torch.testing.assert_close(gpu.u0.cpu(), cpu.u0, rtol=0, atol=5e-6)
+    torch.testing.assert_close(gpu.x1.cpu(), cpu.x1, rtol=0, atol=5e-6)
+    assert torch.equal(gpu.status.cpu(), cpu.status)
+
+
 def _fused_qp(name, L, dtype, device, N=12):
     """A LaneQP from the fused solver's own assembly at the OCP's default
     scenario, its coordinate perturbed."""
-    spec = builders.build(name, N=N)
     factory, coord = scenarios.DEFAULTS[name]
     sc = factory()
+    spec = _spec(name, sc, N=N)
     m = spec.model
     rng = np.random.default_rng(L)
     x0s = np.broadcast_to(sc.x0, (L, m.nx)).copy()
@@ -288,7 +358,9 @@ def _fused_qp(name, L, dtype, device, N=12):
                                     ("usv_guidance2", 1),
                                     ("usv_guidance3", 37),
                                     ("usv_guidance4", 37),
-                                    ("usv_guidance5", 37)])
+                                    ("usv_guidance5", 37),
+                                    ("race_cars", 1), ("race_cars", 37),
+                                    ("race_cars_dev", 37)])
 def test_fused_ipm_kernel_matches_plain(card, name, L, dtype):
     solver, qp = _fused_qp(name, L, dtype, card)
     args = (qp, solver.idxbu, solver.idxbx)
@@ -344,7 +416,8 @@ def test_k1_and_k3_instances_do_not_spill(card):
 
 
 @pytest.mark.parametrize("name", ["usv_guidance_ca1", "usv_guidance_ca",
-                                  "usv_guidance4"])
+                                  "usv_guidance4", "race_cars",
+                                  "race_cars_dev"])
 def test_fused_ipm_kernel_nan_lane(card, name):
     solver, qp = _fused_qp(name, 37, torch.float64, card)
     dx0 = qp.dx0.clone()
@@ -359,11 +432,12 @@ def test_fused_ipm_kernel_nan_lane(card, name):
 @pytest.mark.parametrize("name", ["usv_guidance_ca1", "usv_pf_ca",
                                   "usv_pf", "usv_low_level", "usv_acados",
                                   "usv_position_control", "usv_guidance_ca",
-                                  "usv_guidance4"])
+                                  "usv_guidance4", "race_cars",
+                                  "race_cars_dev"])
 def test_fused_tick_launches_k3_once_and_never_k1(card, name):
-    spec = builders.build(name, N=12)
-    m = spec.model
     sc = scenarios.DEFAULTS[name][0]()
+    spec = _spec(name, sc, N=12)
+    m = spec.model
     B = 6
     x0s = np.broadcast_to(sc.x0, (B, m.nx)).copy()
     solver = SolverConfig(riccati="fused").build(spec, device=card,

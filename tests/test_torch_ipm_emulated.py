@@ -8,7 +8,9 @@ copy).  QPs come from the fused solver's own assembly at each OCP's
 default scenario (N=12, float64; the structures with no h rows, the hull
 family's usv_pf, usv_low_level, usv_position_control, usv_acados and the
 guidance family's usv_guidance, usv_guidance2..5, also at N=1, 2 and 20,
-shorter than the tile rings); the kernel's C entry is called as
+shorter than the tile rings, and the race car's two structures with soft
+rows, hard rows beside them, and quadratic slack weights, at N=1, 2 and
+20 too); the kernel's C entry is called as
 `kernels/ipm.py` calls it, and its dx, du, gap and status are held against
 `fused_ipm_lanes_plain`.  This checks the kernel's indexing where no card
 exists: the shared-memory layout, the row units of the stage-parallel
@@ -35,7 +37,7 @@ N, ITERS, TOL = 12, 4, 1e-7
 OCPS = ("usv_guidance_ca1", "usv_pf_ca", "usv_pf", "usv_low_level",
         "usv_position_control", "usv_acados", "usv_guidance_ca",
         "usv_guidance", "usv_guidance2", "usv_guidance3", "usv_guidance4",
-        "usv_guidance5")
+        "usv_guidance5", "race_cars", "race_cars_dev")
 # the OCPs with neither hard nor soft rows
 NO_ROWS = tuple(n for n in OCPS if builders.build(n).model.nh == 0)
 
@@ -54,9 +56,10 @@ def emulated(tmp_path_factory):
 def _qp(name, L, N=N, dtype=torch.float64):
     """A LaneQP of the fused solver's assembly at the model's default
     scenario, its coordinate perturbed."""
-    spec = builders.build(name, N=N)
     factory, coord = scenarios.DEFAULTS[name]
     sc = factory()
+    spec = builders.build(name, N=N, **(
+        {} if sc.track is None else {"track": sc.track}))
     m = spec.model
     rng = np.random.default_rng(L)
     x0s = np.broadcast_to(sc.x0, (L, m.nx)).copy()
@@ -114,6 +117,19 @@ def test_emulated_kernel_matches_plain_at_short_horizons(emulated, name, N):
     _check(emulated, qp, idxbu, idxbx)
 
 
+@pytest.mark.parametrize("N", [1, 2, 20])
+@pytest.mark.parametrize("name", ["race_cars", "race_cars_dev"])
+def test_emulated_race_structures_at_short_horizons(emulated, name, N):
+    """The race car's structures: race_cars' (6, 2, 2, 1, 3, 2), the first
+    with hard and soft row units together, and race_cars_dev's
+    (6, 2, 2, 0, 0, 6), soft rows only, the softened state box among them,
+    with quadratic slack weights Zl = Zu = 1 (scaled by dt = Tf / N,
+    Tf = 1); at N=20, 2 and 1."""
+    qp, idxbu, idxbx = _qp(name, 3, N=N)
+    assert float(qp.Zl.min()) == (0.0 if name == "race_cars" else 1.0 / N)
+    _check(emulated, qp, idxbu, idxbx)
+
+
 @pytest.mark.parametrize("name", OCPS)
 def test_emulated_kernel_matches_plain_in_float32(emulated, name):
     """The float32 instance of every structure at L=5: du within the
@@ -138,7 +154,7 @@ def _check(emulated, qp, idxbu, idxbx):
 
 
 @pytest.mark.parametrize("name", OCPS[:3] + ("usv_guidance_ca",
-                                              "usv_guidance4"))
+                                              "usv_guidance4", "race_cars"))
 def test_emulated_kernel_nan_lane(emulated, name):
     """A NaN in one lane's dx0: that lane gets status 2, and every other
     lane's outputs are bitwise what they were."""

@@ -131,8 +131,8 @@ def test_kernel_wrapper_refuses_cpu_tensors_and_unknown_models():
     with pytest.raises(ValueError, match="CUDA device"):
         _port(spec, xs, ub, params, fn=linearize.linearize_lanes_cuda)
     other = spec.model.__class__(**{**spec.model.__dict__,
-                                    "name": "race_cars"})
-    with pytest.raises(NotImplementedError, match="race_cars"):
+                                    "name": "no_such_model"})
+    with pytest.raises(NotImplementedError, match="no_such_model"):
         linearize.linearize_lanes_cuda(
             *(torch.as_tensor(a) for a in (xs, ub, params)), model=other,
             dt=spec.dt)

@@ -400,7 +400,7 @@ def test_unported_engine_and_model_raise(tmp_path):
     with pytest.raises(NotImplementedError, match="A7"):
         RTServer(str(tmp_path / "x.sock"), engine="vmap", device="cpu")
     with pytest.raises(ValueError, match="usv_pf_ca"):
-        RTServer(str(tmp_path / "x.sock"), model="race_cars",
+        RTServer(str(tmp_path / "x.sock"), model="no_such_model",
                  device="cpu")
 
 
@@ -492,6 +492,34 @@ def test_wire_loop_of_a_guidance_model_matches_jax_server(tmp_path, model):
                 x0 = out[-1].x1
         replies.append(out)
     _assert_replies_close(replies[1], replies[0], atol=1e-6)
+
+
+def test_wire_loop_of_race_cars_matches_jax_server(tmp_path):
+    """race_cars over v2 frames, on the straight track as both servers
+    build it: no parameters, the model's 5 bounds as lh per request (2
+    soft rows, 3 hard), 3 RK4 substeps; the race scenario's x0 and the
+    builder's yref.  A 4-tick wire closed loop through the JAX lane
+    server and the port's, identical arguments, both float32; identical
+    statuses, u0/x1 to float32 round-off: the duty rate runs at 1-10 (one
+    float32 ulp: 9.5e-7 at 10) and the two packages take their float32
+    operations in other orders, measured within 4.8e-6, held at 1e-6 of
+    the +-10 bound (atol 1e-5)."""
+    from mpc_collisionavoidance_tpu.rt.server import RTServer as JaxServer
+    model = "race_cars"
+    kw = dict(model=model, N=20, Tf=1.0, ipm_iters=6, max_batch=4)
+    sc = scenarios.DEFAULTS[model][0]()
+    replies = []
+    for server in (JaxServer(str(tmp_path / "j.sock"), engine="lane", **kw),
+                   RTServer(str(tmp_path / "t.sock"), device="cpu", **kw)):
+        out, x0 = [], tuple(sc.x0)
+        with _Serving(server) as srv, \
+                contextlib.closing(_connect(srv.address)) as s:
+            for k in range(4):
+                out.append(_solve2(s, model, k, x0, sc.params, sc.lh))
+                assert out[-1].seq == k and out[-1].status in (0, 1)
+                x0 = out[-1].x1
+        replies.append(out)
+    _assert_replies_close(replies[1], replies[0], atol=1e-5)
 
 
 # ---------------------------------------------------------------------------

@@ -4,8 +4,10 @@
                                  [--only NAME ...] [--json PATH]
 
 For every OCP the port runs on the card (the flagship, the hull, the
-hull family and the guidance family), the production (sweep) and the
-fused tick,
+hull family, the guidance family and the race car's runs
+`chip_smoke.RACE`: race_cars and race_cars_dev on the curved track,
+race_cars on the straight one), the production (sweep) and the fused
+tick,
 at B=512 and B=1 (float32, the warm closed loop of `chip_smoke`'s
 workload, x0 <- x1): the median tick over `--ticks` warm ticks (CUDA events
 around the whole tick), then a torch.profiler window over `--profiled`
@@ -35,7 +37,8 @@ from mpc_collisionavoidance_tpu_torch.kernels import _build
 
 CONFIGS = [(name, backend, Bn)
            for name in (chip_smoke.FLAGSHIP, chip_smoke.HULL,
-                        *chip_smoke.FAMILY, *chip_smoke.GUIDANCE)
+                        *chip_smoke.FAMILY, *chip_smoke.GUIDANCE,
+                        *chip_smoke.RACE)
            for backend in ("sweep", "fused") for Bn in (512, 1)]
 
 
@@ -92,7 +95,8 @@ def main(argv):
     ap.add_argument("--ticks", type=int, default=20)
     ap.add_argument("--profiled", type=int, default=10)
     ap.add_argument("--only", nargs="*", default=None,
-                    help="these OCPs only (names of builders.BUILDERS)")
+                    help="these OCPs only (names of builders.BUILDERS, "
+                         "or of chip_smoke.RACE)")
     ap.add_argument("--json", default=None, help="write the results here")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
