@@ -22,7 +22,7 @@ thirteen models.  Phases:
 1. environment: torch, device, `nvidia-smi` name and power limit, nvcc,
    and the kernels' build (nvcc at first use, into build/torch_kernels/);
    ptxas must report 0 bytes spill stores and loads for the twenty-two
-   K1 and the twenty-six K3 instances (`NO_SPILL`);
+   K1, the twenty-eight K2 and the twenty-six K3 instances (`NO_SPILL`);
 2. K1 (Riccati sweep) vs its plain PyTorch version on the card: random
    SPD LQRs at each instance's main-path horizons (`K1_SHAPES`: (8, 1),
    (14, 2) at N=100, (8, 2) at N=100 and 20, (5, 2) at N=20, the guidance
@@ -37,10 +37,13 @@ thirteen models.  Phases:
 3. K2 (fused linearization) vs its plain version on the card, for every
    model form at its builder's N (the race car's straight-track form and
    its curved-track form, which reads the curvature table, with 3
-   substeps), L in {1, 512}, float32 (xn/hbar rtol
+   substeps), L in {1, 37, 512} (37: teams and lanes ragged across
+   blocks), float32 (xn/hbar rtol
    2e-5 atol 2e-6, J/C rtol 2e-4 atol 2e-5) and float64 (atol 1e-10; the
    hydrodynamic models' J, whose stiff sway-drag entries are large, also
-   rtol 1e-12);
+   rtol 1e-12); each form's time at L in {1, 128, 512} float32 and 512
+   float64 (CUDA events over 50 back-to-back launches of the C entry)
+   beside its bound;
 4. K3 (fused whole IPM, 12 iterations) vs its plain version
    `fused_ipm_lanes_plain` on the card, on QPs from the solver's own
    `_build_qp` at each OCP's default scenario (perturbed) and its
@@ -148,6 +151,7 @@ float32 matrix products run in full float32 (TF32 off, set below).
 """
 
 import contextlib
+import ctypes
 import dataclasses
 import itertools
 import json
@@ -311,8 +315,10 @@ def environment():
 
 
 # kernels whose every instance must compile without spills, and how many
-# instances each has (K1: 11 shapes, K3: 13 structures, each in two types)
-NO_SPILL = {"riccati_lanes_kernel": 22, "fused_ipm_kernel": 26}
+# instances each has (K1: 11 shapes, K2: 14 forms, K3: 13 structures, each
+# in two types)
+NO_SPILL = {"riccati_lanes_kernel": 22, "linearize_lanes_kernel": 28,
+            "fused_ipm_kernel": 26}
 
 
 def spill_report(log):
@@ -513,6 +519,34 @@ def riccati_launcher(lib, d):
     return call, out[:2]
 
 
+def linearize_launcher(lib, name, m, xs, ubar, params, dt, steps):
+    """A call of `lib`'s K2 C entry of form `name` (a model's name, or
+    `race_cars_track` for the curved-track form, whose entry also takes
+    the model's curvature table) on the lane inputs, with its outputs
+    allocated once (the kernel's time without the wrapper's checks and
+    allocations, and not counted as a launch).  Returns (call, (xn, J,
+    hbar, C))."""
+    import torch
+
+    from mpc_collisionavoidance_tpu_torch.kernels import _build
+    nx, N, L = xs.shape
+    opts = dict(dtype=xs.dtype, device=xs.device)
+    out = [torch.empty(shape, **opts) for shape in (
+        (nx, N, L), (N, nx, nx + m.nu, L), (m.nh, N, L), (N, m.nh, nx, L))]
+    *ptrs, stream = _build.launch_args(xs.device, xs, ubar, params, *out)
+    if name.endswith("_track"):
+        table = m.kappa_table(xs.device, xs.dtype)
+        ptrs += [ctypes.c_void_p(table.data_ptr()), table.numel(),
+                 float(m.track_length)]
+    entry = getattr(lib, "nmpc_linearize_" + name)
+    args = (int(xs.dtype == torch.float64), N, L, dt / steps, steps, *ptrs,
+            stream)
+
+    def call():
+        _build.check(entry(*args), f"linearize_lanes[{name}]")
+    return call, out
+
+
 # K1's instances: the horizons the main paths give each (the first is
 # timed) and the models that run it
 K1_SHAPES = {(8, 1): ((100,), (FLAGSHIP,)),
@@ -658,27 +692,34 @@ def _linearize_inputs(name, m, N, L, rng, dt):
             rng.uniform(-10.0, 20.0, size=(m.np_, L)))
 
 
+# (L, dtype name) at which K2 is checked against its plain version, and
+# at which it is timed
+K2_CHECKED = (1, 37, B)
+K2_TIMED = K1_TIMED
+
+
 def check_linearize():
-    """K2 vs linearize_lanes_plain on the card, per model form; returns
-    {model: (max float32 error, max float64 error, kernel ms, plain ms,
-    bound ms, bound_by)} (times at the builder's N, L=512, float32)."""
+    """K2 vs linearize_lanes_plain on the card, per model form, and the
+    kernel's time beside its bound; returns {form: (max float32 error, max
+    float64 error, kernel ms, plain ms, bound ms, bound_by)} (times at the
+    builder's N, L=512, float32)."""
     import torch
 
-    from mpc_collisionavoidance_tpu_torch.kernels import linearize
-    from mpc_collisionavoidance_tpu_torch.ocp import builders
+    from mpc_collisionavoidance_tpu_torch.kernels import _build, linearize
     from mpc_collisionavoidance_tpu_torch.ops.linearize_lanes import (
         linearize_lanes_plain)
     tols32 = ((2e-5, 2e-6), (2e-4, 2e-5), (2e-5, 2e-6), (2e-4, 2e-5))
+    lib = _build.library()
     result = {}
     forms = [*linearize.CUDA_MODELS,
              *(f"{name}_track" for name in linearize.TRACK_FORMS)]
     for name in forms:
         spec = _spec(name)
         m = spec.model
-        N = spec.N
-        kw = dict(model=m, dt=spec.dt, integrator_steps=spec.integrator_steps)
+        N, steps = spec.N, spec.integrator_steps
+        kw = dict(model=m, dt=spec.dt, integrator_steps=steps)
         worst = {torch.float32: 0.0, torch.float64: 0.0}
-        for L in (1, B):
+        for L in K2_CHECKED:
             rng = np.random.default_rng(100 + L)
             inputs = _linearize_inputs(name, m, N, L, rng, spec.dt)
             for dtype in (torch.float32, torch.float64):
@@ -703,15 +744,25 @@ def check_linearize():
                     _check_close(f"K2 {name} {out} L={L} {dtype}", [g], [w],
                                  rtol, atol)
                 if dtype == torch.float32 and L == B:
-                    ms = _tick_ms(lambda: linearize.linearize_lanes_cuda(
-                        *args, **kw), 50)
                     plain_ms = want_ms
-        bound_ms, by = bound(*linearize_work(name, m, N, B,
-                                             spec.integrator_steps, 4), 4)
-        print(f"K2 {name} at N={N} L={B} float32: kernel {ms:.4f} ms, plain "
-              f"{plain_ms:.4f} ms, bound {bound_ms:.4f} ms ({by})")
-        result[name] = (worst[torch.float32], worst[torch.float64], ms,
-                        plain_ms, bound_ms, by)
+        for L, dname in K2_TIMED:
+            dtype = getattr(torch, dname)
+            rng = np.random.default_rng(100 + L)
+            args = [torch.as_tensor(a, dtype=dtype, device=DEVICE) for a in
+                    _linearize_inputs(name, m, N, L, rng, spec.dt)]
+            ms = launch_ms(linearize_launcher(lib, name, m, *args, spec.dt,
+                                              steps)[0])
+            item = args[0].element_size()
+            bound_ms, by = bound(*linearize_work(name, m, N, L, steps, item),
+                                 item)
+            print(f"K2 {name} N={N} L={L} {dname}: {ms:.4f} ms, bound "
+                  f"{bound_ms:.4f} ms ({by}), {100 * bound_ms / ms:.2f}% "
+                  "of the bound")
+            if (L, dname) == (B, "float32"):
+                result[name] = (worst[torch.float32], worst[torch.float64],
+                                ms, plain_ms, bound_ms, by)
+        print(f"K2 {name} plain linearization at L={B} float32: "
+              f"{plain_ms:.4f} ms")
     return result
 
 

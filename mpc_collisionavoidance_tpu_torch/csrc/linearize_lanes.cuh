@@ -1,7 +1,8 @@
 // Fused RTI linearization (K2) for sm_90a: the kernel, its launch and the
 // macro of its C entries.  Each model form (csrc/models/<name>.cuh) has its
 // own translation unit linearize_lanes_<name>.cu, so that nvcc compiles
-// the forms in parallel.
+// the forms in parallel; the unit also chooses the form's team (below)
+// in each type.
 //
 // Replaces mpc_collisionavoidance_tpu/kernels/linearize_pallas.py:
 // linearize_lanes_pallas.  Per (stage, lane) it computes
@@ -10,9 +11,8 @@
 //                           column is written as the exact identity column,
 //                           every other control column as exact zeros,
 //   hbar = h(x, p), C = dh/dx  tangents only along h_dep, zeros elsewhere.
-// The model's f and h (csrc/models/<name>.cuh) run once on a forward-mode
-// dual number with |f_dep| tangents (the rollout's value part is xn) and
-// once on one with |h_dep| tangents (its value part is hbar).
+// The model's f and h (csrc/models/<name>.cuh) are templates over the
+// scalar type and run here on forward-mode duals (dual.cuh).
 //
 // Layouts (lane axis L minor-most):
 //   in   xs (nx, N, L), ubar (nu, N, L), params (np, L)
@@ -21,28 +21,58 @@
 // J and C are written straight into the IPM's layout, so the solver needs
 // no transpose.
 //
-// Design: one thread per (stage, lane), threads ordered lane-fastest, so a
-// warp reads and writes 32 neighbouring addresses of every plane.  No stage
-// blocking and no padding: the last block is bounds-masked.
-// What bounds it on the H100: per thread ~2 kFLOP (four model evaluations
-// on 7-wide duals plus the row distances) against ~0.4 kB of traffic, so
-// it is neither HBM- nor FLOP-bound at the flagship's N*L = 51,200 threads
-// (400 blocks of 128 on 132 SMs); the cost is the sin/cos/atan2 latency
-// and the register footprint of the duals (x, k, acc and the stage state:
-// ~4 x 8 x 7 values per thread), which limits occupancy and may spill in
-// float64.  The 14-state hulls (usv_pf_ca, usv_pf: 9 f tangents) carry
-// ~4 x 14 x 10 dual values per thread, above the 255-register cap in both
-// precisions, so they spill to local memory; so do the double forms of
-// the other hull models and of the guidance models with 9-12 states
-// (usv_guidance_ca, usv_guidance, usv_guidance2, usv_guidance3), whose
-// float forms fit in 224-254 registers.  Accepted for bring-up.
+// Design: a team of G threads per (stage, lane).  Thread g of the team
+// carries the tangent chunk f_dep[g D, (g + 1) D) on a Dual<T, D> (the
+// last chunk padded with zero tangents) through the whole RK4 rollout,
+// recomputing the value part, and writes the J columns of its chunk.  D
+// is the instance's team width (`Team`), G = ceil(|f_dep| / D).  The team
+// splits what is left so that every output value is written exactly
+// once: row i of xn and the constant column c of J (identity or zeros)
+// go to thread i % G and c % G, the constraint pass (one chunk of the
+// |h_dep| = 2-4 tangents: hbar and C's h_dep columns) to thread G - 1,
+// C's zero column c to thread c % G.  Threads are numbered lane-fastest,
+// l = gid % L, g = (gid / L) % G, s = gid / (L G): at L >= 32 a warp
+// reads and writes 32 neighbouring lanes of one plane (coalesced), and at
+// L = 1 the warps stay full.  No stage blocking and no padding: threads
+// past the last (stage, lane) are masked.
+//
+// What bounds it on the H100: per (stage, lane) and substep ~1-8 kFLOP of
+// dual arithmetic with sin/cos/atan2/sqrt, against 0.4-1.3 kB of outputs
+// (J and C in float32); at the builders' N and L = 512 the byte bound
+// is 0.6-19 us.
+// One thread per (stage, lane) carrying all |f_dep| tangents (the first
+// design) held x, k, acc and the stage input as 4 NX (1 + |f_dep|) live
+// values (~4 x 14 x 10 for the hull): over the 255-register cap in 13 of
+// the 28 instances, which spilled to local memory, and each (stage, lane)
+// ran its whole chain on one thread, latency-bound at small L.  The team
+// cuts a thread's duals to 1 + D values and multiplies the threads by G;
+// the recomputed value parts (transcendentals included) are its price, so
+// the widest team is not the fastest where the card is full.  Where x and
+// acc do not fit the registers beside f's own values (the double hulls),
+// the instance keeps them in shared memory (Team::kShared): a column per
+// thread, entry e of the thread at e * kBlock + threadIdx.x, so a warp
+// touches 32 consecutive words (no bank conflicts); x is read by each of
+// the four stage inputs and acc updated once per stage, both only between
+// the f calls.  Each instance's team (D and kShared) is chosen by
+// measurement (tools/k2_compare.py's sweep of D in {1, 2, 3, 4, |f_dep|},
+// registers or shared memory; PERF.md §6):
+// among the widths that compile without spills, float takes the least
+// time at L = 512 plus L = 1 (one tick of a batch and one of a single
+// boat), double the least at L = 512.  Every instance compiles without
+// spills (chip_smoke.py's NO_SPILL gate).  dual.cuh takes sin and cos of
+// one angle by one sincos and divides tangents by a reciprocal: the SASS
+// of separate sin and cos carried two range reductions (and two of their
+// slow paths) per angle.
 //
 // A form whose f reads a curvature table (the curved race track,
 // models/track.cuh) says so with kTrack = true; its C entry takes the
-// table, its length M and the lap's arc length, and the kernel hands them
-// to f.  Every other form's entry passes none, and its f is called
-// without.  The table's gathers are four loads per f evaluation from an
-// L1-resident array of M values, and come on top of a form's FLOPs.
+// table, its length M and the lap's arc length.  Each block stages the
+// table in shared memory once, behind the kernel's only barrier (which
+// every thread of the block reaches: the masking comes after it), and f
+// gathers its four samples per evaluation from there.  A table that does
+// not fit a block's shared memory beside the instance's RK4 columns is
+// refused (-3).  Every other form's entry passes none, and its f is
+// called without.
 //
 // A model with no parameters (NP = 0) reads none: the kernel hands its
 // form a size-1 dummy array, and the params pointer (of an empty tensor,
@@ -70,6 +100,38 @@
 namespace {
 
 constexpr int kBlock = 128;
+constexpr size_t kMaxShared = 232448;  // the per-block opt-in of sm_90
+
+// An instance's team: D tangents per thread, and the RK4 state x and
+// accumulator acc in shared memory (kShared) or in registers.  A D above
+// |f_dep| means |f_dep| (a team of one).
+template <int D_, bool kShared_ = false>
+struct Team {
+  static constexpr int D = D_;
+  static constexpr bool kShared = kShared_;
+};
+constexpr bool kSharedRk4 = true;
+
+// A probe build (tools/k2_compare.py --sweep) compiles every instance at
+// one team given on the command line: -DNMPC_K2_PROBE_D=D and
+// -DNMPC_K2_PROBE_SHARED=0|1.
+#ifdef NMPC_K2_PROBE_D
+template <typename>
+using Chosen = Team<NMPC_K2_PROBE_D, NMPC_K2_PROBE_SHARED>;
+#else
+template <typename TM>
+using Chosen = TM;
+#endif
+
+// the width D and the size G of form M's team TM
+template <typename M, typename TM>
+__host__ __device__ constexpr int team_width() {
+  return TM::D < M::N_FDEP ? TM::D : M::N_FDEP;
+}
+template <typename M, typename TM>
+__host__ __device__ constexpr int team_size() {
+  return (M::N_FDEP + team_width<M, TM>() - 1) / team_width<M, TM>();
+}
 
 // position of coordinate k in the model's f_dep (-1: not read by f)
 template <typename M>
@@ -107,7 +169,57 @@ __device__ __forceinline__ void eval_f(const S (&x)[M::NX],
     M::f(x, u, p, xdot);
 }
 
-template <typename T, typename M>
+// A thread's RK4 state x and accumulator acc, NX duals each, in registers
+// (this template) or in shared memory (the specialisation below)
+template <typename DF, int NX, bool kShared>
+struct Rk4State {
+  DF x_[NX], acc_[NX];
+  __device__ __forceinline__ explicit Rk4State(void*) {}
+  __device__ __forceinline__ DF x(int i) const { return x_[i]; }
+  __device__ __forceinline__ DF acc(int i) const { return acc_[i]; }
+  __device__ __forceinline__ void set_x(int i, const DF& v) { x_[i] = v; }
+  __device__ __forceinline__ void set_acc(int i, const DF& v) { acc_[i] = v; }
+};
+// x and acc in the thread's column of the block's shared memory: value c of
+// x[i] at ((i * W + c) * kBlock), of acc[i] at (((NX + i) * W + c) *
+// kBlock) past the thread's first word, W = 1 + D.  The column is
+// volatile: without it the compiler forwards each stored value to its
+// next load and keeps it in a register, the very pressure this layout
+// exists to remove.
+template <typename T, int D, int NX>
+struct Rk4State<nmpc::Dual<T, D>, NX, true> {
+  using DF = nmpc::Dual<T, D>;
+  static constexpr int W = 1 + D;
+  volatile T* col;
+  __device__ __forceinline__ explicit Rk4State(T* base)
+      : col(base + threadIdx.x) {}
+  __device__ __forceinline__ DF get(int e) const {
+    DF r;
+    r.v = col[e * W * kBlock];
+#pragma unroll
+    for (int c = 0; c < D; ++c) r.d[c] = col[(e * W + 1 + c) * kBlock];
+    return r;
+  }
+  __device__ __forceinline__ void put(int e, const DF& v) {
+    col[e * W * kBlock] = v.v;
+#pragma unroll
+    for (int c = 0; c < D; ++c) col[(e * W + 1 + c) * kBlock] = v.d[c];
+  }
+  __device__ __forceinline__ DF x(int i) const { return get(i); }
+  __device__ __forceinline__ DF acc(int i) const { return get(NX + i); }
+  __device__ __forceinline__ void set_x(int i, const DF& v) { put(i, v); }
+  __device__ __forceinline__ void set_acc(int i, const DF& v) {
+    put(NX + i, v);
+  }
+};
+
+// shared-memory values per thread of form M's RK4 columns under team TM
+template <typename M, typename TM>
+__host__ __device__ constexpr size_t rk4_values() {
+  return TM::kShared ? 2 * M::NX * (1 + team_width<M, TM>()) : 0;
+}
+
+template <typename T, typename M, typename TM>
 __global__ void __launch_bounds__(kBlock)
 linearize_lanes_kernel(const T* __restrict__ xs, const T* __restrict__ ub,
                        const T* __restrict__ prm, T* __restrict__ xn,
@@ -116,11 +228,25 @@ linearize_lanes_kernel(const T* __restrict__ xs, const T* __restrict__ ub,
                        int M_tab, T track_length, int N, int L, T half_h,
                        T h, T sixth_h, int steps) {
   constexpr int NX = M::NX, NU = M::NU, NXU = M::NX + M::NU;
-  const size_t gid = static_cast<size_t>(blockIdx.x) * blockDim.x +
+  constexpr int D = team_width<M, TM>(), G = team_size<M, TM>();
+  extern __shared__ __align__(16) unsigned char smem[];
+  T* const sm = reinterpret_cast<T*>(smem);
+
+  // the curvature table, staged once per block by all its threads
+  const T* table = kap;
+  if constexpr (reads_track<M>::value) {
+    T* const tab_sm = sm + rk4_values<M, TM>() * kBlock;
+    for (int i = threadIdx.x; i < M_tab; i += kBlock) tab_sm[i] = kap[i];
+    __syncthreads();
+    table = tab_sm;
+  }
+  // the kernel's last barrier is behind us: mask the threads past the end
+  const size_t gid = static_cast<size_t>(blockIdx.x) * kBlock +
                      threadIdx.x;
-  if (gid >= static_cast<size_t>(N) * L) return;
-  const int s = static_cast<int>(gid / L);
+  if (gid >= static_cast<size_t>(N) * L * G) return;
   const int l = static_cast<int>(gid % L);
+  const int g = static_cast<int>((gid / L) % G);
+  const int s = static_cast<int>(gid / (static_cast<size_t>(L) * G));
   // entry of row i at stage s of an (rows, N, L) plane
   auto plane = [=](int i) -> size_t {
     return (static_cast<size_t>(i) * N + s) * L + l;
@@ -131,94 +257,135 @@ linearize_lanes_kernel(const T* __restrict__ xs, const T* __restrict__ ub,
 #pragma unroll
   for (int i = 0; i < M::NP; ++i) p[i] = prm[static_cast<size_t>(i) * L + l];
 
-  const nmpc::Curvature<T> tab{kap, M_tab, track_length};
+  const nmpc::Curvature<T> tab{table, M_tab, track_length};
 
-  // ---- RK4 rollout with |f_dep| forward tangents ----
-  using DF = nmpc::Dual<T, M::N_FDEP>;
-  DF x[NX], u[NU];
-#pragma unroll
-  for (int i = 0; i < NX; ++i) x[i] = DF(xs[plane(i)]);
+  // ---- RK4 rollout with the tangents f_dep[g D, (g + 1) D) ----
+  using DF = nmpc::Dual<T, D>;
+  Rk4State<DF, NX, TM::kShared> st(sm);
+  DF u[NU];
 #pragma unroll
   for (int i = 0; i < NU; ++i) u[i] = DF(ub[plane(i)]);
+  {
+    DF x0[NX];
 #pragma unroll
-  for (int j = 0; j < M::N_FDEP; ++j) {
-    const int k = M::f_dep(j);
-    if (k < NX)
-      x[k].d[j] = T(1);
-    else
-      u[k - NX].d[j] = T(1);
+    for (int i = 0; i < NX; ++i) x0[i] = DF(xs[plane(i)]);
+#pragma unroll
+    for (int q = 0; q < M::N_FDEP; ++q) {
+      const int k = M::f_dep(q);
+      const T seed = q / D == g ? T(1) : T(0);
+      if (k < NX)
+        x0[k].d[q % D] = seed;
+      else
+        u[k - NX].d[q % D] = seed;
+    }
+#pragma unroll
+    for (int i = 0; i < NX; ++i) st.set_x(i, x0[i]);
   }
   for (int step = 0; step < steps; ++step) {
     // acc = k1 + 2 k2 + 2 k3 + k4, summed left to right as the reference
-    DF k[NX], acc[NX], tmp[NX];
-    eval_f<M>(x, u, p, tab, k);
+    DF k[NX], tmp[NX];
+#pragma unroll
+    for (int i = 0; i < NX; ++i) tmp[i] = st.x(i);
+    eval_f<M>(tmp, u, p, tab, k);
 #pragma unroll
     for (int i = 0; i < NX; ++i) {
-      acc[i] = k[i];
-      tmp[i] = x[i] + half_h * k[i];
+      st.set_acc(i, k[i]);
+      tmp[i] = st.x(i) + half_h * k[i];
     }
     eval_f<M>(tmp, u, p, tab, k);
 #pragma unroll
     for (int i = 0; i < NX; ++i) {
-      acc[i] = acc[i] + T(2) * k[i];
-      tmp[i] = x[i] + half_h * k[i];
+      st.set_acc(i, st.acc(i) + T(2) * k[i]);
+      tmp[i] = st.x(i) + half_h * k[i];
     }
     eval_f<M>(tmp, u, p, tab, k);
 #pragma unroll
     for (int i = 0; i < NX; ++i) {
-      acc[i] = acc[i] + T(2) * k[i];
-      tmp[i] = x[i] + h * k[i];
+      st.set_acc(i, st.acc(i) + T(2) * k[i]);
+      tmp[i] = st.x(i) + h * k[i];
     }
     eval_f<M>(tmp, u, p, tab, k);
 #pragma unroll
-    for (int i = 0; i < NX; ++i) x[i] = x[i] + sixth_h * (acc[i] + k[i]);
+    for (int i = 0; i < NX; ++i)
+      st.set_x(i, st.x(i) + sixth_h * (st.acc(i) + k[i]));
   }
+  // xn's row i to thread i % G; J's column c of f_dep position q to the
+  // chunk's thread q / D, a constant column to thread c % G
 #pragma unroll
   for (int i = 0; i < NX; ++i) {
-    xn[plane(i)] = x[i].v;
+    const DF xi = st.x(i);
+    if (i % G == g) xn[plane(i)] = xi.v;
 #pragma unroll
     for (int c = 0; c < NXU; ++c) {
       const int pos = f_pos<M>(c);
-      const T val = pos >= 0 ? x[i].d[pos >= 0 ? pos : 0]
-                             : (c == i ? T(1) : T(0));
-      J[((static_cast<size_t>(s) * NX + i) * NXU + c) * L + l] = val;
+      const size_t at = ((static_cast<size_t>(s) * NX + i) * NXU + c) * L + l;
+      if (pos >= 0) {
+        if (pos / D == g) J[at] = xi.d[pos % D];
+      } else if (c % G == g) {
+        J[at] = c == i ? T(1) : T(0);
+      }
     }
   }
 
-  // ---- constraint rows with |h_dep| forward tangents ----
+  // ---- constraint rows with the |h_dep| tangents, on thread G - 1 ----
   if constexpr (M::NH > 0) {
-    using DH = nmpc::Dual<T, M::N_HDEP>;
-    DH xh[NX];
+    auto c_at = [=](int r, int c) -> size_t {
+      return ((static_cast<size_t>(s) * M::NH + r) * NX + c) * L + l;
+    };
 #pragma unroll
-    for (int i = 0; i < NX; ++i) xh[i] = DH(xs[plane(i)]);
+    for (int c = 0; c < NX; ++c) {
+      if (h_pos<M>(c) < 0 && c % G == g) {
 #pragma unroll
-    for (int j = 0; j < M::N_HDEP; ++j) xh[M::h_dep(j)].d[j] = T(1);
-    DH hv[M::NH];
-    M::h(xh, p, hv);
+        for (int r = 0; r < M::NH; ++r) C[c_at(r, c)] = T(0);
+      }
+    }
+    if (g == G - 1) {
+      using DH = nmpc::Dual<T, M::N_HDEP>;
+      DH xh[NX];
 #pragma unroll
-    for (int r = 0; r < M::NH; ++r) {
-      hbar[plane(r)] = hv[r].v;
+      for (int i = 0; i < NX; ++i) xh[i] = DH(xs[plane(i)]);
 #pragma unroll
-      for (int c = 0; c < NX; ++c) {
-        const int pos = h_pos<M>(c);
-        C[((static_cast<size_t>(s) * M::NH + r) * NX + c) * L + l] =
-            pos >= 0 ? hv[r].d[pos >= 0 ? pos : 0] : T(0);
+      for (int j = 0; j < M::N_HDEP; ++j) xh[M::h_dep(j)].d[j] = T(1);
+      DH hv[M::NH];
+      M::h(xh, p, hv);
+#pragma unroll
+      for (int r = 0; r < M::NH; ++r) {
+        hbar[plane(r)] = hv[r].v;
+#pragma unroll
+        for (int j = 0; j < M::N_HDEP; ++j)
+          C[c_at(r, M::h_dep(j))] = hv[r].d[j];
       }
     }
   }
 }
 
-template <typename T, typename M>
+// Launches form M's kernel in type T with team TM; returns
+// cudaGetLastError(), the error of raising the kernel's shared-memory
+// limit, or -3 if the RK4 columns and the curvature table do not fit a
+// block's shared memory.
+template <typename T, typename M, typename TM>
 int launch(int N, int L, double dt_step, int steps, const void* xs,
            const void* ub, const void* prm, void* xn, void* J, void* hbar,
            void* C, const void* kap, int M_tab, double track_length,
            cudaStream_t stream) {
-  const size_t threads = static_cast<size_t>(N) * L;
+  const size_t threads =
+      static_cast<size_t>(N) * L * team_size<M, TM>();
   const int grid = static_cast<int>((threads + kBlock - 1) / kBlock);
+  const size_t smem =
+      sizeof(T) * (rk4_values<M, TM>() * kBlock +
+                   (reads_track<M>::value ? static_cast<size_t>(M_tab) : 0));
+  if (smem > kMaxShared) return -3;
+  const auto kernel = linearize_lanes_kernel<T, M, TM>;
+  if (smem > 48 * 1024) {
+    // above 48 KB a launch is refused unless the kernel opts in
+    const cudaError_t err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        static_cast<int>(smem));
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
   // the reference scales by Python floats computed in double, then rounds
   // them to the working type: 0.5*h, h and h/6
-  const auto kernel = linearize_lanes_kernel<T, M>;
-  kernel<<<grid, kBlock, 0, stream>>>(
+  kernel<<<grid, kBlock, smem, stream>>>(
       static_cast<const T*>(xs), static_cast<const T*>(ub),
       static_cast<const T*>(prm), static_cast<T*>(xn), static_cast<T*>(J),
       static_cast<T*>(hbar), static_cast<T*>(C), static_cast<const T*>(kap),
@@ -228,7 +395,8 @@ int launch(int N, int L, double dt_step, int steps, const void* xs,
   return static_cast<int>(cudaGetLastError());
 }
 
-template <typename M>
+// form M with team TF in float and TD in double
+template <typename M, typename TF, typename TD>
 int entry(int is_double, int N, int L, double dt_step, int steps,
           const void* xs, const void* ub, const void* prm, void* xn, void* J,
           void* hbar, void* C, const void* kap, int M_tab,
@@ -238,36 +406,40 @@ int entry(int is_double, int N, int L, double dt_step, int steps,
     return -2;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (is_double)
-    return launch<double, M>(N, L, dt_step, steps, xs, ub, prm, xn, J, hbar,
-                             C, kap, M_tab, track_length, st);
-  return launch<float, M>(N, L, dt_step, steps, xs, ub, prm, xn, J, hbar, C,
-                          kap, M_tab, track_length, st);
+    return launch<double, M, Chosen<TD>>(N, L, dt_step, steps, xs, ub, prm,
+                                         xn, J, hbar, C, kap, M_tab,
+                                         track_length, st);
+  return launch<float, M, Chosen<TF>>(N, L, dt_step, steps, xs, ub, prm, xn,
+                                      J, hbar, C, kap, M_tab, track_length,
+                                      st);
 }
 
 }  // namespace
 
 // One C entry per model form, nmpc_linearize_<model>(is_double, N, L,
 // dt_step, steps, xs, ubar, params, xn, J, hbar, C, stream), with
-// dt_step = dt / integrator_steps.  Each returns cudaGetLastError() after
-// the launch (0 = success) or -2 for an empty problem (or an empty
-// table).  A form that reads a curvature table has the entry
-// nmpc_linearize_<model>(..., hbar, C, table, M, track_length, stream),
-// the table a (M,) array of the working type.
-#define NMPC_LINEARIZE_ENTRY(NAME, FORM)                                    \
+// dt_step = dt / integrator_steps and the form's team TF in float, TD in
+// double.  Each returns cudaGetLastError() after the launch (0 =
+// success), -2 for an empty problem (or an empty table) or -3 for a
+// table too large for shared memory.  A form that reads a curvature
+// table has the entry nmpc_linearize_<model>(..., hbar, C, table, M,
+// track_length, stream), the table a (M,) array of the working type.
+#define NMPC_LINEARIZE_ENTRY(NAME, FORM, TF, TD)                            \
   extern "C" int nmpc_linearize_##NAME(                                     \
       int is_double, int N, int L, double dt_step, int steps,              \
       const void* xs, const void* ub, const void* prm, void* xn, void* J,  \
       void* hbar, void* C, void* stream) {                                  \
-    return entry<nmpc::FORM>(is_double, N, L, dt_step, steps, xs, ub, prm, \
-                             xn, J, hbar, C, nullptr, 0, 0.0, stream);      \
+    return entry<nmpc::FORM, TF, TD>(is_double, N, L, dt_step, steps, xs,  \
+                                     ub, prm, xn, J, hbar, C, nullptr, 0,  \
+                                     0.0, stream);                          \
   }
-#define NMPC_LINEARIZE_TRACK_ENTRY(NAME, FORM)                              \
+#define NMPC_LINEARIZE_TRACK_ENTRY(NAME, FORM, TF, TD)                      \
   extern "C" int nmpc_linearize_##NAME(                                     \
       int is_double, int N, int L, double dt_step, int steps,              \
       const void* xs, const void* ub, const void* prm, void* xn, void* J,  \
       void* hbar, void* C, const void* kap, int M_tab,                     \
       double track_length, void* stream) {                                 \
-    return entry<nmpc::FORM>(is_double, N, L, dt_step, steps, xs, ub, prm, \
-                             xn, J, hbar, C, kap, M_tab, track_length,     \
-                             stream);                                       \
+    return entry<nmpc::FORM, TF, TD>(is_double, N, L, dt_step, steps, xs,  \
+                                     ub, prm, xn, J, hbar, C, kap, M_tab,  \
+                                     track_length, stream);                 \
   }

@@ -5,4 +5,8 @@
 #include "linearize_lanes.cuh"
 #include "models/race_cars.cuh"
 
-NMPC_LINEARIZE_ENTRY(race_cars, RaceCars<false>)
+// the form's team in float and in double (linearize_lanes.cuh), chosen by
+// tools/k2_compare.py's sweep (PERF.md §6)
+using FloatTeam = Team<6>;
+using DoubleTeam = Team<2>;
+NMPC_LINEARIZE_ENTRY(race_cars, RaceCars<false>, FloatTeam, DoubleTeam)

@@ -6,4 +6,9 @@
 #include "linearize_lanes.cuh"
 #include "models/race_cars.cuh"
 
-NMPC_LINEARIZE_TRACK_ENTRY(race_cars_track, RaceCars<true>)
+// the form's team in float and in double (linearize_lanes.cuh), chosen by
+// tools/k2_compare.py's sweep (PERF.md §6)
+using FloatTeam = Team<8>;
+using DoubleTeam = Team<8, kSharedRk4>;
+NMPC_LINEARIZE_TRACK_ENTRY(race_cars_track, RaceCars<true>, FloatTeam,
+                           DoubleTeam)

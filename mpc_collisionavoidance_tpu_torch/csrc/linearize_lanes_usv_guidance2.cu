@@ -5,4 +5,8 @@
 #include "linearize_lanes.cuh"
 #include "models/usv_guidance2.cuh"
 
-NMPC_LINEARIZE_ENTRY(usv_guidance2, UsvGuidance2)
+// the form's team in float and in double (linearize_lanes.cuh), chosen by
+// tools/k2_compare.py's sweep (PERF.md §6)
+using FloatTeam = Team<3>;
+using DoubleTeam = Team<3>;
+NMPC_LINEARIZE_ENTRY(usv_guidance2, UsvGuidance2, FloatTeam, DoubleTeam)

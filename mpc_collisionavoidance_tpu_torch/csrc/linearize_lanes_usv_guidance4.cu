@@ -5,4 +5,8 @@
 #include "linearize_lanes.cuh"
 #include "models/usv_guidance4.cuh"
 
-NMPC_LINEARIZE_ENTRY(usv_guidance4, UsvGuidance4)
+// the form's team in float and in double (linearize_lanes.cuh), chosen by
+// tools/k2_compare.py's sweep (PERF.md §6)
+using FloatTeam = Team<2>;
+using DoubleTeam = Team<4>;
+NMPC_LINEARIZE_ENTRY(usv_guidance4, UsvGuidance4, FloatTeam, DoubleTeam)

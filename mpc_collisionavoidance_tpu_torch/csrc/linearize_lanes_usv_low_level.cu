@@ -5,4 +5,8 @@
 #include "linearize_lanes.cuh"
 #include "models/usv_low_level.cuh"
 
-NMPC_LINEARIZE_ENTRY(usv_low_level, UsvLowLevel)
+// the form's team in float and in double (linearize_lanes.cuh), chosen by
+// tools/k2_compare.py's sweep (PERF.md §6)
+using FloatTeam = Team<2>;
+using DoubleTeam = Team<3>;
+NMPC_LINEARIZE_ENTRY(usv_low_level, UsvLowLevel, FloatTeam, DoubleTeam)

@@ -23,14 +23,23 @@ struct Guidance {
     return m_atan2(v, u + T(0.001));
   }
 
-  // NED velocity (xned_dot, yned_dot) of body speeds (u, v) at heading psi
+  // NED velocity (xned_dot, yned_dot) of body speeds (u, v) at a heading
+  // of sine sp and cosine cp
+  template <typename S>
+  __device__ __forceinline__ static void ned_rates(const S& u, const S& v,
+                                                   const S& sp, const S& cp,
+                                                   S& xned_dot, S& yned_dot) {
+    xned_dot = u * cp - v * sp;
+    yned_dot = u * sp + v * cp;
+  }
+  // the same at heading psi
   template <typename S>
   __device__ __forceinline__ static void ned_rates(const S& u, const S& v,
                                                    const S& psi, S& xned_dot,
                                                    S& yned_dot) {
-    const S sp = m_sin(psi), cp = m_cos(psi);
-    xned_dot = u * cp - v * sp;
-    yned_dot = u * sp + v * cp;
+    S sp, cp;
+    m_sincos(psi, sp, cp);
+    ned_rates(u, v, sp, cp, xned_dot, yned_dot);
   }
 
   // cross-track rate along a segment at angle ak
@@ -38,7 +47,9 @@ struct Guidance {
   __device__ __forceinline__ static S cross_track_rate(const S& xned_dot,
                                                        const S& yned_dot,
                                                        const S& ak) {
-    return -xned_dot * m_sin(ak) + yned_dot * m_cos(ak);
+    S sa, ca;
+    m_sincos(ak, sa, ca);
+    return -xned_dot * sa + yned_dot * ca;
   }
 
   // distances from (xp, yp) to the NOBS obstacle centres of

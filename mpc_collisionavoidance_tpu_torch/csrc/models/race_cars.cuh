@@ -57,7 +57,9 @@ struct RaceCars {
                                            S (&xdot)[NX]) {
     using T = scalar_t<S>;
     const S ang = x[2] + T(0.5) * x[5];  // alpha + C1 delta
-    S sdota = x[3] * m_cos(ang);
+    S sa, ca;
+    m_sincos(ang, sa, ca);
+    S sdota = x[3] * ca;
     S alpha_dot = x[3] * T(15.5) * x[5];
     if constexpr (CURVED) {
       const S kap = curvature(tab, x[0]);
@@ -65,7 +67,7 @@ struct RaceCars {
       alpha_dot = alpha_dot - kap * sdota;
     }
     xdot[0] = sdota;
-    xdot[1] = x[3] * m_sin(ang);
+    xdot[1] = x[3] * sa;
     xdot[2] = alpha_dot;
     xdot[3] = drive(x[3], x[4]) / T(0.043) * m_cos(T(0.5) * x[5]);
     xdot[4] = u[0];

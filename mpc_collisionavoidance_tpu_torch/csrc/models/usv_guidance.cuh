@@ -28,14 +28,15 @@ struct UsvGuidance {
                                            S (&xdot)[NX]) {
     using T = scalar_t<S>;
     const S& psi = x[2];
-    S xned_dot, yned_dot;
-    Guidance::ned_rates(x[5], x[6], psi, xned_dot, yned_dot);
+    S sp, cp, xned_dot, yned_dot;
+    m_sincos(psi, sp, cp);
+    Guidance::ned_rates(x[5], x[6], sp, cp, xned_dot, yned_dot);
     const S psi_rate = (x[9] - psi) / T(1.0);  // T1 = 1.0
     xdot[0] = xned_dot;
     xdot[1] = yned_dot;
     xdot[2] = psi_rate;
-    xdot[3] = m_cos(psi) * psi_rate;
-    xdot[4] = -m_sin(psi) * psi_rate;
+    xdot[3] = cp * psi_rate;
+    xdot[4] = -sp * psi_rate;
     xdot[5] = S(T(0));
     xdot[6] = S(T(0));
     xdot[7] = Guidance::cross_track_rate(xned_dot, yned_dot, x[8]);

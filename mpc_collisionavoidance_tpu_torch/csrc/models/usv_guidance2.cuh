@@ -28,13 +28,14 @@ struct UsvGuidance2 {
     using T = scalar_t<S>;
     const S& psi = x[2];
     const S& r = x[7];
-    S xned_dot, yned_dot;
-    Guidance::ned_rates(x[5], x[6], psi, xned_dot, yned_dot);
+    S sp, cp, xned_dot, yned_dot;
+    m_sincos(psi, sp, cp);
+    Guidance::ned_rates(x[5], x[6], sp, cp, xned_dot, yned_dot);
     xdot[0] = xned_dot;
     xdot[1] = yned_dot;
     xdot[2] = r;
-    xdot[3] = m_cos(psi) * r;
-    xdot[4] = -m_sin(psi) * r;
+    xdot[3] = cp * r;
+    xdot[4] = -sp * r;
     xdot[5] = S(T(0));
     xdot[6] = S(T(0));
     xdot[7] = (x[11] - r) / T(0.4);  // T1 = 0.4

@@ -36,8 +36,10 @@ struct UsvGuidance3 {
     xdot[0] = xned_dot;
     xdot[1] = yned_dot;
     xdot[2] = r;
-    xdot[3] = m_cos(chi) * r;
-    xdot[4] = -m_sin(chi) * r;
+    S sc, cc;
+    m_sincos(chi, sc, cc);
+    xdot[3] = cc * r;
+    xdot[4] = -sc * r;
     xdot[5] = S(T(0));
     xdot[6] = S(T(0));
     xdot[7] = (x[10] - r) / T(1.0);  // T1 = 1.0

@@ -30,7 +30,9 @@ struct UsvGuidance4 {
     const S psie = x[3] - Guidance::crab(x[0], x[1]);
     xdot[0] = S(T(0));
     xdot[1] = S(T(0));
-    xdot[2] = x[0] * m_sin(psie) + x[1] * m_cos(psie);
+    S se, ce;
+    m_sincos(psie, se, ce);
+    xdot[2] = x[0] * se + x[1] * ce;
     xdot[3] = (uc[0] - psie) / T(0.2);  // T1 = 0.2
   }
 };

@@ -30,7 +30,9 @@ struct UsvGuidance5 {
     const S psie = x[3] - Guidance::crab(x[0], x[1]);
     xdot[0] = S(T(0));
     xdot[1] = S(T(0));
-    xdot[2] = x[0] * m_sin(psie) + x[1] * m_cos(psie);
+    S se, ce;
+    m_sincos(psie, se, ce);
+    xdot[2] = x[0] * se + x[1] * ce;
     xdot[3] = (x[4] - psie) / T(1.0);  // T1 = 1.0
     xdot[4] = uc[0];
   }

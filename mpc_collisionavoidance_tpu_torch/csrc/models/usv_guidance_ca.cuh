@@ -36,7 +36,9 @@ struct UsvGuidanceCa {
     const S psie_rate = (x[4] - psie) / T(1.0);  // T1 = 1.0
     xdot[0] = S(T(0));
     xdot[1] = S(T(0));
-    xdot[2] = x[0] * m_sin(psie) + x[1] * m_cos(psie);
+    S se, ce;
+    m_sincos(psie, se, ce);
+    xdot[2] = x[0] * se + x[1] * ce;
     xdot[3] = psie_rate;
     xdot[4] = x[8];
     Guidance::ned_rates(x[0], x[1], x[7], xdot[5], xdot[6]);

@@ -33,8 +33,10 @@ struct UsvLowLevel {
     Hydro::thrust_map(x[6], x[7], C_THRUST, tu, tr);
     Hydro::uvr_dot(x[3], x[4], r, tu, tr, xdot[3], xdot[4], xdot[5]);
     xdot[0] = r;
-    xdot[1] = m_cos(psi) * r;
-    xdot[2] = -m_sin(psi) * r;
+    S sp, cp;
+    m_sincos(psi, sp, cp);
+    xdot[1] = cp * r;
+    xdot[2] = -sp * r;
     xdot[6] = uc[0];
     xdot[7] = uc[1] / T(C_THRUST);
   }

@@ -42,16 +42,19 @@ struct PfDynamics {
     Hydro::uvr_dot(u, v, r, tu, tr, u_dot, v_dot, r_dot);
     const S beta = m_atan2(v, u + T(0.001));
     const S chi = psi + beta;
-    const S sp = m_sin(psi), cp = m_cos(psi);
+    S sp, cp, sc, cc, sa, ca;
+    m_sincos(psi, sp, cp);
+    m_sincos(chi, sc, cc);
+    m_sincos(ak, sa, ca);
     const S xned_dot = u * cp - v * sp;
     const S yned_dot = u * sp + v * cp;
     xdot[0] = r;
-    xdot[1] = m_cos(chi) * r;
-    xdot[2] = -m_sin(chi) * r;
+    xdot[1] = cc * r;
+    xdot[2] = -sc * r;
     xdot[3] = u_dot;
     xdot[4] = v_dot;
     xdot[5] = r_dot;
-    xdot[6] = -xned_dot * m_sin(ak) + yned_dot * m_cos(ak);
+    xdot[6] = -xned_dot * sa + yned_dot * ca;
     xdot[7] = S(T(0));
     xdot[8] = S(T(0));
     xdot[9] = S(T(0));

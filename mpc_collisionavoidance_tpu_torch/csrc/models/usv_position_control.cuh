@@ -34,7 +34,8 @@ struct UsvPositionControl {
     S tu, tr;
     Hydro::thrust_map(x[6], x[7], C_THRUST, tu, tr);
     Hydro::uvr_dot(u, v, x[5], tu, tr, xdot[3], xdot[4], xdot[5]);
-    const S sp = m_sin(psi), cp = m_cos(psi);
+    S sp, cp;
+    m_sincos(psi, sp, cp);
     xdot[0] = u * cp - v * sp;
     xdot[1] = u * sp + v * cp;
     xdot[2] = x[5];

@@ -93,6 +93,9 @@ def linearize_lanes_cuda(xs, ubar, params, *, model, dt, integrator_steps=1):
         entry = getattr(lib, "nmpc_linearize_" + model.name)
     code = entry(int(xs.dtype == torch.float64), N, L, dt / integrator_steps,
                  integrator_steps, *ptrs, stream)
+    if code == -3:
+        raise ValueError(f"linearize kernel: the curvature table of "
+                         f"{model.name} does not fit a block's shared memory")
     _build.check(code, f"linearize_lanes[{model.name}]")
     launches += 1
     return xn, J, hbar, C

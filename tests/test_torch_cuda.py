@@ -410,7 +410,7 @@ def test_fused_ipm_kernel_matches_plain_at_more_widths(card, name, L,
 
 def test_k1_and_k3_instances_do_not_spill(card):
     """ptxas' report in the build's nvcc.log: 0 bytes spill stores and
-    loads for every K1 and K3 instance (chip_smoke.NO_SPILL)."""
+    loads for every K1, K2 and K3 instance (chip_smoke.NO_SPILL)."""
     import chip_smoke
     chip_smoke.check_spills((_build.build().parent / "nvcc.log").read_text())
 

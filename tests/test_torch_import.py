@@ -39,7 +39,8 @@ _FORBIDDEN = re.compile(
 
 @pytest.mark.parametrize("path", sorted(
     str(p.relative_to(REPO)) for p in
-    list(PKG.rglob("*.py")) + [REPO / "chip_smoke.py"]))
+    list(PKG.rglob("*.py")) + [REPO / "chip_smoke.py"]
+    + sorted((REPO / "tools").glob("*.py"))))
 def test_no_jax_import_in_source(path):
     text = (REPO / path).read_text()
     assert not _FORBIDDEN.search(text), path

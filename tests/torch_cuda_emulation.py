@@ -111,10 +111,11 @@ def _compile(cmd):
     return subprocess.run(cmd, capture_output=True, text=True, timeout=600)
 
 
-def build(out, headers, units, entries):
+def build(out, headers, units, entries, defines=()):
     """Rewrite `headers` and the translation units `units` (file names in
     csrc/) into the directory `out`, compile each unit with its own g++
-    (in parallel) and link them into one library; returns it as a CDLL
+    (in parallel, with the macro definitions `defines`, e.g.
+    "NAME=VALUE") and link them into one library; returns it as a CDLL
     with the argument types of `entries` (names in `_build._ENTRIES`).
     Skips the calling test if g++ is missing."""
     gxx = shutil.which("g++")
@@ -131,9 +132,9 @@ def build(out, headers, units, entries):
         cpp.write_text(rewrite((_build.CSRC / name).read_text()))
         objs.append(out / (name[:-3] + ".o"))
         cmds.append([gxx, "-std=c++20", "-O1", "-fPIC", "-pthread",
-                     "-pedantic-errors", "-Wno-unknown-pragmas", "-I",
-                     str(out), "-c", "-o",
-                     str(objs[-1]), str(cpp)])
+                     "-pedantic-errors", "-Wno-unknown-pragmas",
+                     *(f"-D{d}" for d in defines), "-I", str(out), "-c",
+                     "-o", str(objs[-1]), str(cpp)])
     with concurrent.futures.ThreadPoolExecutor(len(cmds)) as pool:
         for proc in pool.map(_compile, cmds):
             assert proc.returncode == 0, proc.stderr[-4000:]
