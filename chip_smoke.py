@@ -3,7 +3,9 @@
     python3 chip_smoke.py
 
 Drives the port's main paths (`mpc_collisionavoidance_tpu_torch`) through
-their hand-written CUDA kernels and exits non-zero if anything fails:
+their hand-written CUDA kernels, each tick (and preparation, feedback) as
+one captured CUDA graph (`solver/capture.py`), and exits non-zero if
+anything fails:
 the production RTI tick of the flagship OCP `usv_guidance_ca1` (nx=8,
 nu=1, N=100, 8 soft obstacle rows), of the 14-state hull `usv_pf_ca`
 (nx=14, nu=2, N=100, 5 state-box rows, 4 hard obstacle rows) and of the
@@ -20,7 +22,9 @@ softened state box), and the fused tick (`riccati="fused"`) of all
 thirteen models.  Phases:
 
 1. environment: torch, device, `nvidia-smi` name and power limit, nvcc,
-   and the kernels' build (nvcc at first use, into build/torch_kernels/);
+   the CUDA runtime and driver versions (conditional graph nodes, which
+   the captured ticks' escalation needs, want 12.4 or later of both), and
+   the kernels' build (nvcc at first use, into build/torch_kernels/);
    ptxas must report 0 bytes spill stores and loads for the twenty-two
    K1, the twenty-eight K2 and the twenty-six K3 instances (`NO_SPILL`);
 2. K1 (Riccati sweep) vs its plain PyTorch version on the card: random
@@ -133,10 +137,25 @@ thirteen models.  Phases:
     the server builds it (lh per request, K2 = 1, K1 >= 4 per tick).
     Phases 12-14 time B=1 over 20 ticks (phase 7 and the flagship's over
     50).
+15. captured ticks: for every run of phases 5, 9 and 12-14, the captured
+    production and fused ticks against the eager ones (`capture=False`)
+    from the same inputs at B=512, float32 and float64: u0, x1, gap and
+    status bitwise equal and the same escalation iteration count, on the
+    capturing call and on a replay from the same state that runs under
+    `torch.cuda.set_sync_debug_mode("error")` and launches one graph; in
+    float32 also the RTI split (prepare_fn + feedback_fn, one graph
+    launch each, under the same mode) against the eager split; each
+    graph's nodes, conditional (escalation) nodes, capture and
+    instantiation times and pool memory printed.
 
 Each main path is driven with every launch count set to 0 just before and
-read just after.  The race car's runs are named by the K2 form they take:
-`race_cars` on the straight track, `race_cars_track` and
+read just after, on ticks that replay their captured graphs (a tick that
+captures runs an eager warm-up first, so the counted tick is not the
+first): a replay adds the launches its wrappers counted at capture, and
+the escalation steps' launches times the steps that ran on the device,
+read after the tick (`capture.settle_launch_counts`).  The race car's
+runs are named by the K2 form they take: `race_cars` on the straight
+track, `race_cars_track` and
 `race_cars_dev_track` on the curved one (`RACE`).  Times come from CUDA events (the server's from the
 client's clock); the plain versions' times are those of their checked
 calls at L=512 float32 (K2, K3: one call each) or the median of 5 (K1).
@@ -264,7 +283,7 @@ def _sync():
 def _reset_counts():
     from mpc_collisionavoidance_tpu_torch.kernels import (ipm, linearize,
                                                           riccati)
-    _sync()
+    _launch_counts()
     riccati.launches = linearize.launches = ipm.launches = 0
 
 
@@ -274,10 +293,13 @@ def _read_counts():
 
 
 def _launch_counts():
-    """The launch counters as they stand (host-side: a wrapper counts when
-    it launches, so no sync is needed)."""
+    """The launch counters, with the escalation steps that captured ticks
+    ran added (`settle_launch_counts` reads them from the device, which
+    waits for the ticks)."""
     from mpc_collisionavoidance_tpu_torch.kernels import (ipm, linearize,
                                                           riccati)
+    from mpc_collisionavoidance_tpu_torch.solver import capture
+    capture.settle_launch_counts()
     return {"riccati_lanes": riccati.launches,
             "linearize_lanes": linearize.launches,
             "fused_ipm_lanes": ipm.launches}
@@ -304,6 +326,15 @@ def environment():
     lib = _build.build()
     _build.library()
     print(f"kernels built in {time.perf_counter() - t0:.1f} s: {lib}")
+    from mpc_collisionavoidance_tpu_torch.solver import capture
+    runtime, driver = capture.cuda_versions()
+    print(f"CUDA runtime of the kernel library {runtime}, driver {driver}, "
+          f"torch's CUDA {torch.version.cuda}; torch's CUDAGraph binds "
+          f"conditional nodes: "
+          f"{hasattr(torch.cuda.CUDAGraph, 'begin_capture_to_if_node')}")
+    if min(runtime, driver) < 12040:
+        raise AssertionError("conditional graph nodes need CUDA 12.4 or "
+                             "later of the runtime and the driver")
     # registers and spills of every kernel instance (ptxas -v)
     log = (lib.parent / "nvcc.log").read_text()
     regs = register_report(log)
@@ -776,7 +807,7 @@ def _spec(name):
         {"track": track.make_synthetic_track()} if curved else {}))
 
 
-def _setup(name, Bn, dtype, device, config, seed=SEED):
+def _setup(name, Bn, dtype, device, config, seed=SEED, capture=True):
     """Solver, warm start, lane inputs and references of the bench's
     workload (bench.py:107-127): the OCP's default scenario with one
     coordinate perturbed by 0.1 N(0, 1) (ye for the flagship, the hulls;
@@ -785,7 +816,8 @@ def _setup(name, Bn, dtype, device, config, seed=SEED):
     models with no rows and the guidance family's track their scenario's
     where it has them (`refs`, the keyword arguments of step_fn and
     _build_qp); a race run (`RACE`) races its model's scenario on the
-    curved or the straight track."""
+    curved or the straight track.  `capture=False`: the solver's ticks run
+    op by op (phase 15's eager side)."""
     import torch
 
     from mpc_collisionavoidance_tpu_torch.sim import scenarios
@@ -794,7 +826,7 @@ def _setup(name, Bn, dtype, device, config, seed=SEED):
     factory, coord = scenarios.DEFAULTS[RACE.get(name, (name,))[0]]
     sc = factory()
     m = spec.model
-    solver = config.build(spec, device=device, dtype=dtype)
+    solver = config.build(spec, device=device, dtype=dtype, capture=capture)
     rng = np.random.default_rng(seed)
     x0s = np.broadcast_to(sc.x0, (Bn, m.nx)).copy()
     x0s[:, coord] += 0.1 * rng.standard_normal(Bn)
@@ -1021,12 +1053,15 @@ def card_vs_cpu_tick(name, Bn, config=None):
 
 def main_path_tick(name, config, expect):
     """One float32 tick at B=512 with every launch count set to 0 just
-    before and read just after; `expect(counts)` gates the counts."""
+    before and read just after; `expect(counts)` gates the counts.  The
+    tick before it captures the graph that the counted tick replays."""
     import torch
     solver, st, x, p, lh, refs = _setup(name, B, torch.float32, DEVICE,
                                         config)
+    st0 = type(st)(*(t.clone() for t in st))
+    solver.step_fn(st, x, p, lh, **refs)             # captures
     _reset_counts()
-    st, out = solver.step_fn(st, x, p, lh, **refs)   # the main path
+    st, out = solver.step_fn(st0, x, p, lh, **refs)  # the main path
     counts = _read_counts()
     _check_output(out, B, f"{name} float32 card tick", *_dims(name))
     print(f"{name} {solver.riccati} tick B={B} float32: launches {counts}, "
@@ -1633,6 +1668,105 @@ def race_family(card):
     return counts
 
 
+# ---- phase 15: captured ticks against eager ones ----
+
+def _bits(t):
+    """The tensor's bits, for a bitwise comparison that NaN passes."""
+    import torch
+    as_int = {torch.float32: torch.int32, torch.float64: torch.int64}
+    return t.contiguous().view(as_int.get(t.dtype, t.dtype))
+
+
+def _bitwise(what, got, want):
+    import torch
+    for field in ("u0", "x1", "gap", "status"):
+        g, w = getattr(got, field), getattr(want, field)
+        if g.shape != w.shape or not torch.equal(_bits(g), _bits(w)):
+            err = float((g.double() - w.double()).abs().nan_to_num().max())
+            raise AssertionError(f"{what}: captured {field} differs from "
+                                 f"the eager tick's (max |err| {err:.3e})")
+
+
+def _replay(solver, call):
+    """`call()` under torch.cuda.set_sync_debug_mode("error") (a sync in
+    it raises); returns (its result, the graph launches it made)."""
+    import torch
+
+    from mpc_collisionavoidance_tpu_torch.solver import capture
+    _sync()
+    n0 = capture.launches
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        out = call()
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    return out, capture.launches - n0
+
+
+def captured_vs_eager(name, label, config, dtype):
+    """Phase 15 for one run, backend and dtype at B=512: the captured tick
+    (its capturing call, then a replay from the same state with no sync
+    and one graph launch) bitwise equal to the eager tick from the same
+    inputs, with the same escalation count; in float32 the RTI split too.
+    Returns the program's capture figures."""
+    import torch
+    eager, st, x, p, lh, refs = _setup(name, B, dtype, DEVICE, config,
+                                       capture=False)
+    solver = _setup(name, B, dtype, DEVICE, config)[0]
+    what = f"{name} {label} {str(dtype)[6:]}"
+    _, want = eager.step_fn(st, x, p, lh, **refs)
+    k_eager = int(eager.last_esc_iters)
+    _, got = solver.step_fn(st, x, p, lh, **refs)      # captures
+    _bitwise(what + " capturing call", got, want)
+    k = int(solver.last_esc_iters)
+    (_, got), graphs = _replay(
+        solver, lambda: solver.step_fn(st, x, p, lh, **refs))
+    _bitwise(what + " replay", got, want)
+    k_replay = int(solver.last_esc_iters)
+    if not k == k_replay == k_eager or graphs != 1:
+        raise AssertionError(f"{what}: escalation {k}, {k_replay} (eager "
+                             f"{k_eager}), {graphs} graph launches")
+    (program,) = solver._graphs.programs.values()
+    split = ""
+    if dtype == torch.float32:
+        qp = eager.prepare_fn(st, p, lh, **refs)
+        _, want = eager.feedback_fn(st, qp, x)
+        qp = solver.prepare_fn(st, p, lh, **refs)      # captures
+        solver.feedback_fn(st, qp, x)                  # captures
+        qp, n_prep = _replay(solver, lambda: solver.prepare_fn(
+            st, p, lh, **refs))
+        (_, got), n_feed = _replay(solver, lambda: solver.feedback_fn(
+            st, qp, x))
+        _bitwise(what + " feedback replay", got, want)
+        if (n_prep, n_feed) != (1, 1):
+            raise AssertionError(f"{what}: {n_prep} preparation, {n_feed} "
+                                 "feedback graph launches")
+        split = ", RTI split bitwise (1 + 1 graph launches)"
+    print(f"{what}: captured == eager bitwise, escalation {k} = {k_eager}, "
+          f"replay with no sync: 1 graph launch{split}; graph "
+          f"{program.nodes} nodes ({program.conditional} conditional), "
+          f"warm-up {program.warmup_s:.3f} s, capture "
+          f"{program.capture_s:.3f} s, instantiate "
+          f"{program.instantiate_s:.3f} s, pool "
+          f"{program.pool_bytes / 2**20:.1f} MiB")
+    return dict(run=name, backend=label, dtype=str(dtype)[6:],
+                esc_iters=k, nodes=program.nodes,
+                conditional=program.conditional,
+                capture_s=program.capture_s,
+                instantiate_s=program.instantiate_s,
+                pool_mib=program.pool_bytes / 2**20)
+
+
+def captured_ticks():
+    """Phase 15: `captured_vs_eager` for every run of phases 5, 9 and
+    12-14, both backends, float32 and float64."""
+    import torch
+    for name in (FLAGSHIP, HULL, *FAMILY, *GUIDANCE, *RACE):
+        for label, config in (("sweep", _production()), ("fused", _fused())):
+            for dtype in (torch.float32, torch.float64):
+                captured_vs_eager(name, label, config, dtype)
+
+
 def _production_counts(c):
     return (c["riccati_lanes"] >= 4 and c["linearize_lanes"] == 1
             and c["fused_ipm_lanes"] == 0)
@@ -1698,6 +1832,8 @@ def main():
     # the race car
     counts.update(race_family(card))
     phase_done("phase 14 (the race car)")
+    captured_ticks()
+    phase_done("phase 15 (captured ticks)")
 
     def launched(kernel, models):
         return sum(c[kernel] for (m, _), c in counts.items() if m in models)

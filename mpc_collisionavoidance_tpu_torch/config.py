@@ -35,10 +35,11 @@ class SolverConfig:
         check_schedule(self.riccati, self.centering, self.mu0,
                        self.extra_iters)
 
-    def build(self, spec, *, device, dtype):
-        """Instantiate the lane engine for an OCPSpec on `device`/`dtype`."""
+    def build(self, spec, *, device, dtype, capture=True):
+        """Instantiate the lane engine for an OCPSpec on `device`/`dtype`
+        (`capture`: `LaneRTISolver`'s)."""
         return LaneRTISolver(spec, **dataclasses.asdict(self),
-                             device=device, dtype=dtype)
+                             device=device, dtype=dtype, capture=capture)
 
 
 def production_engine() -> SolverConfig:

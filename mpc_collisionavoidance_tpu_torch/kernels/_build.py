@@ -73,8 +73,22 @@ _ENTRIES = {
                              + [ctypes.POINTER(_PTR), _PTR]),
     # (nx, nu, nbu, nbx, nHh, nS, N) -> scratch slots per lane, or -1
     "nmpc_fused_ipm_scratch": [_INT] * 7,
+    # csrc/graph.cu, the captured tick's joined graph (solver/capture.py):
+    # (runtime out, driver out)
+    "nmpc_cuda_versions": [ctypes.POINTER(_INT)] * 2,
+    # (cudaError_t) -> its message
+    "nmpc_cuda_error_string": [_INT],
+    # (n, segments, conditional flags, pred, exec out, nodes out)
+    "nmpc_graph_compose": [_INT, ctypes.POINTER(_PTR), ctypes.POINTER(_INT),
+                           _PTR, ctypes.POINTER(_PTR),
+                           ctypes.POINTER(ctypes.c_longlong)],
+    # (exec, stream)
+    "nmpc_graph_launch": [_PTR, _PTR],
+    # (exec)
+    "nmpc_graph_destroy": [_PTR],
 }
-_RESTYPES = {"nmpc_fused_ipm_scratch": ctypes.c_longlong}
+_RESTYPES = {"nmpc_fused_ipm_scratch": ctypes.c_longlong,
+             "nmpc_cuda_error_string": ctypes.c_char_p}
 _LOCK = threading.RLock()
 
 

@@ -10,11 +10,11 @@ families are carried: control box (lo/hi), state box (lo/hi), hard h rows
 (lo/hi), soft rows (sl/su) and the slack bounds (bsl/bsu).
 
 Two backends, picked by `riccati`:
-- "sweep" (default): the iterations run as eager tensor code here, with
+- "sweep" (default): the iterations run as tensor code here, with
   one Riccati sweep per iteration through `ops.riccati_lanes.
   lqr_solve_lanes` (the CUDA kernel K1 for CUDA tensors, the plain sweep
-  for CPU tensors).  Fixed, adaptive and Mehrotra centering, `mu0="auto"`
-  and stall escalation.
+  for CPU tensors).  Fixed, adaptive and Mehrotra centering, `mu0="auto"`,
+  stall escalation and the gap trace.
 - "fused": the whole fixed-sigma solve in one launch of the CUDA kernel K3
   (`kernels/ipm.py`) for CUDA tensors; for CPU tensors its plain version
   `fused_ipm_lanes_plain`, which is this module's eager iteration at the
@@ -22,16 +22,21 @@ Two backends, picked by `riccati`:
   escalation, no control-coupled rows (as the JAX package's fused kernel).
 
 Ported: the dtype-aware gap floor / status tolerance, the freeze rule and
-the status rules.  Not ported yet (raise `NotImplementedError`):
-control-coupled rows `Dh`/`Ds` from partial condensing, and
-`return_gap_trace`.
+the status rules.  Not ported yet (raises `NotImplementedError`):
+control-coupled rows `Dh`/`Ds` from partial condensing.
 
-Stall escalation is a Python loop that tests `(gap > stall).any()` on the
-host before each extra iteration: one device->host sync per escalation
-iteration, which keeps the iteration count identical to the reference's
-`lax.while_loop`.
+Stall escalation (the reference's `lax.while_loop`) is `extra_iters`
+guarded steps.  Each computes on the device the loop's predicate (some
+lane's finite gap above `stall`) and runs the body only if it holds; once
+it fails the carry no longer changes, so every later predicate fails too,
+and the carry and the count equal the reference's.  An `Escalation` guards
+the steps: its plain form tests the predicate on the host (one sync per
+step); `solver.capture.SegmentedCapture` turns each step into a CUDA
+conditional node of a captured tick, with no host read.  Every step writes
+its new carry into the carry's tensors in place, in both forms.
 """
 
+import functools
 from typing import NamedTuple, Optional, Tuple
 
 import torch
@@ -113,6 +118,33 @@ def _gap(lam, t, n_total):
     return sum(_lanes_sum(li * ti) for li, ti in zip(lam, t)) / n_total
 
 
+@functools.cache
+def _index(idx: Tuple[int, ...], device: torch.device) -> torch.Tensor:
+    """`idx` as a long tensor on `device`, copied there once: a captured
+    tick may not copy from the host."""
+    return torch.as_tensor(idx, dtype=torch.long, device=device)
+
+
+class Escalation:
+    """The guard of the stall-escalation steps, and their count.
+
+    `loop(n, stalled, step)` runs up to `n` steps: before each, the device
+    bool `stalled()` decides whether `step()` runs.  This plain form reads
+    the predicate on the host and stops at the first False (the carry then
+    no longer changes, so no later step would run).  `iters` is a device
+    int32 that every step that runs adds one to."""
+
+    def __init__(self, device):
+        self.iters = torch.zeros((), dtype=torch.int32, device=device)
+
+    def loop(self, n, stalled, step):
+        for _ in range(n):
+            if not bool(stalled()):
+                break
+            step()
+            self.iters += 1
+
+
 def check_schedule(riccati: str, centering: str, mu0, extra_iters: int):
     """Raise on an IPM schedule the lane engine cannot run.  The fused
     whole-IPM kernel bakes fixed sigma, a scalar mu0 and a fixed iteration
@@ -180,7 +212,8 @@ def ipm_solve_lanes(qp: LaneQP,
                     centering: str = "fixed",
                     extra_iters: int = 0,
                     stall_tol: Optional[float] = None,
-                    return_gap_trace: bool = False) -> LaneIPMSolution:
+                    return_gap_trace: bool = False,
+                    escalation: Optional[Escalation] = None):
     """`riccati`: "sweep" (eager iterations, one Riccati sweep each) or
     "fused" (the whole fixed-sigma solve in one kernel launch; module
     docstring).  `centering="adaptive"` replaces the fixed sigma with the
@@ -192,10 +225,15 @@ def ipm_solve_lanes(qp: LaneQP,
     not finite falls back to sigma = 0.5).  `extra_iters` > 0
     enables stall escalation: after the `iters` fixed iterations, up to
     `extra_iters` more run while any lane's duality gap is above
-    `stall_tol` (default: the dtype-aware status tolerance)."""
+    `stall_tol` (default: the dtype-aware status tolerance), guarded by
+    `escalation` (a plain `Escalation` if None), whose `iters` counts them.
+
+    Returns a `LaneIPMSolution`; on the sweep backend with
+    `return_gap_trace`, `(solution, gaps)` with `gaps` (iters, L) the duality
+    gap at the start of each fixed iteration (escalation iterations are not
+    recorded).  The fused backend ignores `return_gap_trace`, as the
+    reference's does."""
     check_schedule(riccati, centering, mu0, extra_iters)
-    if return_gap_trace:
-        raise NotImplementedError("return_gap_trace is not ported yet")
     if riccati == "fused":
         if qp.Dh is not None or qp.Ds is not None:
             raise ValueError("the fused whole-IPM kernel does not support "
@@ -213,13 +251,14 @@ def ipm_solve_lanes(qp: LaneQP,
         raise NotImplementedError("control-coupled rows (Dh/Ds, partial "
                                   "condensing) are not ported yet")
     eff_tol = _eff_tol(tol, qp.A.dtype)
-    dx, du, gap, eq_res = _ipm_iterate(
+    dx, du, gap, eq_res, gaps = _ipm_iterate(
         qp, idxbu, idxbx, iters=iters, tau=tau, sigma=sigma, mu0=mu0,
         centering=centering, extra_iters=extra_iters,
         stall=eff_tol if stall_tol is None else stall_tol,
-        sweep=lqr_solve_lanes)
-    return LaneIPMSolution(dx=dx, du=du, gap=gap, eq_res=eq_res,
-                           status=lane_status(dx, du, gap, eq_res, tol))
+        sweep=lqr_solve_lanes, escalation=escalation)
+    sol = LaneIPMSolution(dx=dx, du=du, gap=gap, eq_res=eq_res,
+                          status=lane_status(dx, du, gap, eq_res, tol))
+    return (sol, gaps) if return_gap_trace else sol
 
 
 def fused_ipm_lanes_plain(qp: LaneQP, idxbu: Tuple[int, ...],
@@ -233,13 +272,15 @@ def fused_ipm_lanes_plain(qp: LaneQP, idxbu: Tuple[int, ...],
     eq_res (L,))."""
     return _ipm_iterate(qp, idxbu, idxbx, iters=iters, tau=tau, sigma=sigma,
                         mu0=float(mu0), centering="fixed", extra_iters=0,
-                        stall=None, sweep=lqr_solve_lanes_plain)
+                        stall=None, sweep=lqr_solve_lanes_plain,
+                        escalation=None)[:4]
 
 
 def _ipm_iterate(qp: LaneQP, idxbu, idxbx, *, iters, tau, sigma, mu0,
-                 centering, extra_iters, stall, sweep):
-    """The eager iterations, with `sweep(LaneLQR) -> (dx, du)` as the
-    Newton step's Riccati solve.  Returns (dx, du, gap, eq_res)."""
+                 centering, extra_iters, stall, sweep, escalation):
+    """The iterations, with `sweep(LaneLQR) -> (dx, du)` as the Newton
+    step's Riccati solve and `escalation` guarding the escalation steps.
+    Returns (dx, du, gap, eq_res, gaps (iters, L))."""
     N, nx, nu, L = qp.B.shape[0], qp.A.shape[1], qp.B.shape[2], qp.B.shape[-1]
     nbu, nbx = len(idxbu), len(idxbx)
     nHh = qp.Ch.shape[1]
@@ -249,10 +290,8 @@ def _ipm_iterate(qp: LaneQP, idxbu, idxbx, *, iters, tau, sigma, mu0,
     f64 = dtype == torch.float64
     n_total = max(N * (2 * nbu + 2 * nbx + 2 * nHh + 4 * nS), 1)
     gap_floor = 1e-13 if f64 else 3e-7
-    iu = torch.as_tensor(tuple(int(i) for i in idxbu), dtype=torch.long,
-                         device=device)
-    ix = torch.as_tensor(tuple(int(i) for i in idxbx), dtype=torch.long,
-                         device=device)
+    iu = _index(tuple(int(i) for i in idxbu), device)
+    ix = _index(tuple(int(i) for i in idxbx), device)
 
     def du_sel(du):
         return du[:, iu, :]
@@ -280,12 +319,11 @@ def _ipm_iterate(qp: LaneQP, idxbu, idxbx, *, iters, tau, sigma, mu0,
     s_margin = 0.1
     sl = torch.maximum(qp.slh - gv0, qp.lsh) + s_margin
     su = torch.maximum(gv0 - qp.suh, qp.ush) + s_margin
-    t_min = torch.tensor(0.1, **opts)
-    all_t = tuple(torch.maximum(g, t_min) for g in g0[:6]) + (
-        torch.maximum(gv0 - qp.slh + sl, t_min),
-        torch.maximum(qp.suh - gv0 + su, t_min),
-        torch.maximum(sl - qp.lsh, t_min),
-        torch.maximum(su - qp.ush, t_min))
+    all_t = tuple(torch.clamp_min(g, 0.1) for g in g0[:6]) + (
+        torch.clamp_min(gv0 - qp.slh + sl, 0.1),
+        torch.clamp_min(qp.suh - gv0 + su, 0.1),
+        torch.clamp_min(sl - qp.lsh, 0.1),
+        torch.clamp_min(su - qp.ush, 0.1))
     if isinstance(mu0, str):
         # "auto": per-lane gradient-proportional initial barrier weight,
         # clipped to [1e-3, 1e6]
@@ -482,25 +520,35 @@ def _ipm_iterate(qp: LaneQP, idxbu, idxbx, *, iters, tau, sigma, mu0,
             new_sigma = torch.clamp(one_m * one_m * one_m, 1e-3, 0.5)
         else:
             new_sigma = sigma_l
-        return new_primal, new_t, new_l, new_sigma
+        return (new_primal, new_t, new_l, new_sigma), gap
 
     # fixed centering keeps the historical constant; adaptive starts
     # cautious (0.5) and lets the first step's alpha take over
     sigma0 = torch.full((L,), sigma if centering == "fixed" else 0.5, **opts)
     carry = ((dx, du, sl, su), all_t, all_l, sigma0)
+    gaps = []
     for _ in range(iters):
-        carry = body(carry)
+        carry, g = body(carry)
+        gaps.append(g)
+    gaps = torch.stack(gaps) if gaps else torch.zeros((0, L), **opts)
 
     if extra_iters:
         # stall escalation: the same body, run only while some lane is
         # still above the gate (bounded by extra_iters); non-finite lanes
-        # are dead (status 2) and never escalate.  One host sync per test.
-        for _ in range(extra_iters):
+        # are dead (status 2) and never escalate
+        leaves = _leaves(carry)
+
+        def stalled():
             g = _gap(carry[2], carry[1], n_total)
             g = torch.where(torch.isfinite(g), g, torch.zeros_like(g))
-            if not bool((g > stall).any()):
-                break
-            carry = body(carry)
+            return (g > stall).any()
+
+        def step():
+            for dst, src in zip(leaves, _leaves(body(carry)[0])):
+                if src is not dst:
+                    dst.copy_(src)
+
+        (escalation or Escalation(device)).loop(extra_iters, stalled, step)
 
     (dx, du, sl, su), t, lam, _ = carry
     gap = _gap(lam, t, n_total)
@@ -508,4 +556,10 @@ def _ipm_iterate(qp: LaneQP, idxbu, idxbx, *, iters, tau, sigma, mu0,
     eq_res = cbar.abs().reshape(-1, L).amax(0)
     eq_res = torch.maximum(eq_res, (qp.dx0 - dx[0]).abs().amax(0))
 
-    return dx, du, gap, eq_res
+    return dx, du, gap, eq_res, gaps
+
+
+def _leaves(carry):
+    """The carry's tensors in a fixed order."""
+    (dx, du, sl, su), t, lam, sigma = carry
+    return (dx, du, sl, su, *t, *lam, sigma)

@@ -22,10 +22,13 @@ dims, optional stage-constant yref), byte-identical to the JAX package's
 
 The device picks the kernels: on a CUDA device every tick runs the
 hand-written kernels (the linearization kernel, then the Riccati kernel
-per IPM iteration, or the fused whole-IPM kernel with `riccati="fused"`);
-on the CPU their plain PyTorch versions.  A CUDA device that is not there
-is an error, never a fallback.  Not ported yet: the per-instance "vmap"
-engine (it needs `RTISolver`, ROADMAP A7).
+per IPM iteration, or the fused whole-IPM kernel with `riccati="fused"`)
+as one captured CUDA graph per tick, preparation and feedback
+(`solver/capture.py`; `warmup()` captures them, as the JAX server's
+compiles its jitted ticks); on the CPU their plain PyTorch versions, op by
+op.  A CUDA device that is not there is an error, never a fallback.  Not
+ported yet: the per-instance "vmap" engine (it needs `RTISolver`, ROADMAP
+A7).
 
 Run:  python -m mpc_collisionavoidance_tpu_torch.rt.server /tmp/nmpc.sock
   or: python -m mpc_collisionavoidance_tpu_torch.rt.server 0.0.0.0:8490
@@ -160,12 +163,34 @@ class RTServer:
         # rti_split: ONE fleet-wide prepared LaneQP for the next tick,
         # dropped by a lane seed (it belongs to the pre-seed warm start)
         self._lane_qp = None
+        # on a CUDA device the host rows go up through one pinned staging
+        # buffer into one device buffer, sized for the widest upload (the
+        # packed tick rows); `_staged` marks when the last upload has left
+        # the staging buffer
+        self._staging = self._rows_dev = self._staged = None
+        if self.device.type == "cuda":
+            n = L * (self.nx + self.np_ + self.nh + self.ny)
+            self._staging = torch.empty(n, dtype=torch.float32,
+                                        pin_memory=True)
+            self._rows_dev = torch.empty(n, dtype=torch.float32,
+                                         device=self.device)
+            self._staged = torch.cuda.Event()
 
     # ------------------------------------------------------------------
     # device side: run on the solve thread only
     def _upload(self, rows):
-        """Host float32 rows -> the device, one copy."""
-        return torch.from_numpy(rows).to(self.device)
+        """Host float32 rows -> the device, one copy (through the pinned
+        staging buffer on a CUDA device)."""
+        if self._staging is None:
+            return torch.from_numpy(rows).to(self.device)
+        n = rows.size
+        self._staged.synchronize()
+        host = self._staging[:n].view(rows.shape)
+        host.numpy()[...] = rows
+        dev = self._rows_dev[:n].view(rows.shape)
+        dev.copy_(host, non_blocking=True)
+        self._staged.record()
+        return dev
 
     def _fetch(self, outs):
         """u0, x1 and status as ONE (nu + nx + 1, L) host array (one
@@ -224,9 +249,9 @@ class RTServer:
     def warmup(self):
         """Run one throwaway tick (and a preparation + feedback under
         rti_split) on the solve thread, then restore the parked lanes.  The
-        first kernel use builds the CUDA kernels (nvcc) and the solve
-        thread's first launches pay one-time costs: both land here, not in
-        a vehicle's first tick."""
+        first kernel use builds the CUDA kernels (nvcc), and on a CUDA
+        device the first tick, preparation and feedback capture their
+        graphs: all of it lands here, not in a vehicle's first tick."""
         def _warm():
             with self._lane_lock:
                 self._seed(0, self._x0_rows[0])
@@ -236,7 +261,10 @@ class RTServer:
             if self.rti_split:
                 self._prepare(packed_pl)
                 self._feedback(packed[:, :self.nx].copy())
-            self._lane_state = self.lane_solver.init_state(self._x0_rows)
+            # back to the parked warm start, in the captured ticks' state
+            init = self.lane_solver.init_state(self._x0_rows)
+            for dst, src in zip(self._lane_state, init):
+                dst.copy_(src)
             self._lane_qp = None
 
         self._executor.submit(_warm).result()

@@ -15,6 +15,15 @@ once, then either the Riccati kernel once per IPM iteration
 (`riccati="sweep"`, the default) or the fused whole-IPM kernel once
 (`riccati="fused"`); on CPU tensors it runs their plain PyTorch versions.
 
+On a CUDA device `step_fn`, `prepare_fn` and `feedback_fn` each run as one
+captured CUDA graph (`solver/capture.py`, the counterpart of the JAX
+package's jitted tick): captured at first use per batch width and
+argument shapes, then launched once per call, with the stall escalation
+decided on the device.  The state they return is the solver's own (the
+new state is written into it, as a donated argument) and, like the
+outputs, holds until the next tick.  `capture=False` runs them op by op
+instead, for comparisons and profiling.
+
 Not ported yet: partial condensing (`condense`), the pscan backend and
 `LaneSolverAdapter`.
 """
@@ -26,9 +35,10 @@ import torch
 
 from mpc_collisionavoidance_tpu_torch.ocp.spec import OCPSpec
 from mpc_collisionavoidance_tpu_torch.ops.ipm_lanes import (
-    LaneQP, check_schedule, ipm_solve_lanes)
+    Escalation, LaneQP, check_schedule, ipm_solve_lanes)
 from mpc_collisionavoidance_tpu_torch.ops.linearize_lanes import (
     linearize_lanes)
+from mpc_collisionavoidance_tpu_torch.solver.capture import TickGraphs
 
 
 class LaneState(NamedTuple):
@@ -58,7 +68,7 @@ class LaneRTISolver:
                  ipm_tol: float = 1e-7, riccati: str = "sweep",
                  centering: str = "fixed", mu0=1.0, extra_iters: int = 0,
                  stall_tol: Optional[float] = None, *,
-                 device, dtype):
+                 device, dtype, capture: bool = True):
         """`riccati`: "sweep" (eager IPM, one Riccati sweep per iteration —
         the production path) or "fused" (the whole fixed-sigma IPM in one
         kernel launch, K3; fixed centering, float mu0, no escalation).
@@ -68,7 +78,11 @@ class LaneRTISolver:
         backend only).  `mu0`: float or "auto" (per-lane gradient-scaled).
         `extra_iters` / `stall_tol`: stall escalation (ops/ipm_lanes.py).
         `device`, `dtype`: where and in what precision the solver runs; the
-        static cost blocks are moved there once, here."""
+        static cost blocks are moved there once, here.  `capture`: on a
+        CUDA device, run each tick as a captured graph (the main path);
+        False runs it op by op (ignored on the CPU, which has no graphs).
+        `last_esc_iters`: the escalation iterations of the last tick, a
+        device int32."""
         check_schedule(riccati, centering, mu0, extra_iters)
         self.spec = spec
         self.ipm_iters = int(ipm_iters)
@@ -166,6 +180,14 @@ class LaneRTISolver:
                                    device=self.device)
         self._sbi = torch.as_tensor(self.sbx_state_idx, dtype=torch.long,
                                     device=self.device)
+        self._iu = torch.as_tensor(self.idxbu, dtype=torch.long,
+                                   device=self.device)
+        self._ix = torch.as_tensor(self.idxbx, dtype=torch.long,
+                                   device=self.device)
+        self.last_esc_iters = torch.zeros((), dtype=torch.int32,
+                                          device=self.device)
+        self._graphs = (TickGraphs(self) if capture
+                        and self.device.type == "cuda" else None)
 
     # ------------------------------------------------------------------
     def _tensor(self, a):
@@ -225,7 +247,7 @@ class LaneRTISolver:
 
         # ---- control box residuals ----
         if self.idxbu:
-            usel = ubar[list(self.idxbu)].transpose(0, 1)  # (N, nbu, L)
+            usel = ubar[self._iu].transpose(0, 1)          # (N, nbu, L)
             ub_lo = self.lbu[None, :, None] - usel
             ub_hi = usel - self.ubu[None, :, None]
         else:
@@ -233,7 +255,7 @@ class LaneRTISolver:
 
         # ---- state box residuals (stage 0 masked) ----
         if self.idxbx:
-            xsel = xs[list(self.idxbx)].transpose(0, 1)    # (N, nbx, L)
+            xsel = xs[self._ix].transpose(0, 1)            # (N, nbx, L)
             inner = self.xmask > 0
             xb_lo = torch.where(inner, self.lbx[None, :, None] - xsel, -1.0)
             xb_hi = torch.where(inner, xsel - self.ubx[None, :, None], -1.0)
@@ -288,13 +310,17 @@ class LaneRTISolver:
         )
 
     # ------------------------------------------------------------------
-    def _solve_qp(self, qp: LaneQP):
-        return ipm_solve_lanes(qp, self.idxbu, self.idxbx,
-                               iters=self.ipm_iters, tol=self.ipm_tol,
-                               riccati=self.riccati,
-                               centering=self.centering, mu0=self.mu0,
-                               extra_iters=self.extra_iters,
-                               stall_tol=self.stall_tol)
+    def _solve_qp(self, qp: LaneQP, escalation):
+        escalation = escalation or Escalation(self.device)
+        sol = ipm_solve_lanes(qp, self.idxbu, self.idxbx,
+                              iters=self.ipm_iters, tol=self.ipm_tol,
+                              riccati=self.riccati,
+                              centering=self.centering, mu0=self.mu0,
+                              extra_iters=self.extra_iters,
+                              stall_tol=self.stall_tol,
+                              escalation=escalation)
+        self.last_esc_iters = escalation.iters
+        return sol
 
     def _advance(self, state: LaneState, sol):
         xbar = state.xbar + sol.dx.transpose(0, 1)         # (nx, N+1, L)
@@ -303,6 +329,11 @@ class LaneRTISolver:
         out = LaneOutput(u0=ubar[:, 0, :], x1=xbar[:, 1, :],
                          gap=sol.gap, status=sol.status)
         return new_state, out
+
+    def _captured(self, name, tick, state, args, donate=True):
+        result, program = self._graphs.run(name, tick, state, args, donate)
+        self.last_esc_iters = program.escalation.iters
+        return result
 
     def step_fn(self, state: LaneState, x0, params,
                 lh: Optional[torch.Tensor] = None,
@@ -313,11 +344,17 @@ class LaneRTISolver:
         yref (ny,) or (ny, L), yref_e (nx,) or (nx, L) — None uses the
         builder's static references.
         """
+        args = (x0, params, lh, yref, yref_e)
+        if self._graphs is not None:
+            return self._captured("step", self._step, state, args)
+        return self._step(state, *args)
+
+    def _step(self, state, x0, params, lh, yref, yref_e, escalation=None):
         x0 = self._tensor(x0)
         params = self._tensor(params).contiguous()
         qp = self._build_qp(state, x0, params, lh, yref=yref,
                             yref_e=yref_e)
-        sol = self._solve_qp(qp)
+        sol = self._solve_qp(qp, escalation)
         return self._advance(state, sol)
 
     # ---- RTI preparation/feedback split ----
@@ -333,13 +370,26 @@ class LaneRTISolver:
                    yref=None, yref_e=None) -> LaneQP:
         """Preparation phase: Gauss-Newton linearization + QP assembly at
         the warm-start iterate (dx0 = 0)."""
+        args = (params, lh, yref, yref_e)
+        if self._graphs is not None:
+            return self._captured("prepare", self._prepare, state, args,
+                                  donate=False)
+        return self._prepare(state, *args)[1]
+
+    def _prepare(self, state, params, lh, yref, yref_e, escalation=None):
         params = self._tensor(params).contiguous()
-        return self._build_qp(state, state.xbar[:, 0, :], params, lh,
-                              yref=yref, yref_e=yref_e)
+        return None, self._build_qp(state, state.xbar[:, 0, :], params, lh,
+                                    yref=yref, yref_e=yref_e)
 
     def feedback_fn(self, state: LaneState, qp: LaneQP, x0):
         """Feedback phase: re-pin the prepared QP at the fresh measurement
         x0 (nx, L) and solve.  `qp` comes from `prepare_fn` on the same
         state."""
+        if self._graphs is not None:
+            return self._captured("feedback", self._feedback, state,
+                                  (qp, x0))
+        return self._feedback(state, qp, x0)
+
+    def _feedback(self, state, qp, x0, escalation=None):
         qp = qp._replace(dx0=self._tensor(x0) - state.xbar[:, 0, :])
-        return self._advance(state, self._solve_qp(qp))
+        return self._advance(state, self._solve_qp(qp, escalation))

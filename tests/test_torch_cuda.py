@@ -6,6 +6,8 @@ Run them on the card with
     python -m pytest tests/test_torch_cuda.py -q -rs -m cuda --noconftest
 """
 
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
@@ -23,7 +25,8 @@ from mpc_collisionavoidance_tpu_torch.ops.linearize_lanes import (
 from mpc_collisionavoidance_tpu_torch.ops.riccati_lanes import (
     lqr_solve_lanes_plain)
 from mpc_collisionavoidance_tpu_torch.sim import scenarios
-from mpc_collisionavoidance_tpu_torch.solver.batch import to_lanes
+from mpc_collisionavoidance_tpu_torch.solver import capture
+from mpc_collisionavoidance_tpu_torch.solver.batch import LaneState, to_lanes
 # by its own name (pytest puts tests/ on sys.path): on the card's machine
 # an installed package named `tests` shadows this directory as a package
 from torch_family import (FAMILY, GUIDANCE, guidance_point,  # noqa: E402
@@ -50,6 +53,24 @@ def card():
     except RuntimeError as exc:
         pytest.skip(str(exc))
     return torch.device("cuda")
+
+
+def _counts():
+    """The kernels' launch counters, with the escalation steps of the
+    captured ticks added (read from the device)."""
+    capture.settle_launch_counts()
+    return (riccati.launches, linearize.launches, ipm.launches)
+
+
+def _counted_tick(solver, state, *args, **kw):
+    """(output, launches of K1, K2, K3) of `solver.step_fn(state, ...)`.
+    On the card the call before it captures the graph (with an eager
+    warm-up), so the counted call replays it from the same state."""
+    if solver.device.type == "cuda":
+        solver.step_fn(LaneState(*(t.clone() for t in state)), *args, **kw)
+    before = _counts()
+    _, out = solver.step_fn(state, *args, **kw)
+    return out, tuple(a - b for a, b in zip(_counts(), before))
 
 
 def _random_lqr(N, nx, nu, L, seed, dtype, device):
@@ -151,12 +172,12 @@ def test_tick_on_card_matches_cpu_and_uses_both_kernels(card):
         lanes = [to_lanes(torch.tensor(np.asarray(a))).to(device) for a in
                  (x0s, np.broadcast_to(sc.params, (B, 16)),
                   np.broadcast_to(sc.lh, (B, 8)))]
-        k1, k2 = riccati.launches, linearize.launches
-        _, out = solver.step_fn(solver.init_state(x0s), *lanes)
+        out, (k1, k2, _) = _counted_tick(solver, solver.init_state(x0s),
+                                         *lanes)
         outs[str(device)] = out
         if device == card:
-            assert riccati.launches - k1 >= 4
-            assert linearize.launches - k2 == 1
+            assert k1 >= 4
+            assert k2 == 1
     cpu, gpu = outs["cpu"], outs[str(card)]
     torch.testing.assert_close(gpu.u0.cpu(), cpu.u0, rtol=0, atol=5e-6)
     torch.testing.assert_close(gpu.x1.cpu(), cpu.x1, rtol=0, atol=5e-6)
@@ -245,14 +266,12 @@ def test_family_tick_on_card_matches_cpu(card, name):
         x, p, lh = (to_lanes(torch.tensor(np.asarray(a))).to(device)
                     for a in (x0s, np.broadcast_to(sc.params, (B, m.np_)),
                               np.broadcast_to(sc.lh, (B, m.nh))))
-        counts = (riccati.launches, linearize.launches, ipm.launches)
-        _, out = solver.step_fn(solver.init_state(x0s), x, p, lh,
-                                yref=sc.yref, yref_e=sc.yref_e)
+        out, counts = _counted_tick(solver, solver.init_state(x0s), x, p,
+                                    lh, yref=sc.yref, yref_e=sc.yref_e)
         outs[str(device)] = out
         if device == card:
-            assert riccati.launches - counts[0] >= 4
-            assert (linearize.launches - counts[1],
-                    ipm.launches - counts[2]) == (1, 0)
+            assert counts[0] >= 4
+            assert counts[1:] == (1, 0)
     cpu, gpu = outs["cpu"], outs[str(card)]
     torch.testing.assert_close(gpu.u0.cpu(), cpu.u0, rtol=0, atol=5e-6)
     torch.testing.assert_close(gpu.x1.cpu(), cpu.x1, rtol=0, atol=5e-6)
@@ -312,15 +331,13 @@ def test_race_tick_on_card_matches_cpu(card, name, curved, schedule):
         x, p, lh = (to_lanes(torch.tensor(np.asarray(a))).to(device)
                     for a in (x0s, np.zeros((B, 0)),
                               np.broadcast_to(sc.lh, (B, 5))))
-        counts = (riccati.launches, linearize.launches, ipm.launches)
-        _, out = solver.step_fn(solver.init_state(x0s), x, p, lh)
+        out, counts = _counted_tick(solver, solver.init_state(x0s), x, p,
+                                    lh)
         outs[str(device)] = out
         if device == card:
-            k1 = riccati.launches - counts[0]
+            k1 = counts[0]
             assert (k1 >= 4) if schedule == "production" else (k1 == 0)
-            assert (linearize.launches - counts[1],
-                    ipm.launches - counts[2]) == (
-                        1, int(schedule == "fused"))
+            assert counts[1:] == (1, int(schedule == "fused"))
     cpu, gpu = outs["cpu"], outs[str(card)]
     torch.testing.assert_close(gpu.u0.cpu(), cpu.u0, rtol=0, atol=5e-6)
     torch.testing.assert_close(gpu.x1.cpu(), cpu.x1, rtol=0, atol=5e-6)
@@ -446,11 +463,9 @@ def test_fused_tick_launches_k3_once_and_never_k1(card, name):
                                    dtype=torch.float32)).to(card)
              for a in (x0s, np.broadcast_to(sc.params, (B, m.np_)),
                        np.broadcast_to(sc.lh, (B, m.nh)))]
-    counts = (riccati.launches, linearize.launches, ipm.launches)
-    _, out = solver.step_fn(solver.init_state(x0s), *lanes)
+    out, counts = _counted_tick(solver, solver.init_state(x0s), *lanes)
     torch.cuda.synchronize()
-    assert (riccati.launches - counts[0], linearize.launches - counts[1],
-            ipm.launches - counts[2]) == (0, 1, 1)
+    assert counts == (0, 1, 1)
     assert torch.isfinite(out.u0).all() and out.u0.shape == (m.nu, B)
 
 
@@ -495,21 +510,26 @@ def test_mehrotra_on_card_matches_cpu_with_two_k1_per_iteration(card):
 
 def test_rti_split_on_card_equals_step(card):
     """prepare_fn (K2 once, no K1) + feedback_fn (K1, no K2) reproduce
-    step_fn on the card, float64."""
+    step_fn on the card, float64; the counted split replays the graphs
+    that the split before it captured.  A captured tick writes its new
+    state into the solver's state, so the state is cloned to be reused."""
     spec, x0s, (x, p, lh) = _flagship_lanes(6, 25, torch.float64, card)
     solver = production_engine().build(spec, device=card,
                                        dtype=torch.float64)
     st, _ = solver.step_fn(solver.init_state(x0s), x, p, lh)
+    st = LaneState(*(t.clone() for t in st))
     x_meas = x + 0.05
     _, out_s = solver.step_fn(st, x_meas, p, lh)
-    counts = (riccati.launches, linearize.launches)
+    out_s = out_s._replace(u0=out_s.u0.clone(), x1=out_s.x1.clone())
+    solver.feedback_fn(st, solver.prepare_fn(st, p, lh), x_meas)
+    counts = _counts()
     qp = solver.prepare_fn(st, p, lh)
-    assert (riccati.launches, linearize.launches) == (counts[0],
-                                                      counts[1] + 1)
+    assert _counts()[:2] == (counts[0], counts[1] + 1)
     _, out_f = solver.feedback_fn(st, qp, x_meas)
     torch.cuda.synchronize()
-    assert linearize.launches == counts[1] + 1
-    assert riccati.launches - counts[0] >= 4
+    after = _counts()
+    assert after[1] == counts[1] + 1
+    assert after[0] - counts[0] >= 4
     torch.testing.assert_close(out_f.u0, out_s.u0, rtol=0, atol=1e-12)
     torch.testing.assert_close(out_f.x1, out_s.x1, rtol=0, atol=1e-12)
 
@@ -532,7 +552,7 @@ def test_server_on_card_serves_through_the_kernels(card, tmp_path):
     thread.start()
     asyncio.run_coroutine_threadsafe(server.start(), loop).result(60)
     try:
-        counts = (riccati.launches, linearize.launches, ipm.launches)
+        counts = _counts()
         with socket.socket(socket.AF_UNIX, socket.SOCK_STREAM) as s:
             s.settimeout(60)
             s.connect(server.path)
@@ -546,11 +566,142 @@ def test_server_on_card_serves_through_the_kernels(card, tmp_path):
         resp = protocol.unpack_response(buf)
         assert resp.seq == 5 and resp.status in (0, 1)
         assert np.all(np.isfinite(np.r_[resp.u0, resp.x1]))
-        assert linearize.launches - counts[1] == 1
-        assert riccati.launches - counts[0] >= 4
-        assert ipm.launches == counts[2]
+        after = _counts()
+        assert after[1] - counts[1] == 1
+        assert after[0] - counts[0] >= 4
+        assert after[2] == counts[2]
     finally:
         asyncio.run_coroutine_threadsafe(server.stop(), loop).result(60)
         loop.call_soon_threadsafe(loop.stop)
         thread.join(30)
         loop.close()
+
+
+def _bits(t):
+    """A float tensor's bits: a bitwise comparison that NaN passes."""
+    as_int = {torch.float32: torch.int32, torch.float64: torch.int64}
+    return t.contiguous().view(as_int.get(t.dtype, t.dtype))
+
+
+def _assert_bitwise(got, want):
+    for field in ("u0", "x1", "gap", "status"):
+        assert torch.equal(_bits(getattr(got, field)),
+                           _bits(getattr(want, field))), field
+
+
+def _no_sync(call):
+    """`call()` with any sync raising; returns (its result, the graph
+    launches it made)."""
+    torch.cuda.synchronize()
+    n0 = capture.launches
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        out = call()
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    return out, capture.launches - n0
+
+
+# the starved flagship of tests/test_escalation.py: escalation fires and
+# stops before its 24 steps
+STARVED = SolverConfig(ipm_iters=2, extra_iters=24)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("schedule", ["production", "fused", "starved",
+                                      "mehrotra"])
+def test_captured_tick_equals_eager_tick(card, schedule, dtype):
+    """The captured tick (the capturing call and a replay from the same
+    state, which makes no sync and one graph launch) equals the eager
+    tick (`capture=False`) bitwise, with the same escalation count."""
+    config = {"production": production_engine(),
+              "fused": SolverConfig(riccati="fused"), "starved": STARVED,
+              "mehrotra": dataclasses.replace(production_engine(),
+                                              centering="mehrotra")}[schedule]
+    spec, x0s, lanes = _flagship_lanes(6, 25, dtype, card)
+    eager = config.build(spec, device=card, dtype=dtype, capture=False)
+    solver = config.build(spec, device=card, dtype=dtype)
+    st = solver.init_state(x0s)
+    _, want = eager.step_fn(st, *lanes)
+    k = int(eager.last_esc_iters)
+    _, got = solver.step_fn(st, *lanes)
+    _assert_bitwise(got, want)
+    assert int(solver.last_esc_iters) == k
+    (_, got), graphs = _no_sync(lambda: solver.step_fn(st, *lanes))
+    assert graphs == 1
+    _assert_bitwise(got, want)
+    assert int(solver.last_esc_iters) == k
+    if schedule == "starved":
+        assert 0 < k < STARVED.extra_iters
+
+
+def test_captured_escalation_launches_are_counted(card):
+    """A replayed tick adds its fixed launches at once and K1's per
+    escalation step once settled: K1 = 2 fixed + the device's count."""
+    spec, x0s, lanes = _flagship_lanes(6, 25, torch.float64, card)
+    solver = STARVED.build(spec, device=card, dtype=torch.float64)
+    out, counts = _counted_tick(solver, solver.init_state(x0s), *lanes)
+    k = int(solver.last_esc_iters)
+    assert k > 0 and counts == (2 + k, 1, 0)
+    (program,) = solver._graphs.programs.values()
+    assert program.conditional == STARVED.extra_iters
+    assert program.fixed[1:] == (1, 0) and program.per_step == (1, 0, 0)
+
+
+def test_captured_rti_split_equals_eager(card):
+    """prepare_fn and feedback_fn as captured graphs (one launch each, no
+    sync in either) equal the eager split bitwise; the feedback graph
+    reads the prepared QP where the preparation graph wrote it."""
+    spec, x0s, (x, p, lh) = _flagship_lanes(6, 25, torch.float32, card)
+    config = production_engine()
+    eager = config.build(spec, device=card, dtype=torch.float32,
+                         capture=False)
+    solver = config.build(spec, device=card, dtype=torch.float32)
+    st = solver.init_state(x0s)
+    _, want = eager.feedback_fn(st, eager.prepare_fn(st, p, lh), x)
+    solver.feedback_fn(st, solver.prepare_fn(st, p, lh), x)
+    qp, n_prep = _no_sync(lambda: solver.prepare_fn(st, p, lh))
+    (_, got), n_feed = _no_sync(lambda: solver.feedback_fn(st, qp, x))
+    assert (n_prep, n_feed) == (1, 1)
+    _assert_bitwise(got, want)
+    feedback = solver._graphs.programs[next(
+        k for k in solver._graphs.programs if k[0] == "feedback")]
+    assert feedback.inputs[0].A is qp.A
+
+
+def test_captured_tick_keeps_the_donated_state(card):
+    """The captured step writes the new state into the solver's state
+    tensors and returns them: a closed loop passes them back without a
+    copy and matches the eager loop bitwise."""
+    spec, x0s, (x, p, lh) = _flagship_lanes(6, 25, torch.float64, card)
+    config = production_engine()
+    eager = config.build(spec, device=card, dtype=torch.float64,
+                         capture=False)
+    solver = config.build(spec, device=card, dtype=torch.float64)
+    st_e, st, x_e = eager.init_state(x0s), solver.init_state(x0s), x
+    for tick in range(3):
+        st_e, want = eager.step_fn(st_e, x_e, p, lh)
+        st_new, got = solver.step_fn(st, x, p, lh)
+        _assert_bitwise(got, want)
+        if tick:
+            assert st_new.xbar is st.xbar
+        st, x, x_e = st_new, got.x1, want.x1
+
+
+def test_capture_that_syncs_raises(card, monkeypatch):
+    """A tick that reads the device on the host cannot be captured: the
+    capture raises, with no eager fallback."""
+    spec, x0s, lanes = _flagship_lanes(6, 25, torch.float32, card)
+    solver = production_engine().build(spec, device=card,
+                                       dtype=torch.float32)
+    real = solver._advance
+
+    def syncing(state, sol):
+        float(sol.gap.max())
+        return real(state, sol)
+
+    monkeypatch.setattr(solver, "_advance", syncing)
+    n0 = capture.launches
+    with pytest.raises(RuntimeError):
+        solver.step_fn(solver.init_state(x0s), *lanes)
+    assert capture.launches == n0 and not solver._graphs.programs

@@ -113,7 +113,70 @@ def test_unported_options_raise():
     with pytest.raises(ValueError, match="mehrotra"):
         ipm_lanes.ipm_solve_lanes(qp_t, (0,), (), riccati="fused",
                                   centering="mehrotra")
-    with pytest.raises(NotImplementedError, match="return_gap_trace"):
-        ipm_lanes.ipm_solve_lanes(qp_t, (0,), (), return_gap_trace=True)
     with pytest.raises(NotImplementedError, match="Dh/Ds"):
         ipm_lanes.ipm_solve_lanes(qp_t._replace(Dh=qp_t.Ch), (0,), ())
+
+
+# the OCPs of the gap-trace tests: (builder, scenario, N)
+TRACE_OCPS = {"flagship": (jbuilders.usv_guidance_ca1,
+                           jscenarios.guidance_ca1_default, 25),
+              "hull": (jbuilders.usv_pf_ca, jscenarios.pf_ca_default, 20)}
+
+
+@pytest.mark.parametrize("centering", ["fixed", "adaptive"])
+@pytest.mark.parametrize("ocp", sorted(TRACE_OCPS))
+def test_gap_trace_matches_jax(ocp, centering):
+    """`return_gap_trace` on the sweep backend: (solution, gaps) with gaps
+    (iters, L), the duality gap at the start of each fixed iteration, as
+    JAX's lax lane IPM returns it; float64, with escalation on (whose
+    iterations the trace leaves out in both)."""
+    build, scenario, N = TRACE_OCPS[ocp]
+    kw = dict(PRODUCTION, centering=centering, ipm_iters=6)
+    solver, qp = _jax_qp(build(N=N), scenario(), B=5, seed=4, perturb=0.2,
+                         solver_kw=kw, warm_ticks=1)
+    sol_j, gaps_j = jipm.ipm_solve_lanes(qp, solver.idxbu, solver.idxbx,
+                                         riccati="lax", return_gap_trace=True,
+                                         **_kw(kw))
+    fields = {k: np.asarray(v) for k, v in qp._asdict().items()}
+    qp_t = interop.lane_qp_from_numpy(fields, device="cpu",
+                                      dtype=torch.float64)
+    sol_t, gaps_t = ipm_lanes.ipm_solve_lanes(
+        qp_t, solver.idxbu, solver.idxbx, return_gap_trace=True, **_kw(kw))
+    assert tuple(gaps_t.shape) == np.asarray(gaps_j).shape == (6, 5)
+    np.testing.assert_allclose(gaps_t.numpy(), np.asarray(gaps_j),
+                               rtol=1e-9, atol=1e-14)
+    _assert_match(sol_j, sol_t)
+
+
+def test_gap_trace_of_no_iterations_is_empty():
+    """iters=0: an empty (0, L) trace, as JAX's scan of length 0."""
+    spec = jbuilders.usv_guidance_ca1(Tf=1.0, N=5)
+    solver, qp = _jax_qp(spec, jscenarios.guidance_ca1_default(), B=3,
+                         seed=0, perturb=0.1, solver_kw={}, warm_ticks=0)
+    _, gaps_j = jipm.ipm_solve_lanes(qp, solver.idxbu, solver.idxbx,
+                                     iters=0, riccati="lax",
+                                     return_gap_trace=True)
+    fields = {k: np.asarray(v) for k, v in qp._asdict().items()}
+    qp_t = interop.lane_qp_from_numpy(fields, device="cpu",
+                                      dtype=torch.float64)
+    _, gaps_t = ipm_lanes.ipm_solve_lanes(qp_t, solver.idxbu, solver.idxbx,
+                                          iters=0, return_gap_trace=True)
+    assert tuple(gaps_t.shape) == np.asarray(gaps_j).shape == (0, 3)
+
+
+def test_fused_backend_ignores_gap_trace():
+    """The fused backend returns the solution alone, flag or not, as the
+    JAX package's fused branch does."""
+    spec = jbuilders.usv_guidance_ca1(Tf=1.0, N=5)
+    solver, qp = _jax_qp(spec, jscenarios.guidance_ca1_default(), B=3,
+                         seed=0, perturb=0.1, solver_kw={}, warm_ticks=0)
+    fields = {k: np.asarray(v) for k, v in qp._asdict().items()}
+    qp_t = interop.lane_qp_from_numpy(fields, device="cpu",
+                                      dtype=torch.float64)
+    args = (qp_t, solver.idxbu, solver.idxbx)
+    with_flag = ipm_lanes.ipm_solve_lanes(*args, riccati="fused",
+                                          return_gap_trace=True)
+    without = ipm_lanes.ipm_solve_lanes(*args, riccati="fused")
+    assert isinstance(with_flag, ipm_lanes.LaneIPMSolution)
+    for g, w in zip(with_flag, without):
+        assert torch.equal(g, w)
