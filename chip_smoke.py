@@ -147,9 +147,29 @@ thirteen models.  Phases:
     launch each, under the same mode) against the eager split; each
     graph's nodes, conditional (escalation) nodes, capture and
     instantiation times and pool memory printed.
+16. the per-instance engine (`solver/sqp_rti.py::RTISolver`, the JAX
+    package's reference engine, whose tick runs op by op): (a)
+    `ops/riccati.py::lqr_solve` on CUDA tensors, which flattens the batch
+    onto K1's lanes, against the per-instance plain `lqr_solve_plain` on
+    the card for (8, 1), (14, 2) at N=100 and (6, 2) at N=50, B in {1,
+    64}, float32 (rtol 2e-4, atol 2e-5) and float64 (atol 1e-10); one NaN
+    instance leaves the others bitwise unchanged; (3, 1), which has no K1
+    instance, raises; (b) `ops/linearize.py::build_qp` on the card (K2)
+    against the CPU on the flagship, the hull and the race car on the
+    curved track, every QPData field (float32 rtol 2e-4 atol 2e-5,
+    float64 atol 1e-10 rtol 1e-12); (c) the committed goldens' 30-tick
+    prefixes in float64 on the card at atol 1e-6: all 13 RTI fixtures and
+    the converged-SQP ones of the flagship and the hull; (d) one flagship
+    tick at B=8 of the dense QP backend against the Riccati one (atol
+    5e-6); (e) `RTServer(engine="vmap")` serving the flagship over UDS,
+    one vehicle and a fleet of 8, every reply status 0; (f) the eager
+    tick's median and p99 over 20 ticks and its K1/K2 launches per tick
+    at B=1 and 64, float32, for the flagship and the hull on both QP
+    backends, printed.
 
 Each main path is driven with every launch count set to 0 just before and
-read just after, on ticks that replay their captured graphs (a tick that
+read just after (phase 16's goldens, server and timed ticks each so), the
+lane engine's on ticks that replay their captured graphs (a tick that
 captures runs an eager warm-up first, so the counted tick is not the
 first): a replay adds the launches its wrappers counted at capture, and
 the escalation steps' launches times the steps that ran on the device,
@@ -1464,11 +1484,12 @@ def serving(card):
             _latency_drive(f"flagship {label}", 20, solve1, x0, card),
             {"tick": expect}, model=FLAGSHIP, N=100, Tf=5.0,
             **_server_engine(**flags))
+    fused = dataclasses.asdict(SolverConfig(riccati="fused"))
+    del fused["qp_backend"]            # the instance engine's, not served
     counts[(FLAGSHIP, "served fused")], _ = _served(
         "flagship fused server",
         _latency_drive("flagship fused", 20, solve1, x0, card),
-        {"tick": _fused_counts}, model=FLAGSHIP, N=100, Tf=5.0,
-        **dataclasses.asdict(SolverConfig(riccati="fused")))
+        {"tick": _fused_counts}, model=FLAGSHIP, N=100, Tf=5.0, **fused)
 
     hsc = scenarios.pf_ca_default()
     hx0, hp, hlh, hy = (tuple(float(v) for v in np.asarray(a, np.float32))
@@ -1767,6 +1788,304 @@ def captured_ticks():
                 captured_vs_eager(name, label, config, dtype)
 
 
+# ---- phase 16: the per-instance engine ----
+
+# K1 through the per-instance route (`ops/riccati.py::lqr_solve`): the
+# horizon of each (nx, nu) checked, and the batch widths
+INSTANCE_K1 = {(8, 1): 100, (14, 2): 100, (6, 2): 50}
+INSTANCE_B = (1, 64)
+# the golden runs' names in the kernels line: the race car's goldens run
+# on the synthetic curved track
+GOLDEN_RUN_NAME = {"race_cars": "race_cars_track"}
+
+
+def _instance_lqr(N, nx, nu, Bn, seed, dtype):
+    """`_random_lqr`'s LQR in the per-instance layout: batch (Bn,)."""
+    from mpc_collisionavoidance_tpu_torch.ops.riccati import LQRData
+    d = _random_lqr(N, nx, nu, Bn, seed, dtype)
+    return LQRData(*(t.movedim(-1, 0).contiguous() for t in d))
+
+
+def instance_k1_route():
+    """16a: `lqr_solve` on CUDA tensors (the lane route, K1) against the
+    per-instance plain `lqr_solve_plain` on the card; one NaN instance
+    leaves the others bitwise unchanged; an (nx, nu) with no K1 instance
+    raises."""
+    import torch
+
+    from mpc_collisionavoidance_tpu_torch.ops.riccati import (
+        lqr_solve, lqr_solve_plain)
+    for (nx, nu), N in INSTANCE_K1.items():
+        for Bn, (dtype, rtol, atol) in itertools.product(
+                INSTANCE_B, ((torch.float32, 2e-4, 2e-5),
+                             (torch.float64, 0.0, 1e-10))):
+            d = _instance_lqr(N, nx, nu, Bn, nx * 100 + Bn, dtype)
+            got = lqr_solve(d)
+            want = lqr_solve_plain(d)
+            torch.cuda.synchronize()
+            print(f"16a lqr_solve ({nx}, {nu}) N={N} B={Bn} "
+                  f"{str(dtype)[6:]}: K1 route vs plain max|err| "
+                  f"{_max_err(got, want):.3e}")
+            _check_close(f"lqr_solve ({nx},{nu}) B={Bn} {dtype}", got, want,
+                         rtol, atol)
+        d = _instance_lqr(N, nx, nu, 64, 7, torch.float32)
+        ref = lqr_solve(d)
+        A = d.A.clone()
+        A[7] = float("nan")
+        got = lqr_solve(d._replace(A=A))
+        keep = torch.arange(64, device=DEVICE) != 7
+        same = all(torch.equal(g[keep], r[keep]) for g, r in zip(got, ref))
+        poisoned = not all(bool(torch.isfinite(g[7]).all()) for g in got)
+        print(f"16a lqr_solve ({nx}, {nu}) NaN in instance 7's A at B=64: "
+              f"instance non-finite {poisoned}, the others bitwise "
+              f"unchanged {same}")
+        if not (same and poisoned):
+            raise AssertionError(f"lqr_solve ({nx}, {nu}): a NaN instance "
+                                 "touched another, or stayed finite")
+    try:
+        lqr_solve(_instance_lqr(4, 3, 1, 2, 0, torch.float64))
+    except ValueError as exc:
+        print(f"16a lqr_solve (3, 1) on the card raises: {exc}")
+    else:
+        raise AssertionError("lqr_solve (3, 1): no K1 instance, no error")
+
+
+def _instance_inputs(name, Bn, dtype, device, seed=SEED):
+    """A per-instance iterate of `name` (`RACE` names the track): the
+    scenario's x0 on every stage plus 0.05 N(0, 1), controls 0.05 N(0, 1),
+    x0 0.01 N(0, 1) off stage 0, the builder's references, the scenario's
+    params and lh (None where the model has no rows): the arguments of
+    `build_qp` after (spec, layout)."""
+    import torch
+
+    from mpc_collisionavoidance_tpu_torch.sim import scenarios
+    spec = _spec(name)
+    m, N = spec.model, spec.N
+    sc = scenarios.DEFAULTS[RACE.get(name, (name,))[0]][0]()
+    rng = np.random.default_rng(seed)
+    xbar = sc.x0 + 0.05 * rng.standard_normal((Bn, N + 1, m.nx))
+    ubar = 0.05 * rng.standard_normal((Bn, N, m.nu))
+    x0 = xbar[:, 0] + 0.01 * rng.standard_normal((Bn, m.nx))
+    yref = np.broadcast_to(spec.cost.yref, (Bn, N, spec.cost.ny))
+    yref_e = np.broadcast_to(spec.cost.yref_e, (Bn, len(spec.cost.yref_e)))
+    params = np.broadcast_to(sc.params, (Bn, m.np_))
+
+    def t(a):
+        return torch.tensor(np.asarray(a), dtype=dtype, device=device)
+
+    lh = t(np.broadcast_to(sc.lh, (Bn, m.nh))) if m.nh else None
+    return (t(xbar), t(ubar), t(x0), t(yref), t(yref_e), t(params), lh)
+
+
+def instance_k2_route():
+    """16b: `build_qp` on the card (the lane route, K2) against the CPU
+    plain path on the same iterate, every QPData field: the flagship, the
+    hull and the race car on the curved track, B=8.  float32 at phase 3's
+    J/C tolerance (rtol 2e-4, atol 2e-5; c and gl are differences of K2's
+    outputs and the iterate), float64 at atol 1e-10 (rtol 1e-12: the
+    hull's stiff sway-drag Jacobian entries are large)."""
+    import torch
+
+    from mpc_collisionavoidance_tpu_torch.ops import linearize
+    for name in (FLAGSHIP, HULL, "race_cars_track"):
+        spec = _spec(name)
+        layout = linearize.make_row_layout(spec)
+        for dtype, rtol, atol in ((torch.float32, 2e-4, 2e-5),
+                                  (torch.float64, 1e-12, 1e-10)):
+            got = linearize.build_qp(spec, layout, *_instance_inputs(
+                name, 8, dtype, DEVICE))
+            want = linearize.build_qp(spec, layout, *_instance_inputs(
+                name, 8, dtype, "cpu"))
+            got = [g.cpu() for g in got]
+            print(f"16b build_qp {name} B=8 {str(dtype)[6:]}: card (K2) vs "
+                  f"CPU max|err| {_max_err(got, want):.3e} over "
+                  f"{len(want)} fields")
+            for field, g, w in zip(want._fields, got, want):
+                _check_close(f"build_qp {name} {field} {dtype}", [g], [w],
+                             rtol, atol)
+
+
+def instance_goldens():
+    """16c: the committed goldens' 30-tick prefixes on the card in float64
+    at atol 1e-6: every RTI fixture, and the converged-SQP fixtures of the
+    flagship and the hull.  Returns {(run name, "instance golden"): launch
+    counts} (each run's counts set to 0 just before it)."""
+    from mpc_collisionavoidance_tpu_torch.parity import goldens
+    runs = [(name, "rti") for name in goldens.RTI_GOLDEN_RUNS]
+    runs += [(FLAGSHIP, "sqp"), (HULL, "sqp")]
+    counts = {}
+    for name, family in runs:
+        t0 = time.perf_counter()
+        _reset_counts()
+        if family == "rti":
+            got = goldens.compute_golden_rti(
+                name, 30, goldens.RTI_GOLDEN_RUNS[name][1], device=DEVICE)
+        else:
+            got = goldens.compute_golden(
+                name, 30, goldens.GOLDEN_RUNS[name][2], device=DEVICE)
+        c = _read_counts()
+        counts[(GOLDEN_RUN_NAME.get(name, name),
+                f"instance golden {family}")] = c
+        ref = goldens.load_golden(name, family)
+        du = float(np.abs(got.simU - ref.simU[:30]).max())
+        dx = float(np.abs(got.simX - ref.simX[:30]).max())
+        print(f"16c golden {name} [{family}] 30 ticks float64 on the card: "
+              f"max|du| {du:.3e}, max|dx| {dx:.3e}, status-0 "
+              f"{float(np.mean(got.status == 0)):.3f}, launches {c}, "
+              f"{time.perf_counter() - t0:.1f} s")
+        if not (du <= 1e-6 and dx <= 1e-6):
+            raise AssertionError(f"golden {name} [{family}]: drift over 1e-6")
+        if c["linearize_lanes"] < 30 or c["riccati_lanes"] < 30:
+            raise AssertionError(f"golden {name} [{family}]: launches {c}")
+    return counts
+
+
+def _instance_setup(name, Bn, dtype, **kw):
+    """An RTISolver of `name` on the card, its warm start at the scenario's
+    x0 (ye perturbed by 0.1 N(0, 1) over a batch; B=1 unbatched) and the
+    scenario's params, lh."""
+    import torch
+
+    from mpc_collisionavoidance_tpu_torch.sim import scenarios
+    from mpc_collisionavoidance_tpu_torch.solver.sqp_rti import RTISolver
+    spec = _spec(name)
+    factory, coord = scenarios.DEFAULTS[name]
+    sc = factory()
+    x0 = np.array(sc.x0, float)
+    if Bn > 1:
+        x0 = np.broadcast_to(x0, (Bn, spec.model.nx)).copy()
+        x0[:, coord] += 0.1 * np.random.default_rng(SEED).standard_normal(Bn)
+    solver = RTISolver(spec, **kw, device=DEVICE, dtype=dtype)
+    x = torch.tensor(x0, dtype=dtype, device=DEVICE)
+    p = torch.tensor(sc.params, dtype=dtype, device=DEVICE)
+    lh = torch.tensor(sc.lh, dtype=dtype, device=DEVICE)
+    return solver, solver.init_state(x), x, p, lh
+
+
+def instance_dense():
+    """16d: one flagship tick at B=8, float64 on the card, of the dense
+    backend against the Riccati one (30 IPM iterations), atol 5e-6 as in
+    tests/test_dense_qp.py; both status 0."""
+    import torch
+    outs = {}
+    for backend in ("riccati", "dense"):
+        solver, st, x, p, lh = _instance_setup(
+            FLAGSHIP, 8, torch.float64, ipm_iters=30, qp_backend=backend)
+        outs[backend] = solver.step_fn(st, x, p, lh)[1]
+    r, d = outs["riccati"], outs["dense"]
+    err = max(float((d.xtraj - r.xtraj).abs().max()),
+              float((d.utraj - r.utraj).abs().max()))
+    ok = bool((r.status == 0).all() and (d.status == 0).all())
+    print(f"16d flagship B=8 float64: dense vs riccati backend max|err| "
+          f"xtraj/utraj {err:.3e}, all status 0 {ok}")
+    if err > 5e-6 or not ok:
+        raise AssertionError("dense and riccati backends disagree")
+
+
+def instance_served(card):
+    """16e: `RTServer(engine="vmap")` serving the flagship (N=100, Tf=5,
+    float32, the per-instance engine's default schedule: 18 fixed IPM
+    iterations, mu0 1, tol 1e-7) over UDS: one vehicle for 20 ticks and a
+    fleet of 8 for 20 lockstep ticks, every reply status 0.  Returns the
+    run's launch counts."""
+    from mpc_collisionavoidance_tpu_torch.sim import scenarios
+    sc = scenarios.guidance_ca1_default()
+    x0, p, lh = (tuple(float(v) for v in np.asarray(a, np.float32))
+                 for a in (sc.x0, sc.params, sc.lh))
+    replies = []
+
+    def solve1(s, seq, x):
+        _send1(s, seq, x, p, lh)
+        replies.append(_reply1(s, seq))
+        return replies[-1]
+
+    with _serving(model=FLAGSHIP, N=100, Tf=5.0, engine="vmap",
+                  **_server_engine(engine="vmap", ipm_iters=18, mu0=1.0,
+                                   ipm_tol=1e-7)) as server:
+        _reset_counts()
+        _, ms = _client_loop(server.path, 20, solve1, x0)
+        rng = np.random.default_rng(SEED)
+        xs = [tuple(np.float32(v) for v in np.r_[x0[:2], x0[2] + 0.1 * e,
+                                                 x0[3:]])
+              for e in rng.standard_normal(8)]
+        fleet, n0 = [], len(server.solve_ms)
+        with contextlib.ExitStack() as stack:
+            socks = [stack.enter_context(contextlib.closing(
+                _connect(server.path))) for _ in range(8)]
+            for seq in range(20):
+                t0 = time.perf_counter()
+                for s, x in zip(socks, xs):
+                    _send1(s, seq, x, p, lh)
+                got = [_reply1(s, seq) for s in socks]
+                replies.extend(got)
+                xs = [r.x1 for r in got]
+                fleet.append((time.perf_counter() - t0) * 1e3)
+        counts = _read_counts()
+        ticks = len(server.solve_ms) - n0
+    bad = [r for r in replies if r.status != 0]
+    b1, f8 = _pcts(ms[1:]), _pcts(fleet[1:])
+    print(f"16e vmap server flagship: B=1 20 ticks request->reply p50 "
+          f"{b1[0]:.3f} ms, p99 {b1[1]:.3f} ms; fleet of 8, 20 lockstep "
+          f"ticks p50 {f8[0]:.3f} ms, p99 {f8[1]:.3f} ms in {ticks} server "
+          f"ticks; {len(replies)} replies, {len(bad)} not status 0; "
+          f"launches {counts} ({card})")
+    if bad:
+        raise AssertionError(f"vmap server: replies not status 0: {bad[:3]}")
+    return counts
+
+
+def instance_tick_times(card):
+    """16f: the eager per-instance tick, float32, warm closed loop (x0 <-
+    x1): median and p99 over 20 ticks (CUDA events, after one warm-up
+    tick) and K1/K2 launches per tick, at B=1 and B=64, for the flagship
+    and the hull on both QP backends.  Returns {(model, label): launch
+    counts} of the Riccati runs (the engine's main path)."""
+    import torch
+    counts = {}
+    for name, backend, Bn in itertools.product(
+            (FLAGSHIP, HULL), ("riccati", "dense"), (1, 64)):
+        solver, st, x, p, lh = _instance_setup(name, Bn, torch.float32,
+                                               qp_backend=backend)
+        st, out = solver.step_fn(st, x, p, lh)          # warm-up
+        x = out.x1
+        times = []
+        _reset_counts()
+        for _ in range(20):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            st, out = solver.step_fn(st, x, p, lh)
+            end.record()
+            x = out.x1
+            end.synchronize()
+            times.append(start.elapsed_time(end))
+        c = _read_counts()
+        if not torch.isfinite(out.u0).all():
+            raise AssertionError(f"{name} {backend} B={Bn}: non-finite u0")
+        if backend == "riccati":
+            counts[(name, f"instance B={Bn}")] = c
+        per = {k: v / 20 for k, v in c.items()}
+        print(f"16f instance tick {name} {backend} B={Bn} float32: median "
+              f"{np.median(times):.3f} ms, p99 "
+              f"{np.percentile(times, 99):.3f} ms, launches per tick "
+              f"K1 {per['riccati_lanes']:g}, K2 {per['linearize_lanes']:g}"
+              f", K3 {per['fused_ipm_lanes']:g}, status-0 "
+              f"{float((out.status == 0).float().mean()):.3f} ({card})")
+    return counts
+
+
+def instance_engine(card):
+    """Phase 16: the per-instance engine (`solver/sqp_rti.py`) on the
+    card.  Returns {(run, label): launch counts} of its runs."""
+    instance_k1_route()
+    instance_k2_route()
+    counts = instance_goldens()
+    instance_dense()
+    counts[(FLAGSHIP, "instance vmap server")] = instance_served(card)
+    counts.update(instance_tick_times(card))
+    return counts
+
+
 def _production_counts(c):
     return (c["riccati_lanes"] >= 4 and c["linearize_lanes"] == 1
             and c["fused_ipm_lanes"] == 0)
@@ -1834,6 +2153,8 @@ def main():
     phase_done("phase 14 (the race car)")
     captured_ticks()
     phase_done("phase 15 (captured ticks)")
+    counts.update(instance_engine(card))
+    phase_done("phase 16 (the per-instance engine)")
 
     def launched(kernel, models):
         return sum(c[kernel] for (m, _), c in counts.items() if m in models)

@@ -8,18 +8,23 @@ jax), so the pure-numpy pieces (`ocp/spec.py`, `sim/scenarios.py`) are
 copies.
 
 Ported: the lane engine's RTI tick on every model of the JAX package's
-zoo, its real-time server, and all three of its TPU kernels:
+zoo, the per-instance engine and its goldens, the real-time server on
+both, and all three of its TPU kernels:
 
 models   : Model container + every model's dynamics/constraints in torch
 ocp      : OCPSpec and the builders
 sim      : the scenarios
 utils    : the race track (table, curvature interpolant, transforms)
 ops      : lane algebra, the Riccati sweep, the fused linearization and
-           the lane primal-dual IPM (plain PyTorch versions + dispatch)
+           the lane primal-dual IPM (plain PyTorch versions + dispatch);
+           the per-instance engine's integrators, Riccati solve, QP
+           assembly, IPM and dense (condensed) QP path
 kernels  : hand-written CUDA kernels for sm_90a (Riccati sweep, fused
            linearization, fused IPM), built with nvcc at first use and
            bound by ctypes
-solver   : LaneRTISolver (lane layout, instance axis minor-most)
+solver   : LaneRTISolver (lane layout, instance axis minor-most) and
+           RTISolver (per-instance shapes with leading batch axes)
+parity   : the committed goldens, recomputed by RTISolver
 config   : SolverConfig and the production schedule
 rt       : the real-time server and its frames
 interop  : numpy carry-over of QPs / LQRs / warm starts from the JAX package

@@ -1,7 +1,9 @@
 """State carried across from the JAX package, as numpy only.
 
-These take numpy arrays (for example a JAX `LaneQP._asdict()` mapped
-through `np.asarray`) and build the port's tensors on a device and dtype.
+These take numpy arrays (for example a JAX `LaneQP._asdict()` or
+`QPData._asdict()` mapped through `np.asarray`) and build the port's
+tensors on a device and dtype: the lane engine's (`lane_*`) and the
+per-instance engine's, whose shapes may carry leading batch axes.
 They never import jax, so the same QPs, LQRs and warm starts can be fed to
 both packages.
 """
@@ -9,9 +11,12 @@ both packages.
 import numpy as np
 import torch
 
+from mpc_collisionavoidance_tpu_torch.ops.ipm import QPData
 from mpc_collisionavoidance_tpu_torch.ops.ipm_lanes import LaneQP
+from mpc_collisionavoidance_tpu_torch.ops.riccati import LQRData
 from mpc_collisionavoidance_tpu_torch.ops.riccati_lanes import LaneLQR
 from mpc_collisionavoidance_tpu_torch.solver.batch import LaneState
+from mpc_collisionavoidance_tpu_torch.solver.sqp_rti import SolverState
 
 
 def _tensor(a, device, dtype):
@@ -48,4 +53,26 @@ def lane_lqr_from_numpy(A, B, c, Q, S, R, qx, qu, dx0, *, device,
                         dtype) -> LaneLQR:
     """The nine LaneLQR arrays (lane layout) -> LaneLQR."""
     return LaneLQR(*(_tensor(a, device, dtype)
+                     for a in (A, B, c, Q, S, R, qx, qu, dx0)))
+
+
+def solver_state_from_numpy(xbar, ubar, *, device, dtype) -> SolverState:
+    """xbar (..., N+1, nx), ubar (..., N, nu) -> SolverState."""
+    return SolverState(xbar=_tensor(xbar, device, dtype),
+                       ubar=_tensor(ubar, device, dtype))
+
+
+def qp_data_from_numpy(fields: dict, *, device, dtype) -> QPData:
+    """A mapping of every QPData field name to a numpy array -> QPData."""
+    missing = [n for n in QPData._fields if fields.get(n) is None]
+    if missing:
+        raise ValueError(f"qp_data_from_numpy: missing fields {missing}")
+    return QPData(**{n: _tensor(fields[n], device, dtype)
+                     for n in QPData._fields})
+
+
+def lqr_data_from_numpy(A, B, c, Q, S, R, qx, qu, dx0, *, device,
+                        dtype) -> LQRData:
+    """The nine LQRData arrays (per-instance layout) -> LQRData."""
+    return LQRData(*(_tensor(a, device, dtype)
                      for a in (A, B, c, Q, S, R, qx, qu, dx0)))

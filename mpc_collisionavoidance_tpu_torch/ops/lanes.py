@@ -9,6 +9,8 @@ neighbouring threads read neighbouring addresses.  The products here are
 the plain PyTorch versions, written as `torch.einsum` over the tiny dims.
 """
 
+import math
+
 import torch
 
 
@@ -97,3 +99,18 @@ def srows_tv(C, v):
 def sgram_rows(C, w):
     """sum_r w[.,r] C[.,r] C[.,r]^T stagewise: (N,r,m,L),(N,r,L) -> (N,m,m,L)."""
     return torch.einsum("nril,nrl,nrjl->nijl", C, w, C)
+
+
+# ---- the per-instance engine's batch axes onto the lane axis ----
+
+def to_lanes(t, batch):
+    """(*batch, *rest) -> (*rest, L = prod(batch)), contiguous (batch axes
+    of size 1 are broadcast)."""
+    rest = t.shape[len(batch):]
+    return t.expand(*batch, *rest).reshape(
+        math.prod(batch), *rest).movedim(0, -1).contiguous()
+
+
+def from_lanes(t, batch):
+    """(*rest, L) -> (*batch, *rest)."""
+    return t.movedim(-1, 0).reshape(*batch, *t.shape[:-1])

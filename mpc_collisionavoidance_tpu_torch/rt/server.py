@@ -1,16 +1,20 @@
-"""Real-time serving engine: a UDS/TCP server around the lane-engine RTI
-solver (counterpart of `mpc_collisionavoidance_tpu/rt/server.py`).
+"""Real-time serving engine: a UDS/TCP server around the RTI solvers
+(counterpart of `mpc_collisionavoidance_tpu/rt/server.py`).
 
 Plays the role the generated `acados_solve()` + node main loop play in the
 reference (one low-latency solve per 20 Hz tick per vehicle):
 
-- each client connection is one vehicle, and owns one lane of a
-  fixed-width lane engine (`max_batch` lanes) whose SQP-RTI warm start is
-  held on the device between ticks;
-- requests from concurrent vehicles within a batching window are served by
-  ONE tick of every lane; vehicles beyond `max_batch` get
-  `STATUS_OVER_CAPACITY` replies until a lane frees up, and a freed lane
-  is parked on a benign far-away problem;
+- each client connection is one vehicle whose SQP-RTI warm start is held
+  on the device between ticks;
+- `engine="lane"` (the default): each vehicle owns one lane of a
+  fixed-width lane engine (`max_batch` lanes); requests from concurrent
+  vehicles within a batching window are served by ONE tick of every lane;
+  vehicles beyond `max_batch` get `STATUS_OVER_CAPACITY` replies until a
+  lane frees up, and a freed lane is parked on a benign far-away problem;
+- `engine="vmap"`: each vehicle holds a per-instance `SolverState`; a
+  window's requests go through ONE batched `RTISolver.step_fn`, padded to
+  a power-of-two bucket (a lone request takes the solo path); latency
+  scales with the batch, and the fleet has no cap;
 - the asyncio loop is the transport and touches only host rows; one solve
   thread owns every device tensor and runs the ticks.
 
@@ -22,13 +26,12 @@ dims, optional stage-constant yref), byte-identical to the JAX package's
 
 The device picks the kernels: on a CUDA device every tick runs the
 hand-written kernels (the linearization kernel, then the Riccati kernel
-per IPM iteration, or the fused whole-IPM kernel with `riccati="fused"`)
-as one captured CUDA graph per tick, preparation and feedback
-(`solver/capture.py`; `warmup()` captures them, as the JAX server's
-compiles its jitted ticks); on the CPU their plain PyTorch versions, op by
-op.  A CUDA device that is not there is an error, never a fallback.  Not
-ported yet: the per-instance "vmap" engine (it needs `RTISolver`, ROADMAP
-A7).
+per IPM iteration, or the fused whole-IPM kernel with `riccati="fused"`);
+the lane engine's ticks, preparations and feedbacks run as one captured
+CUDA graph each (`solver/capture.py`; `warmup()` captures them, as the JAX
+server's compiles its jitted ticks), the vmap engine's op by op.  On the
+CPU the kernels' plain PyTorch versions run, op by op.  A CUDA device that
+is not there is an error, never a fallback.
 
 Run:  python -m mpc_collisionavoidance_tpu_torch.rt.server /tmp/nmpc.sock
   or: python -m mpc_collisionavoidance_tpu_torch.rt.server 0.0.0.0:8490
@@ -55,12 +58,22 @@ from mpc_collisionavoidance_tpu_torch.config import production_engine
 from mpc_collisionavoidance_tpu_torch.ocp import builders
 from mpc_collisionavoidance_tpu_torch.rt import protocol
 from mpc_collisionavoidance_tpu_torch.solver.batch import LaneRTISolver
+from mpc_collisionavoidance_tpu_torch.solver.sqp_rti import (RTISolver,
+                                                             SolverState)
 
 #: reply status when every lane is taken; distinct from the solver's
 #: 0 ok / 1 not converged / 2 NaN codes
 STATUS_OVER_CAPACITY = 3
 
 _log = logging.getLogger(__name__)
+
+
+@dataclasses.dataclass
+class _Vehicle:
+    """A vehicle of the vmap engine: its warm start and, under rti_split,
+    the QP prepared for its next tick."""
+    state: SolverState
+    prepared_qp: object = None
 
 
 @dataclasses.dataclass
@@ -99,18 +112,28 @@ class RTServer:
                  stall_tol: Optional[float] = None, ipm_tol: float = 1e-7,
                  *, device):
         """One server = one OCP `model` on one `device`, solved in float32
-        by a lane engine of fixed width `max_batch`.  `riccati`,
-        `centering`, `mu0`, `ipm_iters`, `extra_iters`, `stall_tol`,
-        `ipm_tol`: the IPM schedule (`LaneRTISolver`).  `rti_split`: after
-        replying to a tick, linearize for the next one at once, so the
-        next request pays only the IPM (its obstacle table and references
-        are then one tick old, the acados trade-off)."""
-        if engine == "vmap":
-            raise NotImplementedError(
-                "the per-instance 'vmap' engine needs RTISolver, which is "
-                "not ported yet (ROADMAP A7); use engine='lane'")
-        if engine != "lane":
+        by `engine`: "lane" (a lane engine of fixed width `max_batch`) or
+        "vmap" (the per-instance engine over each window's requests, at
+        most `max_batch`).  `riccati`, `centering`, `mu0`, `ipm_iters`,
+        `extra_iters`, `stall_tol`, `ipm_tol`: the IPM schedule
+        (`LaneRTISolver`; the vmap engine's `RTISolver` takes fixed or
+        mehrotra centering, no escalation and the sweep backend).
+        `rti_split`: after replying to a tick, linearize for the next one
+        at once, so the next request pays only the IPM (its obstacle table
+        and references are then one tick old, the acados trade-off)."""
+        if engine not in ("lane", "vmap"):
             raise ValueError(f"unknown engine {engine!r}")
+        if engine == "vmap" and centering == "adaptive":
+            # the per-lane sigma heuristic is lane-engine-only; downgrading
+            # to fixed would misreport the served schedule
+            raise ValueError("adaptive centering requires engine='lane' "
+                             "(the vmap engine supports fixed/mehrotra)")
+        if engine == "vmap" and extra_iters:
+            raise ValueError("stall escalation (extra_iters > 0) requires "
+                             "engine='lane'")
+        if engine == "vmap" and riccati != "sweep":
+            raise ValueError("the fused whole-IPM kernel requires "
+                             "engine='lane'")
         if model not in builders.BUILDERS:
             raise ValueError(f"unknown model {model!r}; the port serves "
                              f"{sorted(builders.BUILDERS)}")
@@ -129,10 +152,7 @@ class RTServer:
         self.batch_window = batch_window_ms / 1e3
         self.max_batch = max_batch
         self.rti_split = bool(rti_split)
-        self.lane_solver = LaneRTISolver(
-            spec, ipm_iters=ipm_iters, ipm_tol=ipm_tol, riccati=riccati,
-            centering=centering, mu0=mu0, extra_iters=extra_iters,
-            stall_tol=stall_tol, device=self.device, dtype=torch.float32)
+        self.engine = engine
         # per-tick device time [ms] (upload, solve, fetch), appended by the
         # solve thread: a client-side latency minus this is the serving
         # stack's own cost
@@ -144,6 +164,17 @@ class RTServer:
         # anyway (one device), and warmup() runs on it too
         self._executor = concurrent.futures.ThreadPoolExecutor(
             max_workers=1, thread_name_prefix="nmpc-solve")
+        if engine == "vmap":
+            self.solver = RTISolver(spec, ipm_iters=ipm_iters,
+                                    ipm_tol=ipm_tol, centering=centering,
+                                    mu0=mu0, device=self.device,
+                                    dtype=torch.float32)
+            self._vehicles: Dict[int, _Vehicle] = {}
+            return
+        self.lane_solver = LaneRTISolver(
+            spec, ipm_iters=ipm_iters, ipm_tol=ipm_tol, riccati=riccati,
+            centering=centering, mu0=mu0, extra_iters=extra_iters,
+            stall_tol=stall_tol, device=self.device, dtype=torch.float32)
 
         L = max_batch
         # the lock covers lane assignment and the host rows: the event-loop
@@ -250,8 +281,14 @@ class RTServer:
         """Run one throwaway tick (and a preparation + feedback under
         rti_split) on the solve thread, then restore the parked lanes.  The
         first kernel use builds the CUDA kernels (nvcc), and on a CUDA
-        device the first tick, preparation and feedback capture their
-        graphs: all of it lands here, not in a vehicle's first tick."""
+        device the lane engine's first tick, preparation and feedback
+        capture their graphs: all of it lands here, not in a vehicle's
+        first tick.  The vmap engine runs a solo tick and a bucket-2 tick
+        of a far-away problem."""
+        if self.engine == "vmap":
+            self._executor.submit(self._warm_vmap).result()
+            return
+
         def _warm():
             with self._lane_lock:
                 self._seed(0, self._x0_rows[0])
@@ -402,6 +439,12 @@ class RTServer:
                                        batch)
 
     def _solve_batch(self, batch):
+        if self.engine == "vmap":
+            self._solve_batch_vmap(batch)
+        else:
+            self._solve_batch_lane(batch)
+
+    def _solve_batch_lane(self, batch):
         """One fixed-width lane-engine tick serving every queued request.
 
         All `max_batch` lanes solve every tick (flat cost); requests update
@@ -455,6 +498,9 @@ class RTServer:
             self._prepare(packed_pl)
 
     def _release_vehicle(self, vid):
+        if self.engine == "vmap":
+            self._vehicles.pop(vid, None)
+            return
         with self._lane_lock:
             lane = self._lane_of.pop(vid, None)
             if lane is not None:
@@ -464,6 +510,106 @@ class RTServer:
                 self._p_rows[lane] = 100.0
                 self._lh_rows[lane] = 0.0
                 self._yref_rows[lane] = self._default_yref
+
+    # ------------------------------------------------------------------
+    # the vmap engine: run on the solve thread only
+    def _warm_vmap(self):
+        far = _Req(2, 0, (0.0,) * self.nx, (100.0,) * self.np_,
+                   (0.0,) * self.nh, ())
+        state = self.solver.init_state(np.zeros(self.nx, np.float32))
+        (state,), _, args = self._vmap_tick([far], [state])
+        if self.rti_split:
+            self._vmap_tick([far], [state], self.solver.prepare_fn(state,
+                                                                   *args))
+        self._vmap_tick([far, far], [state, state])
+
+    def _vmap_rows(self, reqs, bucket):
+        """The requests' rows on the device, padded to `bucket` with the
+        first one's (one upload): x0, params, lh (bucket, .) and the
+        stage references yref (bucket, N, ny), yref_e (bucket, ny_e), or
+        None where no request carries a yref (the builder's).  A bucket
+        of 1 drops the batch axis."""
+        reqs = list(reqs) + [reqs[0]] * (bucket - len(reqs))
+        has_yref = any(len(r.yref) for r in reqs)
+        rows = np.array(
+            [r.x0 + r.params + r.lh
+             + ((r.yref if len(r.yref) else tuple(self._default_yref))
+                if has_yref else ()) for r in reqs], np.float32)
+        d = torch.from_numpy(rows).to(self.device)
+        if bucket == 1:
+            d = d[0]
+        nx, np_, nh = self.nx, self.np_, self.nh
+        x0, p = d[..., :nx], d[..., nx:nx + np_]
+        lh = d[..., nx + np_:nx + np_ + nh]
+        yref = yref_e = None
+        if has_yref:
+            y = d[..., nx + np_ + nh:]
+            yref = y.unsqueeze(-2).expand(
+                y.shape[:-1] + (self.solver.spec.N, self.ny))
+            yref_e = y[..., :self._yref_e_len]
+        return x0, p, lh, yref, yref_e
+
+    @staticmethod
+    def _vmap_fetch(out):
+        """u0, x1 and status of a tick as ONE host array (..., nu + nx +
+        1) (one device->host copy, which also waits for the tick)."""
+        return torch.cat([out.u0, out.x1, out.status.unsqueeze(-1).to(
+            out.u0.dtype)], dim=-1).cpu().numpy()
+
+    def _vmap_tick(self, reqs, states, prepared=None):
+        """One tick of the requests `reqs` from `states` (one per request):
+        the solo path for one request (the feedback phase of its
+        `prepared` QP, if given), else one batched step padded to a
+        power-of-two bucket.  Returns (new states, host outputs (n, nu +
+        nx + 1), and for the solo path the arguments that prepare its next
+        tick)."""
+        n = len(reqs)
+        bucket = 1 << (n - 1).bit_length()
+        x0, p, lh, yref, yref_e = self._vmap_rows(reqs, bucket)
+        if n == 1:
+            st = states[0]
+        else:
+            st = states + [states[0]] * (bucket - n)
+            st = SolverState(*(torch.stack(f) for f in zip(*st)))
+        t_solve = time.perf_counter()
+        if prepared is not None:
+            st, out = self.solver.feedback_fn(st, prepared, x0)
+        else:
+            st, out = self.solver.step_fn(st, x0, p, lh, yref, yref_e)
+        host = self._vmap_fetch(out)
+        self.solve_ms.append((time.perf_counter() - t_solve) * 1e3)
+        if n == 1:
+            return [st], host[None], (p, lh, yref, yref_e)
+        return ([SolverState(st.xbar[i], st.ubar[i]) for i in range(n)],
+                host[:n], None)
+
+    def _solve_batch_vmap(self, batch):
+        """One vmap-engine tick serving every queued request; a vehicle's
+        first request seeds its warm start at its x0."""
+        for vid, req, _ in batch:
+            if vid not in self._vehicles:
+                self._vehicles[vid] = _Vehicle(
+                    state=self.solver.init_state(
+                        np.asarray(req.x0, np.float32)))
+        vehs = [self._vehicles[vid] for vid, _, _ in batch]
+        # the feedback phase only for a lone request whose QP was prepared
+        # after its previous tick
+        prepared = vehs[0].prepared_qp if len(batch) == 1 else None
+        states, host, args = self._vmap_tick(
+            [req for _, req, _ in batch], [v.state for v in vehs], prepared)
+        nu = host.shape[-1] - self.nx - 1
+        for veh, st, (_, req, fut), row in zip(vehs, states, batch, host):
+            veh.state = st
+            # a batched tick advanced the warm start: a QP prepared before
+            # it is stale, and the next solo tick takes the full step
+            veh.prepared_qp = None
+            self._reply(fut, req, int(row[-1]), row[:nu],
+                        row[nu:nu + self.nx])
+        if self.rti_split and args is not None:
+            # preparation phase for the next tick, after the reply is on
+            # its way
+            vehs[0].prepared_qp = self.solver.prepare_fn(vehs[0].state,
+                                                         *args)
 
     @staticmethod
     def _reply(fut, req, status, u0, x1):
@@ -485,11 +631,18 @@ class RTServer:
 
 def resolve_engine_args(riccati=None, centering=None, ipm_iters=None,
                         extra_iters=None, mu0=None, stall_tol=None,
-                        ipm_tol=None):
+                        ipm_tol=None, engine="lane"):
     """Resolve unset server CLI engine flags to the production schedule
     (`config.production_engine()`); explicit values pass through.  `mu0`
-    is a float or "auto" (a string from the command line is parsed)."""
+    is a float or "auto" (a string from the command line is parsed).  For
+    `engine="vmap"` an unset centering is "fixed" and an unset
+    extra_iters 0, as in the JAX server (the preset's adaptive centering
+    and escalation are lane-engine-only).  The result holds the IPM
+    schedule's arguments of `RTServer` and `LaneRTISolver`."""
     eng = dataclasses.asdict(production_engine())
+    del eng["engine"], eng["qp_backend"]
+    if engine == "vmap":
+        eng.update(centering="fixed", extra_iters=0)
     given = dict(riccati=riccati, centering=centering, ipm_iters=ipm_iters,
                  extra_iters=extra_iters, mu0=mu0, stall_tol=stall_tol,
                  ipm_tol=ipm_tol)
@@ -509,14 +662,13 @@ async def _serve(server: RTServer):
 def main(argv=None):
     import argparse
     parser = argparse.ArgumentParser(
-        description="NMPC real-time server (PyTorch port, lane engine)",
+        description="NMPC real-time server (PyTorch port)",
         epilog="The JAX server's --platform, --linearize and --warm-all "
                "have no counterpart: the device picks the kernels (the "
                "CUDA kernels on a CUDA device, their plain PyTorch "
-               "versions on the CPU) and there is one tick to warm.  Its "
+               "versions on the CPU) and no bucket needs a compile.  Its "
                "--riccati lax and pallas are --riccati sweep here; its "
-               "--riccati pscan (ROADMAP A8) and --engine vmap (ROADMAP "
-               "A7) are not ported yet.")
+               "--riccati pscan (ROADMAP A8) is not ported yet.")
     parser.add_argument("socket", nargs="?",
                         default=os.path.join(tempfile.gettempdir(),
                                              "nmpc_rt.sock"),
@@ -537,6 +689,12 @@ def main(argv=None):
     parser.add_argument("--tf", type=float, default=None,
                         help="horizon length in seconds (default: the "
                              "model builder's own value)")
+    parser.add_argument("--engine", default="lane",
+                        choices=("lane", "vmap"),
+                        help="fleet compute path: lane (fixed-width lane "
+                             "engine, flat tick cost, the default) or vmap "
+                             "(the per-instance engine over each window's "
+                             "requests, padded to power-of-two buckets)")
     # engine flags default to None = the production schedule
     # (config.production_engine()); explicit flags override single fields
     parser.add_argument("--ipm-iters", type=int, default=None)
@@ -561,7 +719,7 @@ def main(argv=None):
                              "kernel; needs --centering fixed, a float "
                              "--mu0 and --extra-iters 0)")
     parser.add_argument("--max-batch", type=int, default=128,
-                        help="lane width: vehicles served at once")
+                        help="vehicles served at once (the lane width)")
     parser.add_argument("--rti-split", action="store_true",
                         help="acados-style RTI preparation/feedback split: "
                              "linearize for the next tick right after "
@@ -573,14 +731,14 @@ def main(argv=None):
         parser.error(str(exc))
     eng = resolve_engine_args(args.riccati, args.centering, args.ipm_iters,
                               args.extra_iters, args.mu0, args.stall_tol,
-                              args.ipm_tol)
+                              args.ipm_tol, engine=args.engine)
     # unset -N/--tf resolve to the served model's own (Tf, N)
     sig = inspect.signature(builders.BUILDERS[args.model]).parameters
     N = args.N if args.N is not None else sig["N"].default
     Tf = args.tf if args.tf is not None else sig["Tf"].default
     server = RTServer(args.socket, N=N, Tf=Tf, max_batch=args.max_batch,
                       rti_split=args.rti_split, model=args.model,
-                      device=device, **eng)
+                      engine=args.engine, device=device, **eng)
     server.warmup()
     asyncio.run(_serve(server))
 

@@ -705,3 +705,131 @@ def test_capture_that_syncs_raises(card, monkeypatch):
     with pytest.raises(RuntimeError):
         solver.step_fn(solver.init_state(x0s), *lanes)
     assert capture.launches == n0 and not solver._graphs.programs
+
+
+# ---------------------------------------------------------------------------
+# the per-instance engine's routes to K1 and K2
+
+def _instance_lqr(N, nx, nu, batch, dtype, device, seed=0):
+    from mpc_collisionavoidance_tpu_torch.ops.riccati import LQRData
+    rng = np.random.default_rng(seed)
+
+    def arr(*shape):
+        return rng.standard_normal(batch + shape) * 0.3
+
+    Qr = rng.standard_normal(batch + (N + 1, nx, nx)) * 0.2
+    Rr = rng.standard_normal(batch + (N, nu, nu)) * 0.2
+    fields = (0.9 * np.eye(nx) + 0.05 * rng.standard_normal(
+                  batch + (N, nx, nx)),
+              arr(N, nx, nu), arr(N, nx),
+              Qr @ np.swapaxes(Qr, -1, -2) + 0.5 * np.eye(nx),
+              arr(N, nu, nx) * 0.1,
+              Rr @ np.swapaxes(Rr, -1, -2) + 0.5 * np.eye(nu),
+              arr(N + 1, nx), arr(N, nu), arr(nx))
+    return LQRData(*(torch.tensor(f, dtype=dtype, device=device)
+                     for f in fields))
+
+
+@pytest.mark.parametrize("nx,nu", [(8, 1), (14, 2), (6, 2)])
+@pytest.mark.parametrize("batch", [(), (3,), (2, 5)])
+def test_instance_lqr_route_matches_plain(card, nx, nu, batch):
+    """`ops/riccati.py::lqr_solve` on the card (the batch flattened onto
+    K1's lanes) against its plain stage loop on the card; one K1 launch."""
+    from mpc_collisionavoidance_tpu_torch.ops.riccati import (
+        lqr_solve, lqr_solve_plain)
+    for dtype in (torch.float32, torch.float64):
+        d = _instance_lqr(20, nx, nu, batch, dtype, card)
+        n0 = riccati.launches
+        got = lqr_solve(d, reg=0.1)
+        assert riccati.launches == n0 + 1
+        want = lqr_solve_plain(d, reg=0.1)
+        rtol, atol = TOLS[dtype]
+        for g, w in zip(got, want):
+            assert g.shape == w.shape
+            torch.testing.assert_close(g, w, rtol=rtol, atol=atol)
+
+
+def test_instance_lqr_without_a_k1_instance_raises(card):
+    from mpc_collisionavoidance_tpu_torch.ops.riccati import lqr_solve
+    with pytest.raises(ValueError, match="no instance"):
+        lqr_solve(_instance_lqr(4, 3, 1, (2,), torch.float64, card))
+
+
+@pytest.mark.parametrize("qp_backend", ["riccati", "dense"])
+def test_instance_ticks_on_card_match_cpu(card, qp_backend):
+    """Three float64 ticks of `RTISolver.step_fn` at B=4 on the card (K2
+    per tick, K1 per IPM iteration on the Riccati backend) against the
+    CPU plain path, atol 1e-10, identical status."""
+    from mpc_collisionavoidance_tpu_torch.solver.sqp_rti import RTISolver
+    sc = scenarios.guidance_ca1_default()
+    spec = builders.usv_guidance_ca1(Tf=2.0, N=25)
+    x0s = np.broadcast_to(sc.x0, (4, 8)).copy()
+    x0s[:, 2] += np.linspace(-0.5, 0.5, 4)
+    outs = []
+    for device in (card, "cpu"):
+        solver = RTISolver(spec, qp_backend=qp_backend, device=device,
+                           dtype=torch.float64)
+        st, x = solver.init_state(x0s), torch.tensor(x0s, device=device)
+        n0 = (riccati.launches, linearize.launches)
+        ticks = []
+        for _ in range(3):
+            st, out = solver.step_fn(st, x, sc.params, sc.lh)
+            ticks.append(out)
+            x = out.x1
+        outs.append(ticks)
+        if device == card:
+            assert linearize.launches - n0[1] == 3
+            assert riccati.launches - n0[0] == (
+                3 * 18 if qp_backend == "riccati" else 0)
+    for got, want in zip(*outs):
+        for field in ("u0", "x1", "xtraj", "qp_gap"):
+            torch.testing.assert_close(getattr(got, field).cpu(),
+                                       getattr(want, field), rtol=0,
+                                       atol=1e-10)
+        assert torch.equal(got.status.cpu(), want.status)
+
+
+def test_vmap_server_on_card_serves(card, tmp_path):
+    """`RTServer(engine="vmap")` on the card: a solo tick and a batched
+    tick of two vehicles reply status 0 or 1 with finite numbers."""
+    import asyncio
+    import contextlib
+    import socket
+    import threading
+
+    from mpc_collisionavoidance_tpu_torch.rt import protocol
+    from mpc_collisionavoidance_tpu_torch.rt.server import RTServer
+    server = RTServer(str(tmp_path / "v.sock"), N=20, Tf=1.0, ipm_iters=8,
+                      max_batch=4, engine="vmap", batch_window_ms=100.0,
+                      device=card)
+    server.warmup()
+    loop = asyncio.new_event_loop()
+    thread = threading.Thread(target=loop.run_forever, daemon=True)
+    thread.start()
+    x0 = (0.7, 0.0, -4.0, -1.5708, -1.5708, 0.0, 0.0, 0.0)
+    try:
+        asyncio.run_coroutine_threadsafe(server.start(), loop).result(60)
+        for n_vehicles in (1, 2):
+            with contextlib.ExitStack() as stack:
+                socks = []
+                for _ in range(n_vehicles):
+                    s = socket.socket(socket.AF_UNIX, socket.SOCK_STREAM)
+                    s.settimeout(120)
+                    s.connect(server.path)
+                    socks.append(stack.enter_context(contextlib.closing(s)))
+                for k, s in enumerate(socks):
+                    s.sendall(protocol.pack_request(protocol.Request(
+                        seq=k, x0=x0, p_obs=(100.0,) * 16,
+                        r_obs=(0.0,) * 8)))
+                for k, s in enumerate(socks):
+                    buf = b""
+                    while len(buf) < protocol.RESP_SIZE:
+                        buf += s.recv(protocol.RESP_SIZE - len(buf))
+                    resp = protocol.unpack_response(buf)
+                    assert resp.seq == k and resp.status in (0, 1)
+                    assert np.all(np.isfinite(resp.x1))
+    finally:
+        asyncio.run_coroutine_threadsafe(server.stop(), loop).result(60)
+        loop.call_soon_threadsafe(loop.stop)
+        thread.join(60)
+        loop.close()

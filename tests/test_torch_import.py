@@ -64,3 +64,43 @@ def test_rt_server_help_with_jax_blocked():
                           capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stderr
     assert "--rti-split" in proc.stdout and "--device" in proc.stdout
+    assert "--engine" in proc.stdout
+
+
+# the per-instance engine's modules (ROADMAP A7)
+INSTANCE_MODULES = {
+    f"mpc_collisionavoidance_tpu_torch.{m}" for m in (
+        "ops.integrators", "ops.riccati", "ops.linearize", "ops.ipm",
+        "ops.condense", "ops.dense_qp", "solver.sqp_rti", "parity.goldens")}
+
+
+def test_instance_engine_runs_with_jax_blocked():
+    """In a fresh interpreter where `import jax` fails, the per-instance
+    engine's modules import, an RTI tick of each QP backend runs on the
+    CPU and a committed golden loads; jax never enters sys.modules."""
+    assert INSTANCE_MODULES <= set(MODULES)
+    code = "\n".join([
+        "import sys",
+        "sys.modules['jax'] = None",
+        "sys.modules['mpc_collisionavoidance_tpu'] = None",
+        "import numpy as np, torch",
+        "from mpc_collisionavoidance_tpu_torch.config import SolverConfig",
+        "from mpc_collisionavoidance_tpu_torch.ocp import builders",
+        "from mpc_collisionavoidance_tpu_torch.parity import goldens",
+        "spec = builders.usv_guidance_ca1(Tf=1.0, N=5)",
+        "for backend in ('riccati', 'dense'):",
+        "    s = SolverConfig(engine='instance', ipm_iters=4,",
+        "                     qp_backend=backend).build(",
+        "        spec, device='cpu', dtype=torch.float64)",
+        "    x0 = np.array([0.7, 0, -4.0, -1.57, -1.57, 0, 0, 0])",
+        "    _, out = s.step_fn(s.init_state(x0), x0, np.full(16, 100.0),",
+        "                       np.zeros(8))",
+        "    assert torch.isfinite(out.u0).all()",
+        "assert goldens.load_golden('usv_guidance_ca1', 'rti').simU.shape",
+        "assert 'jax' not in [m for m in sys.modules if sys.modules[m]]",
+        "print('ok')",
+    ])
+    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.strip() == "ok"

@@ -67,6 +67,9 @@ def test_production_schedule_matches_jax():
     ours = dataclasses.asdict(production_engine())
     # the per-iteration sweep backend, JAX's "lax"/"pallas"
     assert ours.pop("riccati") == "sweep"
+    pe = jconfig.production_engine("cpu")
+    assert (ours.pop("engine"), ours.pop("qp_backend")) == (pe.engine,
+                                                           pe.qp_backend)
     assert ours == _jax_production_kw()
 
 

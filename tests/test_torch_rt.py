@@ -397,11 +397,69 @@ def test_server_v2_wire_yref_reaches_the_lane(tmp_path):
 
 
 def test_unported_engine_and_model_raise(tmp_path):
-    with pytest.raises(NotImplementedError, match="A7"):
-        RTServer(str(tmp_path / "x.sock"), engine="vmap", device="cpu")
+    """An engine or a model that no one ported is refused by name."""
+    with pytest.raises(ValueError, match="engine"):
+        RTServer(str(tmp_path / "x.sock"), engine="pscan", device="cpu")
     with pytest.raises(ValueError, match="usv_pf_ca"):
         RTServer(str(tmp_path / "x.sock"), model="no_such_model",
                  device="cpu")
+
+
+def test_vmap_engine_rejects_lane_only_schedules(tmp_path):
+    """As the JAX server: adaptive centering and stall escalation are the
+    lane engine's; so is the fused whole-IPM kernel."""
+    for kw, match in (({"centering": "adaptive"}, "adaptive"),
+                      ({"extra_iters": 4}, "extra_iters"),
+                      ({"riccati": "fused"}, "fused")):
+        with pytest.raises(ValueError, match=match):
+            RTServer(str(tmp_path / "x.sock"), engine="vmap", device="cpu",
+                     **kw)
+
+
+def _fleet_loop(address, n_vehicles, ticks):
+    """`ticks` lockstep closed-loop v1 ticks of `n_vehicles` vehicles, each
+    on its own connection (ye spread over [-4, 2]); the server's 200 ms
+    window batches each tick's requests.  Replies per vehicle."""
+    yes = np.linspace(-4.0, 2.0, n_vehicles)
+    xs = [(0.7, 0.0, float(ye), -AK, -AK, 0.0, 0.0, 0.0) for ye in yes]
+    out = [[] for _ in xs]
+    with contextlib.ExitStack() as stack:
+        socks = [stack.enter_context(contextlib.closing(_connect(address)))
+                 for _ in xs]
+        for k in range(ticks):
+            for s, x in zip(socks, xs):
+                s.sendall(protocol.pack_request(protocol.Request(
+                    seq=k, x0=tuple(x), p_obs=SENTINEL_P, r_obs=NO_R)))
+            for i, s in enumerate(socks):
+                out[i].append(protocol.unpack_response(
+                    _read(s, protocol.RESP_SIZE)))
+            xs = [r[-1].x1 for r in out]
+    return out
+
+
+@pytest.mark.parametrize("fleet,rti_split", [(1, False), (1, True),
+                                              (3, False)])
+def test_vmap_server_matches_jax_vmap_server(tmp_path, fleet, rti_split):
+    """The per-instance ("vmap") engine over the wire: one vehicle (the
+    solo path; under rti_split its feedback ticks) or a fleet of 3 in
+    lockstep (one batched tick per window, padded to a bucket of 4),
+    5 closed-loop ticks through the JAX package's vmap server and the
+    port's, identical arguments, both float32: identical statuses, u0/x1
+    within the lane servers' 1e-6 (measured within 9e-8)."""
+    from mpc_collisionavoidance_tpu.rt.server import RTServer as JaxServer
+    kw = dict(N=20, Tf=1.0, ipm_iters=6, max_batch=4, engine="vmap",
+              batch_window_ms=200.0, rti_split=rti_split)
+    replies, ticks = [], []
+    for server in (JaxServer(str(tmp_path / "j.sock"), **kw),
+                   RTServer(str(tmp_path / "t.sock"), device="cpu", **kw)):
+        with _Serving(server) as srv:
+            n0 = len(server.solve_ms)
+            replies.append(_fleet_loop(srv.address, fleet, 5))
+            ticks.append(len(server.solve_ms) - n0)
+    assert ticks == [5, 5]          # one device tick per lockstep tick
+    for ours, ref in zip(*reversed(replies)):
+        assert all(r.status in (0, 1) for r in ours)
+        _assert_replies_close(ours, ref, atol=1e-6)
 
 
 def test_cuda_device_missing_is_an_error(tmp_path):

@@ -74,6 +74,7 @@ def test_prepare_feedback_matches_jax(name):
     x0s, x_meas, p, lh, yref, yref_e = _inputs(name, 1)
     eng = dataclasses.asdict(production_engine())
     eng.pop("riccati")                 # the sweep backend, JAX's "lax"
+    del eng["engine"], eng["qp_backend"]   # the engine choice, not its args
     js = JaxLane(jbuilders.build(name, Tf=Tf, N=N), **eng)
     jst = js.init_state(x0s, dtype=jnp.float64)
     jqp = js.prepare_fn(jst, jnp.asarray(p), jnp.asarray(lh),
