@@ -166,6 +166,37 @@ thirteen models.  Phases:
     tick's median and p99 over 20 ticks and its K1/K2 launches per tick
     at B=1 and 64, float32, for the flagship and the hull on both QP
     backends, printed.
+17. the guidance stack (`guidance/`, `sim/`), eager around the solvers'
+    ticks: (a) perception (LiDAR cull, top-8 intake) and the waypoint
+    manager at B=512 on the card vs the CPU, float32 (atol 1e-5) and
+    float64 (atol 1e-12), identical slot rows, k and active; (b) the main
+    path of the slice: `FleetMissionEngine` with the flagship (N=100,
+    Tf=5) at B=512 on the captured production tick, float32, over 512
+    random 1000-tick missions (`random_missions`, a numpy copy of
+    tests/test_random_missions.py whose first 20 are that test's), gated
+    on its gates (finite, every mission past its first segment, >= 90%
+    done, status-0 share > 0.98, the first 20 within the 0.2 m soft
+    clearance band; the other 492's breaches counted and named), K2 one
+    and K1 at least 4 per tick, the tick's median/p99 and the share of it
+    outside the solver's graph; (c) the same fleet on the fused tick (K3
+    and K2 one per tick, K1 none; gates printed); (d) the fleet in
+    float64 on the card vs the CPU at B=32 for 20 ticks (atol 5e-6,
+    identical status), and its captured log against an eager one,
+    bitwise; (e) one boat: `GuidanceController` on `LaneSolverAdapter`
+    flies the challenge-0 mission for 1200 ticks (completes within 1.2 m
+    of the last waypoint, buoy clearance > 1.3 m, no collision, tick p99
+    < 50 ms, each tick synced), its captured log equals an eager one, and
+    on `RTISolver` float64 card vs CPU for 20 ticks at 1e-8 (K1 18, K2 1
+    per tick); (f) the cascade (guidance on the adapter, `usv_low_level`
+    N=100 on `RTISolver`), 40 guidance ticks (200 inner) in float32, both
+    loops' p50/p99 printed beside 50 and 10 ms, and 5 guidance ticks
+    float64 card vs CPU at 1e-6; (g) `PFController` (usv_pf, N=100),
+    `ThrustMPCController` (usv_acados, N=20) and the six variant nodes
+    (N=100), 20 ticks each float64 card vs CPU at 1e-6 with identical
+    status, and their float32 eager ticks beside each node's budget.
+    The float64 CPU runs of (d)-(g) run in one worker process (spawned,
+    one thread, joined before (d)) while the card runs (a)-(c) and the
+    boat's mission.
 
 Each main path is driven with every launch count set to 0 just before and
 read just after (phase 16's goldens, server and timed ticks each so), the
@@ -2086,6 +2117,707 @@ def instance_engine(card):
     return counts
 
 
+# ---- phase 17: the guidance stack ----
+
+MISSION_TICKS = 1000         # the reference harness length (main.py:116)
+MISSION_SEED = 42            # tests/test_random_missions.py's seed
+MISSION_N_WP = 4
+MISSION_FIRST = 20           # the JAX slow test's missions
+BOAT_R, SOFT_BAND = 0.5, 0.2
+FLEET_CPU_B, FLEET_CPU_TICKS = 32, 20
+BOAT_TICKS = 1200            # tests/test_guidance.py's challenge-0 mission
+BOAT_BUDGET_MS = 50.0        # the flagship node at 20 Hz
+CASCADE_TICKS = 40
+CASCADE_CPU_TICKS = 5
+NODE_TICKS = 20
+CHALLENGE0_WPS = ((4.0, -5.0), (4.0, 25.0))
+# 17g's nodes with each one's budget in ms (phases 12 and 13)
+NODE_BUDGET_MS = {PF: FAMILY_BUDGET_MS[PF],
+                  ACADOS: FAMILY_BUDGET_MS[ACADOS], **GUIDANCE_BUDGET_MS}
+
+
+def random_missions(Bn, rng):
+    """tests/test_random_missions.py:33-94 in numpy, for `Bn` missions:
+    random 4-waypoint polylines (3 legs of 4-8 m turning up to 60 deg)
+    and per-mission fields of 12-24 passable buoys, more than 8 visible
+    at once.  A mission's draws do not depend on Bn, so the first 20 at
+    seed 42 are the JAX slow test's.  One change: a mission whose field
+    starves (fewer than 9 buoys placed in 500 attempts, which the JAX test
+    asserts does not happen in its 20) is drawn again from the stream
+    (at seed 42, mission 376 of 512).  Returns waypoints (Bn, 4, 2),
+    fields (Bn, M, 3) float32, masks (Bn, M), and the five (Bn,)
+    measurement arrays (u, v, nedx, nedy, psi)."""
+    from mpc_collisionavoidance_tpu_torch.sim.scenarios import FIELD_CAPACITY
+    wps = np.zeros((Bn, MISSION_N_WP, 2))
+    fields = np.zeros((Bn, FIELD_CAPACITY, 3), np.float32)
+    valid = np.zeros((Bn, FIELD_CAPACITY), bool)
+    psi0 = np.zeros(Bn)
+    for b in range(Bn):
+        rows = []
+        while len(rows) < 9:
+            heading = rng.uniform(-np.pi, np.pi)
+            psi0[b] = heading
+            p = np.zeros(2)
+            wps[b, 0] = p
+            for k in range(1, MISSION_N_WP):
+                if k > 1:
+                    heading += rng.uniform(-np.pi / 3, np.pi / 3)
+                p = p + rng.uniform(4.0, 8.0) * np.array(
+                    [np.cos(heading), np.sin(heading)])
+                wps[b, k] = p
+            n_obs = rng.integers(12, 25)
+            rows = []
+            attempts = 0
+            while len(rows) < n_obs and attempts < 500:
+                attempts += 1
+                leg = rng.integers(0, MISSION_N_WP - 1)
+                t = rng.uniform(0.1, 0.9)
+                c = wps[b, leg] * (1 - t) + wps[b, leg + 1] * t
+                d = wps[b, leg + 1] - wps[b, leg]
+                n = np.array([-d[1], d[0]]) / (np.linalg.norm(d) + 1e-9)
+                pos = c + rng.normal(0.0, 1.5) * n
+                r = rng.uniform(0.1, 0.3)
+                if np.min(np.linalg.norm(wps[b] - pos, axis=1)) < 2.0 + r:
+                    continue
+                if np.linalg.norm(wps[b, 0] - pos) < 4.0:
+                    continue
+                if any(np.linalg.norm(pos - np.asarray(q[:2]))
+                       < r + q[2] + 1.8 for q in rows):
+                    continue
+                rows.append((pos[0], pos[1], r))
+        fields[b, :len(rows)] = np.asarray(rows, np.float32)
+        valid[b, :len(rows)] = True
+    meas0 = (np.full(Bn, 0.7, np.float32), np.zeros(Bn, np.float32),
+             wps[:, 0, 0].astype(np.float32),
+             wps[:, 0, 1].astype(np.float32), psi0.astype(np.float32))
+    return wps, fields, valid, meas0
+
+
+def _slot_rows(slots, fields, valid):
+    """The field row each obstacle slot holds (-1 for a sentinel slot):
+    the valid row nearest the slot's NED centre."""
+    p = slots.p_obs.double().cpu().numpy().reshape(len(fields), -1, 2)
+    d = np.linalg.norm(p[:, :, None, :] - fields[:, None, :, :2], axis=-1)
+    d = np.where(valid[:, None, :], d, np.inf)
+    return np.where(slots.r_obs.cpu().numpy() > 0, d.argmin(-1), -1)
+
+
+def guidance_perception():
+    """17a: perception and the waypoint manager at B=512 on the card vs
+    the CPU, on 17b's missions (a pose on each polyline; 40 waypoint
+    ticks walking 1.2 m toward the target, past the finish): identical
+    slot rows, k and active; values float32 atol 1e-5, float64 atol
+    1e-12.  (float32: the card's sin/cos/atan2/hypot differ from the
+    CPU's by an ulp, and the coordinates, up to ~30 m, round at 1.9e-6 an
+    ulp: perceive's float32 slot centres differ from its float64 ones by
+    up to 1.9e-6 on these fields on the CPU alone.)"""
+    import torch
+
+    from mpc_collisionavoidance_tpu_torch.guidance import (obstacles,
+                                                           waypoints)
+    wps, fields, valid, meas0 = random_missions(
+        B, np.random.default_rng(MISSION_SEED))
+    rng = np.random.default_rng(SEED)
+    rows = np.arange(B)
+    leg = rng.integers(0, MISSION_N_WP - 1, B)
+    t = rng.uniform(0.0, 1.0, B)[:, None]
+    pose = np.column_stack([wps[rows, leg] * (1 - t)
+                            + wps[rows, leg + 1] * t,
+                            rng.uniform(-np.pi, np.pi, B)])
+    n_wp = np.full(B, MISSION_N_WP)
+    for dtype, atol in ((torch.float32, 1e-5), (torch.float64, 1e-12)):
+        def on(dev):
+            return lambda a: torch.as_tensor(np.asarray(a), dtype=dtype,
+                                             device=dev)
+        slots = {dev: obstacles.perceive(
+            on(dev)(fields), torch.as_tensor(valid, device=dev),
+            *map(on(dev), pose.T)) for dev in (DEVICE, "cpu")}
+        got, want = slots[DEVICE], slots["cpu"]
+        same_rows = np.array_equal(_slot_rows(got, fields, valid),
+                                   _slot_rows(want, fields, valid))
+        _check_close(f"17a perceive {dtype}",
+                     (got.p_obs.cpu(), got.r_obs.cpu()),
+                     (want.p_obs, want.r_obs), 0.0, atol)
+        flags = (torch.equal(got.collision.cpu(), want.collision)
+                 and torch.equal(got.n_visible.cpu(), want.n_visible))
+        states = {dev: waypoints.mission_init(on(dev)(wps), n_wp,
+                                              on(dev)(meas0[4]))
+                  for dev in (DEVICE, "cpu")}
+        xy = wps[:, 0].copy()
+        werr, same_k = 0.0, True
+        for _ in range(40):
+            frames = {}
+            for dev in (DEVICE, "cpu"):
+                states[dev], frames[dev] = waypoints.waypoint_manager(
+                    states[dev], on(dev)(wps), n_wp,
+                    on(dev)(xy[:, 0]), on(dev)(xy[:, 1]))
+            sg, sw = states[DEVICE], states["cpu"]
+            same_k &= (torch.equal(sg.k.cpu(), sw.k)
+                       and torch.equal(sg.active.cpu(), sw.active))
+            fg, fw = frames[DEVICE], frames["cpu"]
+            pairs = [(getattr(fg, f).cpu(), getattr(fw, f))
+                     for f in ("x1", "y1", "ak", "ye", "target", "u_d")]
+            pairs.append((sg.past_psied.cpu(), sw.past_psied))
+            _check_close(f"17a waypoint_manager {dtype}",
+                         *zip(*pairs), 0.0, atol)
+            werr = max(werr, _max_err(*zip(*pairs)))
+            d = fw.target.double().numpy() - xy
+            xy = xy + 1.2 * d / np.maximum(
+                np.linalg.norm(d, axis=1), 1e-9)[:, None]
+        done = float((~states["cpu"].active).double().mean())
+        n_vis = want.n_visible.numpy()
+        print(f"17a perception B={B} {dtype}: slot rows identical "
+              f"{same_rows}, max |dp_obs| "
+              f"{float((got.p_obs.cpu() - want.p_obs).abs().max()):.3e}, "
+              f"collision/n_visible identical {flags} (more than 8 visible "
+              f"in {float((n_vis > 8).mean()):.3f}); waypoint_manager 40 "
+              f"ticks: k/active identical {same_k}, max |err| {werr:.3e}, "
+              f"finished {done:.3f}")
+        if not (same_rows and flags and same_k):
+            raise AssertionError(f"17a {dtype}: the card's selection or "
+                                 "mission state differs from the CPU's")
+
+
+def _timed_calls(obj, name, store):
+    """Record CUDA events around every call of obj.<name> (no sync)."""
+    import torch
+    fn = getattr(obj, name)
+
+    def run(*args, **kw):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = fn(*args, **kw)
+        end.record()
+        store.append((start, end))
+        return out
+
+    setattr(obj, name, run)
+
+
+def _event_ms(store):
+    _sync()
+    return np.array([s.elapsed_time(e) for s, e in store])
+
+
+def _instrumented(obj, name, times, counts):
+    """Wrap obj.<name>: each call runs from an idle device to a synced
+    result (a node reads its command back every tick), its CUDA-event time
+    goes to `times`, and the kernel launches it made to `counts` (a list
+    of per-call dicts)."""
+    import torch
+    fn = getattr(obj, name)
+
+    def run(*args, **kw):
+        before = _read_counts()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = fn(*args, **kw)
+        end.record()
+        after = _read_counts()
+        times.append(start.elapsed_time(end))
+        counts.append({k: after[k] - before[k] for k in after})
+        return out
+
+    setattr(obj, name, run)
+
+
+def _summed(per_call):
+    return {k: sum(c[k] for c in per_call) for k in per_call[0]}
+
+
+def _pcts(ms):
+    return float(np.percentile(ms, 50)), float(np.percentile(ms, 99))
+
+
+def fleet_mission(card, label, config, gated):
+    """17b (production schedule, `gated`) and 17c (`riccati="fused"`): the
+    flagship fleet at B=512, N=100, Tf=5, float32, captured tick, over
+    the 512 random missions for 1000 ticks.  Launches over the run: K2 one
+    per tick; K1 at least 4 per tick and K3 none (sweep), K3 one and K1
+    none (fused).  The JAX slow test's gates, enforced when `gated`:
+    finite, every k_final >= 2, done >= 0.9, status-0 share > 0.98, and
+    clearance > -(0.2 + 1e-3) on the first 20 missions (the others'
+    breaches counted).  Tick median/p99 (CUDA events, no sync per tick)
+    and the share of the tick outside the solver's graph.  Returns (launch
+    counts, the missions beyond the first 20 that breach)."""
+    import torch
+
+    from mpc_collisionavoidance_tpu_torch.ocp import builders
+    from mpc_collisionavoidance_tpu_torch.sim.fleet import FleetMissionEngine
+    wps, fields, valid, meas0 = random_missions(
+        B, np.random.default_rng(MISSION_SEED))
+    n_wp = np.full(B, MISSION_N_WP)
+    engine = FleetMissionEngine(builders.usv_guidance_ca1(), config,
+                                device=DEVICE, dtype=torch.float32)
+    engine.run(meas0, wps, n_wp, fields, valid, n_steps=2)   # captures
+    ticks, solves = [], []
+    _timed_calls(engine, "tick", ticks)
+    _timed_calls(engine.solver, "step_fn", solves)
+    _reset_counts()
+    t0 = time.perf_counter()
+    log = engine.run(meas0, wps, n_wp, fields, valid, n_steps=MISSION_TICKS)
+    counts = _read_counts()
+    wall = time.perf_counter() - t0
+    tick_ms, solve_ms = _event_ms(ticks), _event_ms(solves)
+
+    f = torch.as_tensor(fields, dtype=torch.float64, device=DEVICE)
+    pos = log.pos.double()                                   # (T, B, 2)
+    net = torch.linalg.norm(pos[:, :, None, :] - f[None, :, :, :2], dim=-1)
+    net = torch.where(torch.as_tensor(valid, device=DEVICE)[None],
+                      net - (f[None, :, :, 2] + BOAT_R), torch.inf)
+    worst = net.amin(dim=(0, 2)).cpu().numpy()               # (B,)
+    finite = bool(torch.isfinite(log.pos).all())
+    k_final = log.final.mission_k.cpu().numpy()
+    done = float((~log.active[-1]).float().mean())
+    ok_frac = float((log.status == 0).float().mean())
+    bound = -(SOFT_BAND + 1e-3)
+    first_ok = bool((worst[:MISSION_FIRST] > bound).all())
+    breach = [int(b) for b in np.nonzero(worst <= bound)[0]
+              if b >= MISSION_FIRST]
+    per_tick = {k: v / MISSION_TICKS for k, v in counts.items()}
+    glue = 1.0 - solve_ms.sum() / tick_ms.sum()
+    tp50, tp99 = _pcts(tick_ms)
+    print(f"17{label} fleet B={B} {engine.solver.riccati} float32 "
+          f"{MISSION_TICKS} ticks: tick p50 {tp50:.3f} ms p99 {tp99:.3f} ms "
+          f"(solver graph p50 {np.median(solve_ms):.3f} ms; outside it "
+          f"{glue:.3f} of the tick), {wall:.1f} s, launches per tick "
+          f"K1 {per_tick['riccati_lanes']:g}, K2 "
+          f"{per_tick['linearize_lanes']:g}, K3 "
+          f"{per_tick['fused_ipm_lanes']:g} ({card})")
+    print(f"17{label} gates{'' if gated else ' (printed, not enforced)'}: "
+          f"finite {finite}, min k_final {int(k_final.min())}, done "
+          f"{done:.4f}, status-0 {ok_frac:.4f}, first {MISSION_FIRST} "
+          f"worst clearance {worst[:MISSION_FIRST].min():.4f} (gate > "
+          f"{bound}), the other {B - MISSION_FIRST}: {len(breach)} breach "
+          f"{breach}, worst {worst[MISSION_FIRST:].min():.4f}")
+    if engine.solver.riccati == "fused":
+        launches_ok = (counts["fused_ipm_lanes"] == MISSION_TICKS
+                       and counts["linearize_lanes"] == MISSION_TICKS
+                       and counts["riccati_lanes"] == 0)
+    else:
+        launches_ok = (counts["riccati_lanes"] >= 4 * MISSION_TICKS
+                       and counts["linearize_lanes"] == MISSION_TICKS
+                       and counts["fused_ipm_lanes"] == 0)
+    if not launches_ok:
+        raise AssertionError(f"17{label}: launch counts {counts}")
+    if not finite:
+        raise AssertionError(f"17{label}: non-finite track")
+    if gated and not (k_final.min() >= 2 and done >= 0.9 and ok_frac > 0.98
+                      and first_ok):
+        raise AssertionError(f"17{label}: the random-mission gates failed")
+    return counts, breach
+
+
+def _fleet_logs(dtype, device, capture, Bn, ticks):
+    """The fleet log's six streams (pos, ye, psi_d, active, collision,
+    status) of the first `Bn` random missions, production schedule."""
+    import torch
+
+    from mpc_collisionavoidance_tpu_torch.ocp import builders
+    from mpc_collisionavoidance_tpu_torch.sim.fleet import FleetMissionEngine
+    wps, fields, valid, meas0 = random_missions(
+        Bn, np.random.default_rng(MISSION_SEED))
+    engine = FleetMissionEngine(builders.usv_guidance_ca1(), _production(),
+                                device=device, dtype=dtype, capture=capture)
+    log = engine.run(meas0, wps, np.full(Bn, MISSION_N_WP), fields, valid,
+                     n_steps=ticks)
+    return [t.cpu() for t in log[:6]]
+
+
+def cpu_references(fleet_b, fleet_ticks, node_ticks, cascade_ticks):
+    """The float64 CPU runs that 17d-17g hold the card against, as numpy:
+    `guidance_stack` runs this in a worker process while the card runs
+    17a-17c.  Each node run (17g) closes its own loop; the card replays
+    the measurements it was fed."""
+    import torch
+    torch.set_num_threads(1)
+    f64 = torch.float64
+    ref = {"17d": [t.numpy() for t in _fleet_logs(f64, "cpu", True, fleet_b,
+                                                   fleet_ticks)],
+           "17e": [t.numpy() for t in _mission_tensors(_challenge0(
+               _instance_boat("cpu"), node_ticks))],
+           "17f": [t.double().numpy() for t in _run_cascade(
+               *_cascade_controllers("cpu", f64), cascade_ticks)]}
+    for name in NODE_BUDGET_MS:
+        ref[name] = _node_run(name, "cpu", f64, node_ticks)[:2]
+    return ref
+
+
+def _torch_list(arrays):
+    import torch
+    return [torch.as_tensor(a) for a in arrays]
+
+
+def fleet_card_vs_cpu(ref):
+    """17d: the first 32 random missions, production schedule, 20 ticks:
+    float64 on the card vs the CPU plain path (`ref`; pos/ye/psi_d atol
+    5e-6, identical status); the captured fleet's log against the eager
+    one's (`capture=False`), float64 and float32, bitwise (the log copies
+    what it keeps of the captured tick's outputs)."""
+    import torch
+    got = _fleet_logs(torch.float64, DEVICE, True, FLEET_CPU_B,
+                      FLEET_CPU_TICKS)
+    want = _torch_list(ref)
+    err = _max_err(got[:3], want[:3])
+    same_status = torch.equal(got[5], want[5])
+    print(f"17d fleet B={FLEET_CPU_B} float64 card vs CPU "
+          f"{FLEET_CPU_TICKS} ticks: max |err| pos/ye/psi_d {err:.3e}, "
+          f"status identical {same_status}")
+    if err > 5e-6 or not same_status:
+        raise AssertionError("17d: the card's fleet disagrees with the CPU")
+    for dtype in (torch.float64, torch.float32):
+        eager = _fleet_logs(dtype, DEVICE, False, FLEET_CPU_B,
+                            FLEET_CPU_TICKS)
+        captured = got if dtype == torch.float64 else _fleet_logs(
+            dtype, DEVICE, True, FLEET_CPU_B, FLEET_CPU_TICKS)
+        same = all(torch.equal(a, b) for a, b in zip(captured, eager))
+        print(f"17d fleet {dtype} captured vs eager log: bitwise {same}")
+        if not same:
+            raise AssertionError(f"17d: captured fleet log != eager {dtype}")
+
+
+def _boat_controller(device, dtype, capture=True):
+    """The flagship node at N=100, Tf=5 on `LaneSolverAdapter` over the
+    production schedule."""
+    from mpc_collisionavoidance_tpu_torch.guidance import GuidanceController
+    from mpc_collisionavoidance_tpu_torch.ocp import builders
+    from mpc_collisionavoidance_tpu_torch.solver.batch import (
+        LaneSolverAdapter)
+    spec = builders.usv_guidance_ca1()
+    return GuidanceController(spec, solver=LaneSolverAdapter(
+        _production().build(spec, device=device, dtype=dtype,
+                            capture=capture)))
+
+
+def _challenge0(ctrl, ticks):
+    from mpc_collisionavoidance_tpu_torch.sim import mission, scenarios
+    field, valid = scenarios.challenge0_field()
+    return mission.run_mission(ctrl, (0.7, 0.0, 0.0, 0.0, 0.0),
+                               np.array(CHALLENGE0_WPS), 2, field, valid,
+                               n_steps=ticks)
+
+
+def _mission_tensors(log):
+    """A MissionLog's track, heading and command streams, on the CPU in
+    float64 (exact for every field)."""
+    return [t.cpu().double() for t in (log.pos, log.psi, *log.cmds)]
+
+
+def one_boat(card):
+    """17e: the flagship node on `LaneSolverAdapter` (production schedule,
+    captured, float32, N=100) flies tests/test_guidance.py's challenge-0
+    mission for 1200 ticks: it completes within 1.2 m of (4, 25), stays
+    > 1.3 m from buoys 0-3 and never collides; each tick synced (a node
+    reads its command back), p99 < 50 ms; K2 1 and K1 >= 4 per tick.
+    The captured run's log equals a `capture=False` run's bitwise (20
+    ticks).  Returns {(model, label): launch counts}."""
+    import torch
+
+    from mpc_collisionavoidance_tpu_torch.sim import mission, scenarios
+    ctrl = _boat_controller(DEVICE, torch.float32)
+    _challenge0(ctrl, 2)                                  # captures
+    times, per_call = [], []
+    _instrumented(ctrl, "tick", times, per_call)
+    log = _challenge0(ctrl, BOAT_TICKS)
+    counts = _summed(per_call)
+    field, valid = scenarios.challenge0_field()
+    pos = log.pos.cpu().numpy()
+    active = log.cmds.active.cpu().numpy()
+    end = pos[np.argmax(~active)]
+    miss = float(np.hypot(end[0] - 4.0, end[1] - 25.0))
+    clear = mission.min_obstacle_clearance(log, field, valid).cpu().numpy()
+    collided = bool(log.cmds.collision.any())
+    p50, p99 = _pcts(times)
+    k1 = min(c["riccati_lanes"] for c in per_call)
+    k2 = {c["linearize_lanes"] for c in per_call}
+    print(f"17e one boat challenge-0 {BOAT_TICKS} ticks float32 (adapter, "
+          f"captured): finished {not bool(active[-1])} {miss:.3f} m from "
+          f"(4, 25), buoy clearance {np.round(clear[:4], 3).tolist()}, "
+          f"collision {collided}, status-0 "
+          f"{float((log.cmds.solver_status == 0).float().mean()):.4f}; tick "
+          f"p50 {p50:.3f} ms p99 {p99:.3f} ms vs the {BOAT_BUDGET_MS:.0f} ms "
+          f"budget; launches per tick K1 >= {k1}, K2 {sorted(k2)} ({card})")
+    if not (np.all(np.isfinite(pos)) and not active[-1] and miss < 1.2
+            and np.all(clear[:4] > 1.3) and not collided):
+        raise AssertionError("17e: the challenge-0 mission gates failed")
+    if p99 >= BOAT_BUDGET_MS:
+        raise AssertionError(f"17e: tick p99 {p99:.3f} ms over the budget")
+    if k1 < 4 or k2 != {1}:
+        raise AssertionError(f"17e: launches per tick {per_call[:3]}")
+    captured = _mission_tensors(_challenge0(_boat_controller(
+        DEVICE, torch.float32), 20))
+    eager = _mission_tensors(_challenge0(_boat_controller(
+        DEVICE, torch.float32, capture=False), 20))
+    same = all(torch.equal(a, b) for a, b in zip(captured, eager))
+    print(f"17e adapter mission 20 ticks: captured vs eager log bitwise "
+          f"{same}")
+    if not same:
+        raise AssertionError("17e: captured adapter log != eager log")
+    return {(FLAGSHIP, "17e adapter mission"): counts}
+
+
+def _instance_boat(device):
+    """The flagship node on `RTISolver` (N=100, 18 fixed iterations) in
+    float64."""
+    import torch
+
+    from mpc_collisionavoidance_tpu_torch.guidance import GuidanceController
+    from mpc_collisionavoidance_tpu_torch.ocp import builders
+    from mpc_collisionavoidance_tpu_torch.solver.sqp_rti import RTISolver
+    spec = builders.usv_guidance_ca1()
+    return GuidanceController(spec, solver=RTISolver(
+        spec, device=device, dtype=torch.float64))
+
+
+def boat_instance(ref):
+    """17e, second part: the flagship node on `RTISolver` (eager) in
+    float64, card vs CPU (`ref`), 20 challenge-0 ticks at 1e-8, K1 18 and
+    K2 1 per tick.  Returns {(model, label): launch counts}."""
+    ctrl = _instance_boat(DEVICE)
+    _reset_counts()
+    got = _mission_tensors(_challenge0(ctrl, NODE_TICKS))
+    c = _read_counts()
+    err = _max_err(got, _torch_list(ref))
+    print(f"17e one boat on RTISolver float64 card vs CPU {NODE_TICKS} "
+          f"ticks: max |err| {err:.3e}, launches per tick K1 "
+          f"{c['riccati_lanes'] / NODE_TICKS:g}, K2 "
+          f"{c['linearize_lanes'] / NODE_TICKS:g}")
+    if err > 1e-8:
+        raise AssertionError("17e: RTISolver controller card != CPU")
+    if (c["riccati_lanes"] != 18 * NODE_TICKS
+            or c["linearize_lanes"] != NODE_TICKS or c["fused_ipm_lanes"]):
+        raise AssertionError(f"17e: RTISolver launch counts {c}")
+    return {(FLAGSHIP, "17e instance"): c}
+
+
+HULL0 = (0.0, 0.001, 0.0, 0.0, 0.0, 0.0)
+
+
+def _cascade_controllers(device, dtype):
+    from mpc_collisionavoidance_tpu_torch.guidance.low_level import (
+        LowLevelController)
+    from mpc_collisionavoidance_tpu_torch.ocp import builders
+    return (_boat_controller(device, dtype),
+            LowLevelController(builders.usv_low_level(), device=device,
+                               dtype=dtype))
+
+
+def _run_cascade(g, ll, ticks):
+    from mpc_collisionavoidance_tpu_torch.sim import cascade, scenarios
+    field, valid = scenarios.challenge0_field()
+    return cascade.run_cascade(g, ll, cascade.HullState(*HULL0),
+                               np.array(CHALLENGE0_WPS), 2, field, valid,
+                               n_steps=ticks)
+
+
+def cascade_loops(card, ref):
+    """17f: the two-rate cascade on the challenge-0 course: guidance on
+    `LaneSolverAdapter` (production, captured, N=100), the low level
+    `usv_low_level` (N=100) on `RTISolver` (8 fixed iterations, eager),
+    40 guidance ticks (200 inner), float32: finite, both loops' p50/p99
+    (each tick synced) printed beside 50 ms and 10 ms, not gated; then
+    float64 card vs CPU (`ref`) for 5 guidance ticks at 1e-6.  Returns
+    {(model, label): launch counts}."""
+    import torch
+    g, ll = _cascade_controllers(DEVICE, torch.float32)
+    _run_cascade(g, ll, 1)                                # captures
+    g_ms, g_counts, ll_ms, ll_counts = [], [], [], []
+    _instrumented(g, "tick", g_ms, g_counts)
+    _instrumented(ll, "tick", ll_ms, ll_counts)
+    t0 = time.perf_counter()
+    log = _run_cascade(g, ll, CASCADE_TICKS)
+    wall = time.perf_counter() - t0
+    finite = all(bool(torch.isfinite(t).all())
+                 for t in (log.pos, log.psi, log.u, log.thrust))
+    gp, lp = _pcts(g_ms), _pcts(ll_ms)
+    gc, lc = _summed(g_counts), _summed(ll_counts)
+    print(f"17f cascade {CASCADE_TICKS} guidance ticks "
+          f"({len(ll_ms)} inner) float32: finite {finite}, {wall:.1f} s, "
+          f"final pos {np.round(log.pos[-1].cpu().numpy(), 3).tolist()}, "
+          f"max u {float(log.u.max()):.3f}; guidance tick p50 {gp[0]:.3f} "
+          f"ms p99 {gp[1]:.3f} ms beside 50 ms; inner tick p50 {lp[0]:.3f} "
+          f"ms p99 {lp[1]:.3f} ms beside 10 ms (not gated); launches per "
+          f"inner tick K1 {lc['riccati_lanes'] / len(ll_ms):g}, K2 "
+          f"{lc['linearize_lanes'] / len(ll_ms):g} ({card})")
+    if not finite:
+        raise AssertionError("17f: non-finite cascade")
+    got = [t.cpu().double() for t in _run_cascade(
+        *_cascade_controllers(DEVICE, torch.float64), CASCADE_CPU_TICKS)]
+    err = _max_err(got, _torch_list(ref))
+    print(f"17f cascade float64 card vs CPU {CASCADE_CPU_TICKS} guidance "
+          f"ticks: max |err| {err:.3e}")
+    if err > 1e-6:
+        raise AssertionError("17f: the card's cascade disagrees with the CPU")
+    return {(FLAGSHIP, "17f cascade guidance"): gc,
+            (LOW_LEVEL, "17f cascade inner"): lc}
+
+
+def _node_drive(name):
+    """(build(device, dtype) -> controller, init(ctrl) -> state,
+    step(ctrl, state, meas) -> (state, cmds), meas0, plant(meas, cmds) ->
+    meas) of one 17g node: usv_pf on the true hull at 100 Hz from 1.5 m
+    off an eastward path, usv_acados from rest at 20 Hz, each variant from
+    1.5 m off a northward path through a first-order heading plant (a
+    rate plant for usv_guidance3, which publishes no heading)."""
+    import torch
+
+    from mpc_collisionavoidance_tpu_torch.guidance import nodes, variants
+    from mpc_collisionavoidance_tpu_torch.ops.integrators import rk4_step
+    from mpc_collisionavoidance_tpu_torch.sim import cascade
+
+    def hull(veh, cmds, dt):
+        x = torch.as_tensor(veh, dtype=torch.float64)
+        thr = torch.stack([cmds.t_port, cmds.t_stbd]).double().cpu()
+        return rk4_step(cascade.hull_dynamics, x, thr,
+                        torch.zeros(0, dtype=torch.float64), dt).numpy()
+
+    if name == PF:
+        wps = np.array([[0.0, 0.0], [40.0, 0.0]])
+        return (lambda dev, dt: nodes.PFController(device=dev, dtype=dt),
+                lambda c, veh: c.init_state(_pf_meas(veh), wps, 2),
+                lambda c, st, veh: c.tick(st, _pf_meas(veh), wps, 2),
+                np.array([0.0, 0.001, 0.0, 0.0, 0.0, 1.5]),
+                lambda veh, cmds: hull(veh, cmds, 0.01))
+    if name == ACADOS:
+        return (lambda dev, dt: nodes.ThrustMPCController(device=dev,
+                                                          dtype=dt),
+                lambda c, veh: c.init_state(tuple(veh[1:4])),
+                lambda c, st, veh: c.tick(st, tuple(veh[1:4])),
+                np.array([0.0, 0.001, 0.0, 0.0, 0.0, 0.0]),
+                lambda veh, cmds: hull(veh, cmds, 0.05))
+    wps = np.array([[0.0, -5.0], [0.0, 25.0]])
+
+    def plant(meas, cmds, dt=0.05):
+        u_d = float(cmds.u_d)
+        _, v, r0, nedx, nedy, psi0 = meas
+        if name == "usv_guidance3":
+            r = r0 + dt * (float(cmds.r_d) - r0) / 0.3
+            psi = psi0 + dt * r
+        else:
+            err = np.mod(float(cmds.psi_d) - psi0 + np.pi, 2 * np.pi) - np.pi
+            psi = psi0 + dt * err / 0.5
+            r = (psi - psi0) / dt
+        return np.array([u_d, 0.0, r, nedx + dt * u_d * np.cos(psi),
+                         nedy + dt * u_d * np.sin(psi), psi])
+
+    return (lambda dev, dt: variants.VariantGuidanceController(
+                name, device=dev, dtype=dt),
+            lambda c, m: c.init_state(tuple(m), wps, 2),
+            lambda c, st, m: c.tick(st, tuple(m), wps, 2),
+            np.array([0.7, 0.0, 0.0, 1.5, 0.0, 0.3]), plant)
+
+
+def _node_run(name, device, dtype, ticks, meas_seq=None, instrument=None):
+    """Drive node `name` for `ticks` ticks: its plant closes the loop, or
+    each tick takes `meas_seq`'s measurement.  `instrument`: (times,
+    counts) for `_instrumented`.  Returns (the measurements fed, each
+    tick's commands as {field: float64 array}, the controller)."""
+    build, init, step, meas0, plant = _node_drive(name)
+    ctrl = build(device, dtype)
+    if instrument is not None:
+        _instrumented(ctrl, "tick", *instrument)
+    st = init(ctrl, meas0)
+    meas, fed, log = meas0, [], []
+    for t in range(ticks):
+        if meas_seq is not None:
+            meas = meas_seq[t]
+        fed.append(np.asarray(meas, float))
+        st, cmds = step(ctrl, st, meas)
+        log.append({f: getattr(cmds, f).cpu().double().numpy()
+                    for f in cmds._fields})
+        meas = plant(meas, cmds)
+    return fed, log, ctrl
+
+
+def _pf_meas(veh):
+    """(psi, u, v, r, nedx, nedy) hull state -> PFMeasurements order."""
+    return (veh[1], veh[2], veh[3], veh[4], veh[5], veh[0])
+
+
+def other_nodes(card, ref):
+    """17g: usv_pf (N=100), usv_acados (N=20) and the six variants
+    (N=100), each 20 ticks in float64 on the card against the CPU's run
+    (`ref`, which closed its own loop) from the same measurements:
+    commands at 1e-6, identical status; then 20 float32 ticks on the card,
+    each synced, median and p99 beside the node's budget (printed).
+    Returns {(model, label): launch counts}."""
+    import torch
+    out = {}
+    for name, budget in NODE_BUDGET_MS.items():
+        fed, want = ref[name]
+        t0 = time.perf_counter()
+        _, got, _ = _node_run(name, DEVICE, torch.float64, NODE_TICKS,
+                              meas_seq=fed)
+        pair_s = time.perf_counter() - t0
+        values = [f for f in want[0] if f not in ("solver_status", "active")]
+        err = max(float(np.abs(g[f] - w[f]).max())
+                  for g, w in zip(got, want) for f in values)
+        same = all(np.array_equal(g["solver_status"], w["solver_status"])
+                   for g, w in zip(got, want))
+        times, per_call = [], []
+        _, _, c32 = _node_run(name, DEVICE, torch.float32, NODE_TICKS,
+                              instrument=(times, per_call))
+        counts = _summed(per_call)
+        p50, p99 = _pcts(times)
+        print(f"17g {name} N={c32.spec.N}: float64 card vs CPU "
+              f"{NODE_TICKS} ticks max |err| {err:.3e}, status identical "
+              f"{same} (card {pair_s:.1f} s); float32 eager tick p50 "
+              f"{p50:.3f} ms p99 {p99:.3f} ms beside the {budget:.0f} ms "
+              f"budget; launches per tick K1 "
+              f"{counts['riccati_lanes'] / NODE_TICKS:g}, K2 "
+              f"{counts['linearize_lanes'] / NODE_TICKS:g} ({card})")
+        if err > 1e-6 or not same:
+            raise AssertionError(f"17g {name}: the card disagrees with the "
+                                 "CPU")
+        out[(name, "17g node")] = counts
+    return out
+
+
+def guidance_stack(card):
+    """Phase 17: the guidance stack (17a-17g); the float64 CPU runs that
+    17d-17g compare with run meanwhile in one worker process
+    (`cpu_references`), joined before 17d.  Returns {(model, label):
+    launch counts} of its main-path runs."""
+    import concurrent.futures
+    import multiprocessing
+    t0 = time.perf_counter()
+
+    def step_done(label):
+        print(f"  [{time.perf_counter() - t0:.1f} s] 17{label} done")
+
+    with concurrent.futures.ProcessPoolExecutor(
+            max_workers=1,
+            mp_context=multiprocessing.get_context("spawn")) as pool:
+        cpu = pool.submit(cpu_references, FLEET_CPU_B, FLEET_CPU_TICKS,
+                          NODE_TICKS, CASCADE_CPU_TICKS)
+        guidance_perception()
+        step_done("a")
+        sweep, breach = fleet_mission(card, "b", _production(), gated=True)
+        step_done("b")
+        fused, _ = fleet_mission(card, "c", _fused(), gated=False)
+        step_done("c")
+        counts = {(FLAGSHIP, "17b fleet"): sweep,
+                  (FLAGSHIP, "17c fleet"): fused}
+        counts.update(one_boat(card))
+        step_done("e (the boat's mission)")
+        ref = cpu.result()
+        step_done(" CPU references")
+    fleet_card_vs_cpu(ref["17d"])
+    step_done("d")
+    counts.update(boat_instance(ref["17e"]))
+    step_done("e")
+    counts.update(cascade_loops(card, ref["17f"]))
+    step_done("f")
+    counts.update(other_nodes(card, ref))
+    step_done("g")
+    if breach:
+        print(f"17b missions beyond the first {MISSION_FIRST} that breach "
+              f"the clearance band: {breach}")
+    return counts
+
+
 def _production_counts(c):
     return (c["riccati_lanes"] >= 4 and c["linearize_lanes"] == 1
             and c["fused_ipm_lanes"] == 0)
@@ -2155,6 +2887,8 @@ def main():
     phase_done("phase 15 (captured ticks)")
     counts.update(instance_engine(card))
     phase_done("phase 16 (the per-instance engine)")
+    counts.update(guidance_stack(card))
+    phase_done("phase 17 (the guidance stack)")
 
     def launched(kernel, models):
         return sum(c[kernel] for (m, _), c in counts.items() if m in models)

@@ -9,12 +9,18 @@ copies.
 
 Ported: the lane engine's RTI tick on every model of the JAX package's
 zoo, the per-instance engine and its goldens, the real-time server on
-both, and all three of its TPU kernels:
+both, the guidance nodes and their simulations, and all three of its TPU
+kernels:
 
 models   : Model container + every model's dynamics/constraints in torch
 ocp      : OCPSpec and the builders
-sim      : the scenarios
-utils    : the race track (table, curvature interpolant, transforms)
+guidance : the reference nodes as ticks: perception (LiDAR cull, top-8
+           intake), waypoint manager, the flagship controller, the
+           low-level, PF, thrust and variant nodes
+sim      : the scenarios and world fields, the mission harness, the fleet
+           mission engine, the closed-loop engine, the two-rate cascade
+utils    : the race track (table, curvature interpolant, transforms) and
+           the angle wraps
 ops      : lane algebra, the Riccati sweep, the fused linearization and
            the lane primal-dual IPM (plain PyTorch versions + dispatch);
            the per-instance engine's integrators, Riccati solve, QP
@@ -22,12 +28,14 @@ ops      : lane algebra, the Riccati sweep, the fused linearization and
 kernels  : hand-written CUDA kernels for sm_90a (Riccati sweep, fused
            linearization, fused IPM), built with nvcc at first use and
            bound by ctypes
-solver   : LaneRTISolver (lane layout, instance axis minor-most) and
-           RTISolver (per-instance shapes with leading batch axes)
+solver   : LaneRTISolver (lane layout, instance axis minor-most),
+           LaneSolverAdapter (one vehicle on it) and RTISolver
+           (per-instance shapes with leading batch axes)
 parity   : the committed goldens, recomputed by RTISolver
 config   : SolverConfig and the production schedule
 rt       : the real-time server and its frames
-interop  : numpy carry-over of QPs / LQRs / warm starts from the JAX package
+interop  : numpy carry-over of QPs / LQRs / warm starts / mission, controller
+           and fleet carries from the JAX package
 
 Device picks the path: CUDA tensors run the kernels, CPU tensors the plain
 PyTorch versions.  No flag swaps one for the other.

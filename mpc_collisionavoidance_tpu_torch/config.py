@@ -18,9 +18,21 @@ from __future__ import annotations
 import dataclasses
 from typing import Optional
 
+import torch
+
 from mpc_collisionavoidance_tpu_torch.ops.ipm_lanes import check_schedule
 from mpc_collisionavoidance_tpu_torch.solver.batch import LaneRTISolver
 from mpc_collisionavoidance_tpu_torch.solver.sqp_rti import RTISolver
+
+
+def require_device(device) -> torch.device:
+    """`device` as a torch.device; raise ValueError for a CUDA device on a
+    host that has none (an entry point never runs on the CPU instead)."""
+    device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise ValueError(f"device '{device}': this host has no CUDA device "
+                         "(torch.cuda.is_available() is False)")
+    return device
 
 
 @dataclasses.dataclass(frozen=True)

@@ -3,19 +3,24 @@
 These take numpy arrays (for example a JAX `LaneQP._asdict()` or
 `QPData._asdict()` mapped through `np.asarray`) and build the port's
 tensors on a device and dtype: the lane engine's (`lane_*`) and the
-per-instance engine's, whose shapes may carry leading batch axes.
-They never import jax, so the same QPs, LQRs and warm starts can be fed to
-both packages.
+per-instance engine's, whose shapes may carry leading batch axes, and the
+guidance stack's mission, controller and fleet carries.
+They never import jax, so the same QPs, LQRs, warm starts and
+mid-mission states can be fed to both packages.
 """
 
 import numpy as np
 import torch
 
+from mpc_collisionavoidance_tpu_torch.guidance.controller import (
+    GuidanceState, Measurements)
+from mpc_collisionavoidance_tpu_torch.guidance.waypoints import MissionState
 from mpc_collisionavoidance_tpu_torch.ops.ipm import QPData
 from mpc_collisionavoidance_tpu_torch.ops.ipm_lanes import LaneQP
 from mpc_collisionavoidance_tpu_torch.ops.riccati import LQRData
 from mpc_collisionavoidance_tpu_torch.ops.riccati_lanes import LaneLQR
 from mpc_collisionavoidance_tpu_torch.solver.batch import LaneState
+from mpc_collisionavoidance_tpu_torch.sim.fleet import FleetState
 from mpc_collisionavoidance_tpu_torch.solver.sqp_rti import SolverState
 
 
@@ -76,3 +81,42 @@ def lqr_data_from_numpy(A, B, c, Q, S, R, qx, qu, dx0, *, device,
     """The nine LQRData arrays (per-instance layout) -> LQRData."""
     return LQRData(*(_tensor(a, device, dtype)
                      for a in (A, B, c, Q, S, R, qx, qu, dx0)))
+
+
+def mission_state_from_numpy(k, past_psied, active, *, device,
+                             dtype) -> MissionState:
+    """A mission carry (k int, past_psied, active bool; any batch shape)
+    -> MissionState (k int32, past_psied in `dtype`, active bool)."""
+    return MissionState(
+        k=_tensor(k, device, torch.int32),
+        past_psied=_tensor(past_psied, device, dtype),
+        active=_tensor(active, device, torch.bool))
+
+
+def guidance_state_from_numpy(mission, solver, psi_d_hold, r_d_hold, *,
+                              device, dtype) -> GuidanceState:
+    """A controller carry -> GuidanceState.  `mission`: the three mission
+    arrays (k, past_psied, active), e.g. a JAX `MissionState` of numpy
+    arrays; `solver`: the port's warm start of the controller's solver,
+    from `solver_state_from_numpy` (RTISolver) or `lane_state_from_numpy`
+    (LaneSolverAdapter, L = 1)."""
+    return GuidanceState(
+        mission=mission_state_from_numpy(*mission, device=device,
+                                         dtype=dtype),
+        solver=solver,
+        psi_d_hold=_tensor(psi_d_hold, device, dtype),
+        r_d_hold=_tensor(r_d_hold, device, dtype))
+
+
+def fleet_state_from_numpy(mission_k, past_psied, active, xbar, ubar, meas,
+                           *, device, dtype) -> FleetState:
+    """A fleet carry -> FleetState: the (B,) mission arrays, the lane warm
+    start xbar (nx, N+1, B), ubar (nu, N, B), and the five (B,)
+    measurement arrays (u, v, nedx, nedy, psi)."""
+    mission = mission_state_from_numpy(mission_k, past_psied, active,
+                                       device=device, dtype=dtype)
+    return FleetState(
+        mission_k=mission.k, past_psied=mission.past_psied,
+        active=mission.active,
+        solver=lane_state_from_numpy(xbar, ubar, device=device, dtype=dtype),
+        meas=Measurements(*(_tensor(m, device, dtype) for m in meas)))

@@ -54,7 +54,8 @@ from typing import Dict, Optional
 import numpy as np
 import torch
 
-from mpc_collisionavoidance_tpu_torch.config import production_engine
+from mpc_collisionavoidance_tpu_torch.config import (production_engine,
+                                                     require_device)
 from mpc_collisionavoidance_tpu_torch.ocp import builders
 from mpc_collisionavoidance_tpu_torch.rt import protocol
 from mpc_collisionavoidance_tpu_torch.solver.batch import LaneRTISolver
@@ -85,16 +86,6 @@ class _Req:
     params: tuple
     lh: tuple
     yref: tuple        # () = builder's static references
-
-
-def require_device(device) -> torch.device:
-    """`device` as a torch.device; raise ValueError for a CUDA device on a
-    host that has none (the server never runs on the CPU instead)."""
-    device = torch.device(device)
-    if device.type == "cuda" and not torch.cuda.is_available():
-        raise ValueError(f"device '{device}': this host has no CUDA device "
-                         "(torch.cuda.is_available() is False)")
-    return device
 
 
 def _resolve(fut, buf):

@@ -17,6 +17,9 @@ scripts/usv_guidance_ca/main.py), `guidance_default` and
 `guidance2_default`..`guidance5_default` the obstacle-free guidance
 models' segment-following runs.
 
+The world obstacle fields (`challenge0_field`, `challenge1_field`,
+`autonav_mission`) are those the guidance stack's missions run in.
+
 `race_cars_default` and `race_cars_dev_default` are the port's own: the
 JAX package has no race scenario, so they are built from its race recipe
 (the model's x0 rolling at v = 0.5, tests/test_lane_engine.py:197-200, on
@@ -254,6 +257,54 @@ def race_cars_dev_default(n_steps: int = 500) -> Scenario:
     """race_cars_dev on the same track from the same start."""
     return dataclasses.replace(race_cars_default(n_steps),
                                name="race_cars_dev_default")
+
+
+# ---------------------------------------------------------------------------
+# World obstacle fields from the fake-LiDAR simulator (reference
+# catkin_ws/src/simulation/scripts/obstacle_sim_node.py:164-270): fixed-
+# capacity (M, 3) tables of NED (X, Y, R) plus a validity mask, which the
+# guidance stack's perception reads (`guidance/obstacles.py`).
+
+FIELD_CAPACITY = 32
+
+
+def _field(rows):
+    field = np.zeros((FIELD_CAPACITY, 3))
+    valid = np.zeros(FIELD_CAPACITY, dtype=bool)
+    rows = np.asarray(rows, dtype=float)
+    field[: len(rows)] = rows
+    valid[: len(rows)] = True
+    return field, valid
+
+
+def challenge0_field():
+    """Four big buoys sitting on the x = 4 path (reference
+    obstacle_sim_node.py:164-181, challenge 0)."""
+    return _field([(4.0, 4.0, 1.0), (4.0, 6.5, 1.0),
+                   (3.7, 12.0, 1.0), (4.2, 20.0, 1.0)])
+
+
+def challenge1_field():
+    """The 21-buoy AutonomousNavigation course (reference
+    obstacle_sim_node.py:205-270, challenge 1): twenty r = 0.105 markers
+    plus one r = 0.2 gate buoy at (10, 0)."""
+    buoys = [(3.1, 1.1), (3.3, 2.2), (3.2, -3.3), (6.2, 1.2), (4.1, -4.2),
+             (4.4, -2.5), (5.3, -3.4), (6.2, 2.3), (9.1, -4.4), (9.6, -3.6),
+             (12.6, 3.4), (10.7, -4.6), (10.3, 6.1), (9.3, 4.1),
+             (12.4, -3.3), (13.6, -1.6), (13.4, 2.4), (14.2, -0.2),
+             (5.1, 4.2), (7.7, 5.6)]
+    rows = [(x, y, 0.105) for x, y in buoys] + [(10.0, 0.0, 0.2)]
+    return _field(rows)
+
+
+def autonav_mission():
+    """A multi-segment mission through the challenge-1 buoy field: exercises
+    waypoint advancing, heading re-projection across segment switches, and
+    the top-8 truncation (21 visible obstacles > 8 solver slots)."""
+    waypoints = np.array([
+        [0.0, 0.0], [7.5, 0.5], [15.0, 0.0], [15.0, 8.0]])
+    field, valid = challenge1_field()
+    return waypoints, len(waypoints), field, valid
 
 
 # Each ported model's default scenario, and the state coordinate that a

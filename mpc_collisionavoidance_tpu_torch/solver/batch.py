@@ -24,8 +24,9 @@ new state is written into it, as a donated argument) and, like the
 outputs, holds until the next tick.  `capture=False` runs them op by op
 instead, for comparisons and profiling.
 
-Not ported yet: partial condensing (`condense`), the pscan backend and
-`LaneSolverAdapter`.
+`LaneSolverAdapter` gives one vehicle the per-instance API on this
+engine at lane width 1.  Not ported yet: partial condensing (`condense`)
+and the pscan backend.
 """
 
 from typing import NamedTuple, Optional
@@ -393,3 +394,48 @@ class LaneRTISolver:
     def _feedback(self, state, qp, x0, escalation=None):
         qp = qp._replace(dx0=self._tensor(x0) - state.xbar[:, 0, :])
         return self._advance(state, self._solve_qp(qp, escalation))
+
+
+class LaneSolverAdapter:
+    """Instance-shaped facade over a :class:`LaneRTISolver` at lane
+    width 1.
+
+    Single-vehicle surfaces (the guidance controller,
+    `sim/closed_loop.py`) were written against the per-instance
+    `RTISolver` API: unbatched x0 (nx,), outputs u0 (nu,) / x1 (nx,).
+    This adapter lets them ride the production lane engine (the captured
+    tick on the card) unchanged.  Per-stage (N, ny) yref is not supported
+    (the lane engine broadcasts one reference across stages); pass the 1-D
+    (ny,) form.  The outputs are copies, so that they outlive the
+    captured tick's buffers (which hold only until the next tick); the
+    state is the lane engine's own.
+    """
+
+    def __init__(self, lane_solver: LaneRTISolver):
+        self.lane = lane_solver
+        self.spec = lane_solver.spec
+        self.device = lane_solver.device
+        self.dtype = lane_solver.dtype
+
+    def init_state(self, x0) -> LaneState:
+        """x0 (nx,) -> the lane warm start at width 1."""
+        return self.lane.init_state(self.lane._tensor(x0)[None, :])
+
+    def step_fn(self, state: LaneState, x0, params, lh=None,
+                yref=None, yref_e=None):
+        """One tick: x0 (nx,), params (np,), lh (nh,) or None, yref (ny,),
+        yref_e (nx,) or None.  Returns (state, LaneOutput) with u0 (nu,),
+        x1 (nx,), gap and status 0-d."""
+        if yref is not None and torch.as_tensor(yref).ndim != 1:
+            raise ValueError("LaneSolverAdapter takes a (ny,) yref; a "
+                             "per-stage (N, ny) yref needs RTISolver")
+        t = self.lane._tensor
+        x0 = t(x0)[:, None]
+        params = t(params)[:, None]
+        if lh is not None:
+            lh = t(lh)[:, None]
+        st, o = self.lane.step_fn(state, x0, params, lh,
+                                  yref=yref, yref_e=yref_e)
+        return st, LaneOutput(u0=o.u0[:, 0].clone(), x1=o.x1[:, 0].clone(),
+                              gap=o.gap[0].clone(),
+                              status=o.status[0].clone())
