@@ -25,13 +25,15 @@ thirteen models.  Phases:
    the CUDA runtime and driver versions (conditional graph nodes, which
    the captured ticks' escalation needs, want 12.4 or later of both), and
    the kernels' build (nvcc at first use, into build/torch_kernels/);
-   ptxas must report 0 bytes spill stores and loads for the twenty-two
+   ptxas must report 0 bytes spill stores and loads for the thirty-four
    K1, the twenty-eight K2 and the twenty-six K3 instances (`NO_SPILL`);
 2. K1 (Riccati sweep) vs its plain PyTorch version on the card: random
    SPD LQRs at each instance's main-path horizons (`K1_SHAPES`: (8, 1),
    (14, 2) at N=100, (8, 2) at N=100 and 20, (5, 2) at N=20, the guidance
    family's (9, 1), (10, 1), (12, 1), (11, 1), (4, 1), (5, 1) at N=100,
-   the race car's (6, 2) at N=50),
+   the race car's (6, 2) at N=50, and the macro stages of phase 18's
+   condensed QPs: (8, 4) at N=25, (8, 5) at 20, (8, 10) at 10, (14, 4) at
+   50, (14, 8) at 25, (6, 4) at 25; the flagship's M=2 runs on (8, 2)),
    L in {1, 130, 512}, float32 (rtol 2e-4, atol 2e-5) and float64 (atol
    1e-10);
    one lane's A set to NaN leaves every other lane's dx/du bitwise
@@ -197,6 +199,24 @@ thirteen models.  Phases:
     The float64 CPU runs of (d)-(g) run in one worker process (spawned,
     one thread, joined before (d)) while the card runs (a)-(c) and the
     boat's mission.
+18. the lane engine's options on the production schedule: partial
+    condensing (`LaneRTISolver(..., condense=M)`: N/M macro stages of
+    M nu controls, K1 at (nx, M nu)) for the flagship at M in {2, 4, 5,
+    10}, the hull at {2, 4} and race_cars_dev on the curved track at 2
+    (`CONDENSE`), and the parallel-scan Riccati (`riccati="pscan"`, plain
+    PyTorch, no K1) for the flagship and the hull.  Each condensed run:
+    the float64 card tick vs the CPU plain tick (B=64; the hull at
+    B=130; u0/x1 atol 5e-6, identical status), the float32 main-path tick
+    at B=512 (K1 >= 4 at the macro shape, K2 1, K3 0), a 30-tick closed
+    loop (converged_frac > 0.9; the curved race track's status-2 lanes
+    counted, as phase 14) and B=1 p50/p99 beside the budget, the M=1
+    loop and B=1 tick of the same process beside them.  pscan: the
+    float64 card tick vs the card's sweep tick and vs the CPU, the
+    float32 main-path tick (K1 0, K2 1, K3 0), 30-tick loops, B=1.  Then
+    phase 15's captured-vs-eager check (float32, with the RTI split) for
+    the flagship at M=4, the hull and the race car at M=2 and the pscan
+    ticks of the flagship and the hull, with each graph's nodes, capture
+    and instantiation times.  A line `phase 18 table:` holds its figures.
 
 Each main path is driven with every launch count set to 0 just before and
 read just after (phase 16's goldens, server and timed ticks each so), the
@@ -397,9 +417,9 @@ def environment():
 
 
 # kernels whose every instance must compile without spills, and how many
-# instances each has (K1: 11 shapes, K2: 14 forms, K3: 13 structures, each
+# instances each has (K1: 17 shapes, K2: 14 forms, K3: 13 structures, each
 # in two types)
-NO_SPILL = {"riccati_lanes_kernel": 22, "linearize_lanes_kernel": 28,
+NO_SPILL = {"riccati_lanes_kernel": 34, "linearize_lanes_kernel": 28,
             "fused_ipm_kernel": 26}
 
 
@@ -633,7 +653,7 @@ def linearize_launcher(lib, name, m, xs, ubar, params, dt, steps):
 # timed) and the models that run it
 K1_SHAPES = {(8, 1): ((100,), (FLAGSHIP,)),
              (14, 2): ((100,), (HULL, PF)),
-             (8, 2): ((100, 20), (LOW_LEVEL, POSITION)),
+             (8, 2): ((100, 20), (LOW_LEVEL, POSITION, f"{FLAGSHIP} M=2")),
              (5, 2): ((20,), (ACADOS,)),
              (9, 1): ((100,), (GUIDANCE_CA,)),
              (10, 1): ((100,), ("usv_guidance",)),
@@ -641,7 +661,15 @@ K1_SHAPES = {(8, 1): ((100,), (FLAGSHIP,)),
              (11, 1): ((100,), ("usv_guidance3",)),
              (4, 1): ((100,), ("usv_guidance4",)),
              (5, 1): ((100,), ("usv_guidance5",)),
-             (6, 2): ((50,), tuple(RACE))}
+             (6, 2): ((50,), tuple(RACE)),
+             # the macro stages of partially condensed QPs (phase 18): N/M
+             # stages of M nu controls
+             (8, 4): ((25,), (f"{FLAGSHIP} M=4",)),
+             (8, 5): ((20,), (f"{FLAGSHIP} M=5",)),
+             (8, 10): ((10,), (f"{FLAGSHIP} M=10",)),
+             (14, 4): ((50,), (f"{HULL} M=2",)),
+             (14, 8): ((25,), (f"{HULL} M=4",)),
+             (6, 4): ((25,), ("race_cars_dev_track M=2",))}
 # (L, dtype name) at which K1 is timed
 K1_TIMED = ((1, "float32"), (128, "float32"), (512, "float32"),
             (512, "float64"))
@@ -895,6 +923,12 @@ def _setup(name, Bn, dtype, device, config, seed=SEED, capture=True):
             lanes(np.broadcast_to(sc.lh, (Bn, m.nh))), refs)
 
 
+def _backend(solver):
+    """The solver's IPM backend, and its condensing group size if any."""
+    return solver.riccati + (f" condense={solver.condense}"
+                             if solver.condense > 1 else "")
+
+
 def _production():
     from mpc_collisionavoidance_tpu_torch.config import production_engine
     return production_engine()
@@ -1074,32 +1108,42 @@ def check_fused_ipm():
     return result
 
 
-def card_vs_cpu_tick(name, Bn, config=None):
-    """One float64 tick (the production schedule unless `config` says
-    otherwise) on the card vs the plain path on the CPU from the same
-    inputs."""
+def f64_tick(name, Bn, config, device):
+    """One float64 tick of `config` on `device` from the bench's inputs:
+    (its LaneOutput, the solver, seconds)."""
     import torch
-    config = config or _production()
-    solver, st, x, p, lh, refs = _setup(name, Bn, torch.float64, DEVICE,
+    solver, st, x, p, lh, refs = _setup(name, Bn, torch.float64, device,
                                         config)
-    st, out = solver.step_fn(st, x, p, lh, **refs)
-    solver_c, st_c, x_c, p_c, lh_c, refs_c = _setup(
-        name, Bn, torch.float64, "cpu", config)
     t0 = time.perf_counter()
-    st_c, out_c = solver_c.step_fn(st_c, x_c, p_c, lh_c, **refs_c)
-    cpu_s = time.perf_counter() - t0
-    _check_output(out, Bn, f"{name} float64 card tick", *_dims(name))
-    du0 = float((out.u0.cpu() - out_c.u0).abs().max())
-    dx1 = float((out.x1.cpu() - out_c.x1).abs().max())
-    same_status = bool((out.status.cpu() == out_c.status).all())
-    print(f"{name} {solver.riccati} tick B={Bn} float64, card vs CPU plain "
-          f"({cpu_s:.1f} s): "
+    _, out = solver.step_fn(st, x, p, lh, **refs)
+    return out, solver, time.perf_counter() - t0
+
+
+def compare_ticks(what, out, want, Bn, dims, against="CPU plain"):
+    """Gate a float64 card tick against `want` (u0/x1 atol 5e-6,
+    identical status)."""
+    _check_output(out, Bn, f"{what} float64 card tick", *dims)
+    du0 = float((out.u0.cpu() - want.u0.cpu()).abs().max())
+    dx1 = float((out.x1.cpu() - want.x1.cpu()).abs().max())
+    same_status = bool((out.status.cpu() == want.status.cpu()).all())
+    print(f"{what} tick B={Bn} float64, card vs {against}: "
           f"max|du0| {du0:.3e}, max|dx1| {dx1:.3e}, status identical "
           f"{same_status}, status-0 "
           f"{float((out.status == 0).double().mean()):.3f}")
     if du0 > 5e-6 or dx1 > 5e-6 or not same_status:
-        raise AssertionError(f"{name}: float64 card tick disagrees with the "
-                             "CPU plain tick")
+        raise AssertionError(f"{what}: float64 card tick disagrees with the "
+                             f"{against} tick")
+
+
+def card_vs_cpu_tick(name, Bn, config=None):
+    """One float64 tick (the production schedule unless `config` says
+    otherwise) on the card vs the plain path on the CPU from the same
+    inputs."""
+    config = config or _production()
+    out, solver, _ = f64_tick(name, Bn, config, DEVICE)
+    out_c, _, cpu_s = f64_tick(name, Bn, config, "cpu")
+    compare_ticks(f"{name} {_backend(solver)}", out, out_c, Bn,
+                  _dims(name), against=f"CPU plain ({cpu_s:.1f} s)")
 
 
 def main_path_tick(name, config, expect):
@@ -1115,11 +1159,11 @@ def main_path_tick(name, config, expect):
     st, out = solver.step_fn(st0, x, p, lh, **refs)  # the main path
     counts = _read_counts()
     _check_output(out, B, f"{name} float32 card tick", *_dims(name))
-    print(f"{name} {solver.riccati} tick B={B} float32: launches {counts}, "
+    print(f"{name} {_backend(solver)} tick B={B} float32: launches {counts}, "
           f"max gap {float(out.gap.max()):.3e}, status-0 "
           f"{float((out.status == 0).float().mean()):.3f}")
     if not expect(counts):
-        raise AssertionError(f"{name} {solver.riccati} main path launch "
+        raise AssertionError(f"{name} {_backend(solver)} main path launch "
                              f"counts {counts}")
     return counts
 
@@ -1150,7 +1194,7 @@ def closed_loop(name, config, gate, ticks=30, failed_ok=False):
                   *_dims(name))
     frac = float((out.gap < 1e-5).sum()) / B
     tick_ms = float(np.median(times[2:]))
-    print(f"{name} {solver.riccati} closed loop {ticks} ticks B={B} float32: "
+    print(f"{name} {_backend(solver)} closed loop {ticks} ticks B={B} float32: "
           f"converged_frac {frac:.4f} ({int(failed.sum())} lanes status 2), "
           f"median tick {tick_ms:.3f} ms "
           f"({B / tick_ms * 1e3:.1f} solves/s), first tick "
@@ -1188,7 +1232,7 @@ def latency_b1(name, config, budget_ms, ticks=50, versus=None):
                f"{'within' if p99 < budget_ms else 'OVER'}")
     if versus is not None:
         verdict += f", beside the {versus[0]} of {versus[1]:g} ms"
-    print(f"{name} {solver.riccati} B=1 tick float32: p50 {p50:.3f} ms, p99 "
+    print(f"{name} {_backend(solver)} B=1 tick float32: p50 {p50:.3f} ms, p99 "
           f"{p99:.3f} ms {verdict}")
     return float(p50), float(p99)
 
@@ -2818,6 +2862,142 @@ def guidance_stack(card):
     return counts
 
 
+# ---- phase 18: the lane engine's options ----
+
+# the condensing group sizes of each run (JAX's tests/test_condense_partial
+# and benchmarks/bench_condense.py, those that divide the builder's N), and
+# the B=1 budget of each run's node in ms
+CONDENSE = {FLAGSHIP: (2, 4, 5, 10), HULL: (2, 4), "race_cars_dev_track": (2,)}
+OPTION_BUDGET_MS = {FLAGSHIP: 50.0, HULL: 10.0}
+OPTION_CPU_B = {FLAGSHIP: 64, HULL: HULL_CPU_B, "race_cars_dev_track": 64}
+
+
+@dataclasses.dataclass(frozen=True)
+class Condensed:
+    """The production schedule's `LaneRTISolver` with partial condensing
+    by M (`SolverConfig` has no such field, as the JAX package's has
+    none): a config with its `build`."""
+    M: int
+
+    def build(self, spec, *, device, dtype, capture=True):
+        from mpc_collisionavoidance_tpu_torch.solver.batch import (
+            LaneRTISolver)
+        c = _production()
+        return LaneRTISolver(spec, ipm_iters=c.ipm_iters, ipm_tol=c.ipm_tol,
+                             riccati=c.riccati, centering=c.centering,
+                             mu0=c.mu0, extra_iters=c.extra_iters,
+                             stall_tol=c.stall_tol, condense=self.M,
+                             device=device, dtype=dtype, capture=capture)
+
+
+def _pscan():
+    import dataclasses as dc
+    return dc.replace(_production(), riccati="pscan")
+
+
+def _pscan_counts(c):
+    return (c["riccati_lanes"] == 0 and c["linearize_lanes"] == 1
+            and c["fused_ipm_lanes"] == 0)
+
+
+def _option(label):
+    """The config of a phase 18 run label: "M=<M>" or "pscan"."""
+    return _pscan() if label == "pscan" else Condensed(int(label[2:]))
+
+
+# phase 18's runs: (run, label)
+OPTION_RUNS = tuple((name, f"M={M}") for name, Ms in CONDENSE.items()
+                    for M in Ms) + ((FLAGSHIP, "pscan"), (HULL, "pscan"))
+
+
+def option_cpu_references():
+    """The float64 CPU plain ticks that phase 18 holds the card's against,
+    as numpy: `lane_options` runs this in a worker process while the card
+    runs the rest of the phase."""
+    import torch
+    torch.set_num_threads(1)
+    out = {}
+    for name, label in OPTION_RUNS:
+        o, _, sec = f64_tick(name, OPTION_CPU_B[name], _option(label), "cpu")
+        out[(name, label)] = (o.u0.numpy(), o.x1.numpy(), o.status.numpy(),
+                              sec)
+    return out
+
+
+def lane_options(card, baseline):
+    """Phase 18: partial condensing (`condense=M`) and the parallel-scan
+    Riccati (`riccati="pscan"`), each on the production schedule.  For
+    every run of `OPTION_RUNS`: the float64 card tick vs the CPU plain
+    tick (B=64; the hull at B=130), the float32 main-path tick at B=512
+    (condensed: K1 >= 4 launches at its macro shape, K2 1, K3 0; pscan:
+    K1 0, K2 1, K3 0), a 30-tick closed loop (converged_frac > 0.9; on
+    the curved race track the lanes with status 2 counted, as phase 14)
+    and B=1 p50/p99 beside the node's budget; `baseline` holds the M=1
+    loop and B=1 figures of phases 6, 7 and 9 (this process).  pscan's
+    float64 card tick is also held against the card's sweep tick.  Then
+    captured vs eager bitwise (phase 15's method, float32 with the RTI
+    split) for one condensed and one pscan tick of each model, with each
+    graph's nodes, capture and instantiation times.  The CPU ticks run in
+    a worker process (`option_cpu_references`) meanwhile.  Returns
+    ({(run, label): launch counts}, {(run, label): figures})."""
+    import concurrent.futures
+    import multiprocessing
+    import types
+
+    import torch
+    counts, table = {}, dict(baseline)
+    t0 = time.perf_counter()
+
+    def step_done(label):
+        print(f"  [{time.perf_counter() - t0:.1f} s] 18 {label} done")
+
+    with concurrent.futures.ProcessPoolExecutor(
+            max_workers=1,
+            mp_context=multiprocessing.get_context("spawn")) as pool:
+        cpu = pool.submit(option_cpu_references)
+        card64 = {}
+        for name, label in OPTION_RUNS:
+            card64[(name, label)] = f64_tick(name, OPTION_CPU_B[name],
+                                             _option(label), DEVICE)[0]
+            if label == "pscan":
+                out_s = f64_tick(name, OPTION_CPU_B[name], _production(),
+                                 DEVICE)[0]
+                compare_ticks(f"{name} pscan", card64[(name, label)], out_s,
+                              OPTION_CPU_B[name], _dims(name),
+                              against="the card's sweep")
+        step_done("float64 card ticks")
+        for name, label in OPTION_RUNS:
+            race = name in RACE
+            cfg = _option(label)
+            run = name if label == "pscan" else f"{name} {label}"
+            counts[(run, "18 " + label)] = main_path_tick(
+                name, cfg, _pscan_counts if label == "pscan"
+                else _production_counts)
+            tick, frac = closed_loop(name, cfg, gate=True, failed_ok=race)
+            b1 = latency_b1(name, cfg, OPTION_BUDGET_MS.get(name), ticks=20,
+                            versus=(("shooting interval Tf/N",
+                                     RACE_INTERVAL_MS) if race else None))
+            table[(name, label)] = dict(tick_ms=tick, frac=frac,
+                                        b1_p50=b1[0], b1_p99=b1[1])
+        step_done("ticks, loops and B=1")
+        for name, label in ((FLAGSHIP, "M=4"), (HULL, "M=2"),
+                            ("race_cars_dev_track", "M=2"),
+                            (FLAGSHIP, "pscan"), (HULL, "pscan")):
+            table[(name, label)]["graph"] = captured_vs_eager(
+                name, label, _option(label), torch.float32)
+        step_done("captured")
+        ref = cpu.result()
+    for (name, label), (u0, x1, status, sec) in ref.items():
+        want = types.SimpleNamespace(u0=torch.as_tensor(u0),
+                                     x1=torch.as_tensor(x1),
+                                     status=torch.as_tensor(status))
+        compare_ticks(f"{name} {label}", card64[(name, label)], want,
+                      OPTION_CPU_B[name], _dims(name),
+                      against=f"CPU plain ({sec:.1f} s, worker)")
+    step_done("card vs CPU")
+    return counts, table
+
+
 def _production_counts(c):
     return (c["riccati_lanes"] >= 4 and c["linearize_lanes"] == 1
             and c["fused_ipm_lanes"] == 0)
@@ -2854,16 +3034,23 @@ def main():
     card_vs_cpu_tick(FLAGSHIP, B)
     counts = {(FLAGSHIP, "sweep"): main_path_tick(FLAGSHIP, _production(),
                                                   _production_counts)}
-    closed_loop(FLAGSHIP, _production(), gate=True)
-    latency_b1(FLAGSHIP, _production(), 50.0)
+    # M=1 of phase 18's condensed runs: the production loop and B=1 tick
+    baseline = {}
+
+    def keep(name, loop, b1):
+        baseline[(name, "M=1")] = dict(tick_ms=loop[0], frac=loop[1],
+                                       b1_p50=b1[0], b1_p99=b1[1])
+
+    keep(FLAGSHIP, closed_loop(FLAGSHIP, _production(), gate=True),
+         latency_b1(FLAGSHIP, _production(), 50.0))
     mission()
     phase_done("phases 5-8 (the flagship)")
     # the hull production tick
     card_vs_cpu_tick(HULL, HULL_CPU_B)
     counts[(HULL, "sweep")] = main_path_tick(HULL, _production(),
                                              _production_counts)
-    closed_loop(HULL, _production(), gate=True)
-    latency_b1(HULL, _production(), 10.0)
+    keep(HULL, closed_loop(HULL, _production(), gate=True),
+         latency_b1(HULL, _production(), 10.0))
     # the fused tick of both OCPs
     for name in (FLAGSHIP, HULL):
         counts[(name, "fused")] = main_path_tick(name, _fused(),
@@ -2889,6 +3076,11 @@ def main():
     phase_done("phase 16 (the per-instance engine)")
     counts.update(guidance_stack(card))
     phase_done("phase 17 (the guidance stack)")
+    options, table = lane_options(card, baseline)
+    counts.update(options)
+    phase_done("phase 18 (the lane engine's options)")
+    print("phase 18 table: " + json.dumps(
+        {f"{n} {label}": v for (n, label), v in table.items()}))
 
     def launched(kernel, models):
         return sum(c[kernel] for (m, _), c in counts.items() if m in models)

@@ -6,7 +6,8 @@
 the instance axis minor-most) or "instance" (`RTISolver`, the per-instance
 engine with leading batch axes).  `riccati` picks the lane engine's IPM
 backend: "sweep" (eager iterations, one Riccati sweep each; the production
-path) or "fused" (the whole fixed-sigma IPM in one kernel).  `qp_backend`
+path), "pscan" (the same with the parallel-scan Riccati) or "fused" (the
+whole fixed-sigma IPM in one kernel).  `qp_backend`
 picks the instance engine's QP engine: "riccati" or "dense" (full
 condensing).  The device of the solver's tensors picks kernels or plain
 versions (the CUDA kernels for a CUDA device, their plain PyTorch versions
@@ -40,8 +41,8 @@ class SolverConfig:
     engine: str = "lane"          # "lane" (throughput) | "instance"
     ipm_iters: int = 12
     ipm_tol: float = 1e-7
-    riccati: str = "sweep"        # lane engine: "sweep" | "fused"
-                                  # (whole-IPM kernel)
+    riccati: str = "sweep"        # lane engine: "sweep" | "pscan" |
+                                  # "fused" (whole-IPM kernel)
     qp_backend: str = "riccati"   # instance engine: "riccati" | "dense"
                                   # (full condensing, the qpOASES role)
     centering: str = "fixed"      # "fixed" | "adaptive" (lane engine) |
@@ -69,7 +70,7 @@ class SolverConfig:
                 raise ValueError("stall escalation (extra_iters > 0) is "
                                  "lane-engine-only")
             if self.riccati != "sweep":
-                raise ValueError("the fused whole-IPM kernel requires the "
+                raise ValueError(f"riccati='{self.riccati}' requires the "
                                  "lane engine")
             if self.qp_backend == "dense" and self.centering != "fixed":
                 raise ValueError("mehrotra centering is implemented on the "

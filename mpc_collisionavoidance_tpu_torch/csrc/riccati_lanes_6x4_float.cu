@@ -1,0 +1,13 @@
+// K1 instance (nx, nu) = (6, 4) for race_cars_dev condensed at M = 2 (a macro
+// stage of the partially condensed QP), in float.  One translation unit per
+// instance, so that nvcc compiles the instances in parallel.
+
+#include "riccati_lanes.cuh"
+
+namespace nmpc {
+namespace k1 {
+
+template NMPC_K1_LAUNCH(float, 6, 4);
+
+}  // namespace k1
+}  // namespace nmpc

@@ -1,0 +1,14 @@
+// K1 instance (nx, nu) = (8, 10) for the flagship usv_guidance_ca1 condensed
+// at M = 10 (a macro stage of the partially condensed QP), in float.  One
+// translation unit per instance, so that nvcc compiles the instances in
+// parallel.
+
+#include "riccati_lanes.cuh"
+
+namespace nmpc {
+namespace k1 {
+
+template NMPC_K1_LAUNCH(float, 8, 10);
+
+}  // namespace k1
+}  // namespace nmpc

@@ -13,6 +13,18 @@
 // k), which saves broadcasts.  Threads with r >= NX only take part in the
 // syncs.  __syncwarp() orders the phases inside a stage.
 //
+// Wide instances (NU > 2: the macro stages of a partially condensed QP,
+// nu' = M nu up to 10) would hold Huu and its Cholesky factor whole in
+// every thread's registers, NU^2 values each, and spill.  There Huu goes to
+// the team's scratch instead (TeamScratch::Hs): the threads build its lower
+// triangle an entry each, factor it in place a column per step (thread
+// t > j computes entry (t, j) of the factor; every thread computes the
+// diagonal's reciprocal, which thread j keeps in TeamScratch::Di), and the
+// solves read the factor from shared memory as broadcasts: part 0 of row r
+// solves for column r of K, one thread of part 1 for k.  Hux, K and k go
+// to the scratch too, so no thread carries NU-long arrays from one phase
+// to the next.  The instances with NU <= 2 keep the register path.
+//
 // Every per-lane array lives in shared memory as a lane column of a block
 // that holds G lanes: entry e of lane g at e * G + g, so one entry of the
 // block's lanes is one contiguous copy.  Threads that read one entry get
@@ -57,13 +69,15 @@ __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
+constexpr int kWarpSize = 32;
+
 // A lane's team, one warp: ROWS row slots times SPLIT column parts; part
 // h owns the columns h * CW .. h * CW + CW - 1 of its row.
 template <int NX>
 struct Team {
   static_assert(NX <= 16, "a warp holds at most 16 rows of P");
   static constexpr int ROWS = NX <= 8 ? 8 : 16;
-  static constexpr int SPLIT = 32 / ROWS;
+  static constexpr int SPLIT = kWarpSize / ROWS;
   static constexpr int CW = (NX + SPLIT - 1) / SPLIT;
 };
 
@@ -85,12 +99,18 @@ struct FwdTile {
 };
 
 // A team's scratch, per lane: PA and the new P with rows of RS entries,
-// PB, P c + p, K.
+// PB, P c + p, K; for a wide instance also Huu and its factor (Hs, NU x NU
+// row-major: the factor's strict lower triangle over Huu's), the
+// reciprocals of the factor's diagonal (Di), Hux (Hx, NU x NX) and k (kf).
 template <int NX, int NU>
 struct TeamScratch {
+  static constexpr bool WIDE = NU > 2;
+  static constexpr int W = WIDE ? 1 : 0;
   static constexpr int RS = NX + 1;
   static constexpr int PA = 0, Pn = PA + NX * RS, PB = Pn + NX * RS,
-                       Pcp = PB + NX * NU, K = Pcp + NX, size = K + NU * NX;
+                       Pcp = PB + NX * NU, K = Pcp + NX, Hs = K + NU * NX,
+                       Di = Hs + W * NU * NU, Hx = Di + W * NU,
+                       kf = Hx + W * NU * NX, size = kf + W * NU;
 };
 
 // entry e of a lane column in a block of G lanes
@@ -99,8 +119,8 @@ __device__ __forceinline__ T& at(T* col, int e) {
   return col[e * G];
 }
 
-// Huu = Lf Lf' (unrolled; nu <= 2 in the models) and x <- -Huu^-1 x.  The
-// diagonal's reciprocals are taken once and the solves multiply by them:
+// Huu = Lf Lf' (unrolled; the instances with nu <= 2) and x <- -Huu^-1 x.
+// The diagonal's reciprocals are taken once and the solves multiply by them:
 // the divisions sat on every stage's dependent chain.
 template <typename T, int NU>
 struct Chol {
@@ -141,6 +161,28 @@ struct Chol {
     }
   }
 };
+
+// x <- -Huu^-1 x with Huu's factor in a wide team's scratch (`f` at
+// TeamScratch::Hs, `di` at TeamScratch::Di; lane columns of G lanes)
+template <typename T, int NU, int G>
+__device__ __forceinline__ void chol_solve_neg(const T* f, const T* di,
+                                               T (&x)[NU]) {
+  T y[NU];
+#pragma unroll
+  for (int r = 0; r < NU; ++r) {
+    T acc = -x[r];
+#pragma unroll
+    for (int t = 0; t < r; ++t) acc -= at<G>(f, r * NU + t) * y[t];
+    y[r] = acc * at<G>(di, r);
+  }
+#pragma unroll
+  for (int r = NU - 1; r >= 0; --r) {
+    T acc = y[r];
+#pragma unroll
+    for (int t = r + 1; t < NU; ++t) acc -= at<G>(f, t * NU + r) * x[t];
+    x[r] = acc * at<G>(di, r);
+  }
+}
 
 // Backward step of one stage for one lane, by thread t of its team (row
 // r = t % ROWS).  `tile` is the stage's BackTile and `scr` the team's
@@ -191,50 +233,125 @@ __device__ __forceinline__ void backward_stage(int t, const T* tile, T* scr,
   }
   __syncwarp();
 
-  // Huu, hu, the Cholesky and k in every thread; column r of Hux and K in
-  // every part of row r (part 0 stores K)
-  T H[NU][NU];
-#pragma unroll
-  for (int u = 0; u < NU; ++u) {
-#pragma unroll
-    for (int v = 0; v < NU; ++v) {
-      T a = T(0);
-#pragma unroll
-      for (int k = 0; k < NX; ++k)
-        a += at<G>(tile, BT::B + k * NU + u) * at<G>(scr, TS::PB + k * NU + v);
-      H[u][v] = at<G>(tile, BT::R + u * NU + v) + a;
-    }
-    T a = T(0);
-#pragma unroll
-    for (int k = 0; k < NX; ++k)
-      a += at<G>(tile, BT::B + k * NU + u) * at<G>(scr, TS::Pcp + k);
-    kff[u] = at<G>(tile, BT::qu + u) + a;
-  }
-  const Chol<T, NU> chol(H);
-  chol.solve_neg(kff);
   T Hux[NU];
+  if constexpr (TS::WIDE) {
+    // Huu's lower triangle into the scratch, an entry per thread
+    for (int e = t; e < NU * NU; e += kWarpSize) {
+      const int u = e / NU, v = e % NU;
+      if (v <= u) {
+        T a = T(0);
 #pragma unroll
-  for (int u = 0; u < NU; ++u) Hux[u] = T(0);
-  if (row) {
+        for (int k = 0; k < NX; ++k)
+          a += at<G>(tile, BT::B + k * NU + u) *
+               at<G>(scr, TS::PB + k * NU + v);
+        at<G>(scr, TS::Hs + e) = at<G>(tile, BT::R + e) + a;
+      }
+    }
+    __syncwarp();
+    // the Cholesky factor in place, column j at step j
+#pragma unroll
+    for (int j = 0; j < NU; ++j) {
+      T d = at<G>(scr, TS::Hs + j * NU + j);
+#pragma unroll
+      for (int k = 0; k < j; ++k) {
+        const T f = at<G>(scr, TS::Hs + j * NU + k);
+        d -= f * f;
+      }
+      const T inv = T(1) / root(d);
+      if (t == j) at<G>(scr, TS::Di + j) = inv;
+      if (t > j && t < NU) {
+        T a = at<G>(scr, TS::Hs + t * NU + j);
+#pragma unroll
+        for (int k = 0; k < j; ++k)
+          a -= at<G>(scr, TS::Hs + t * NU + k) *
+               at<G>(scr, TS::Hs + j * NU + k);
+        at<G>(scr, TS::Hs + t * NU + j) = a * inv;
+      }
+      __syncwarp();
+    }
+    // k by thread 0 of part 1; column r of Hux and K by part 0 of row r
+    T x[NU];
+    if (t == TM::ROWS) {
+#pragma unroll
+      for (int u = 0; u < NU; ++u) {
+        T a = T(0);
+#pragma unroll
+        for (int k = 0; k < NX; ++k)
+          a += at<G>(tile, BT::B + k * NU + u) * at<G>(scr, TS::Pcp + k);
+        x[u] = at<G>(tile, BT::qu + u) + a;
+      }
+      chol_solve_neg<T, NU, G>(scr + TS::Hs * G, scr + TS::Di * G, x);
+#pragma unroll
+      for (int u = 0; u < NU; ++u) at<G>(scr, TS::kf + u) = x[u];
+    }
+    if (row && part == 0) {
+#pragma unroll
+      for (int u = 0; u < NU; ++u) {
+        T a = T(0);
+#pragma unroll
+        for (int k = 0; k < NX; ++k)
+          a += at<G>(tile, BT::B + k * NU + u) *
+               at<G>(scr, TS::PA + k * RS + r);
+        x[u] = at<G>(tile, BT::S + u * NX + r) + a;
+        at<G>(scr, TS::Hx + u * NX + r) = x[u];
+      }
+      chol_solve_neg<T, NU, G>(scr + TS::Hs * G, scr + TS::Di * G, x);
+#pragma unroll
+      for (int u = 0; u < NU; ++u) at<G>(scr, TS::K + u * NX + r) = x[u];
+    }
+  } else {
+    // Huu, hu, the Cholesky and k in every thread; column r of Hux and K
+    // in every part of row r (part 0 stores K)
+    T H[NU][NU];
 #pragma unroll
     for (int u = 0; u < NU; ++u) {
+#pragma unroll
+      for (int v = 0; v < NU; ++v) {
+        T a = T(0);
+#pragma unroll
+        for (int k = 0; k < NX; ++k)
+          a += at<G>(tile, BT::B + k * NU + u) *
+               at<G>(scr, TS::PB + k * NU + v);
+        H[u][v] = at<G>(tile, BT::R + u * NU + v) + a;
+      }
       T a = T(0);
 #pragma unroll
       for (int k = 0; k < NX; ++k)
-        a += at<G>(tile, BT::B + k * NU + u) * at<G>(scr, TS::PA + k * RS + r);
-      Hux[u] = at<G>(tile, BT::S + u * NX + r) + a;
-      Kt[u] = Hux[u];
+        a += at<G>(tile, BT::B + k * NU + u) * at<G>(scr, TS::Pcp + k);
+      kff[u] = at<G>(tile, BT::qu + u) + a;
     }
-    chol.solve_neg(Kt);
-    if (part == 0) {
+    const Chol<T, NU> chol(H);
+    chol.solve_neg(kff);
 #pragma unroll
-      for (int u = 0; u < NU; ++u) at<G>(scr, TS::K + u * NX + r) = Kt[u];
+    for (int u = 0; u < NU; ++u) Hux[u] = T(0);
+    if (row) {
+#pragma unroll
+      for (int u = 0; u < NU; ++u) {
+        T a = T(0);
+#pragma unroll
+        for (int k = 0; k < NX; ++k)
+          a += at<G>(tile, BT::B + k * NU + u) *
+               at<G>(scr, TS::PA + k * RS + r);
+        Hux[u] = at<G>(tile, BT::S + u * NX + r) + a;
+        Kt[u] = Hux[u];
+      }
+      chol.solve_neg(Kt);
+      if (part == 0) {
+#pragma unroll
+        for (int u = 0; u < NU; ++u) at<G>(scr, TS::K + u * NX + r) = Kt[u];
+      }
     }
   }
   __syncwarp();
 
   // row r of Q + A'PA + Hux'K (this part's columns; column r of A in
   // registers), entry r of p (the last part)
+  auto hux = [&](int u) -> T {
+    if constexpr (TS::WIDE)
+      return at<G>(scr, TS::Hx + u * NX + r);
+    else
+      return Hux[u];
+  };
   if (row) {
     T a[NX];
 #pragma unroll
@@ -255,7 +372,7 @@ __device__ __forceinline__ void backward_stage(int t, const T* tile, T* scr,
         T hk = T(0);
 #pragma unroll
         for (int u = 0; u < NU; ++u)
-          hk += Hux[u] * at<G>(scr, TS::K + u * NX + j);
+          hk += hux(u) * at<G>(scr, TS::K + u * NX + j);
         at<G>(scr, TS::Pn + r * RS + j) =
             at<G>(tile, BT::Qt + j * NX + r) + Pn[jj] + hk;
       }
@@ -266,7 +383,12 @@ __device__ __forceinline__ void backward_stage(int t, const T* tile, T* scr,
       for (int k = 0; k < NX; ++k) ac += a[k] * at<G>(scr, TS::Pcp + k);
       T hkf = T(0);
 #pragma unroll
-      for (int u = 0; u < NU; ++u) hkf += Hux[u] * kff[u];
+      for (int u = 0; u < NU; ++u) {
+        if constexpr (TS::WIDE)
+          hkf += hux(u) * at<G>(scr, TS::kf + u);
+        else
+          hkf += Hux[u] * kff[u];
+      }
       pi = at<G>(tile, BT::qx + r) + ac + hkf;
     }
   }
@@ -278,6 +400,15 @@ __device__ __forceinline__ void backward_stage(int t, const T* tile, T* scr,
     for (int j = 0; j < NX; ++j)
       Pi[j] = T(0.5) * (at<G>(scr, TS::Pn + r * RS + j) +
                         at<G>(scr, TS::Pn + j * RS + r));
+  }
+  if constexpr (TS::WIDE) {
+    // a wide instance's K and k from the scratch, for the caller
+#pragma unroll
+    for (int u = 0; u < NU; ++u) kff[u] = at<G>(scr, TS::kf + u);
+    if (row) {
+#pragma unroll
+      for (int u = 0; u < NU; ++u) Kt[u] = at<G>(scr, TS::K + u * NX + r);
+    }
   }
 }
 

@@ -36,8 +36,10 @@ def lane_state_from_numpy(xbar, ubar, *, device, dtype) -> LaneState:
 
 
 def lane_qp_from_numpy(fields: dict, *, device, dtype) -> LaneQP:
-    """A mapping of LaneQP field names to numpy arrays -> LaneQP.  Fields
-    that are None (or numpy's 0-d object array holding None) stay None."""
+    """A mapping of LaneQP field names to numpy arrays -> LaneQP, a
+    partially condensed QP's 4-D cost blocks and `Dh`/`Ds` included.
+    Fields that are None (or numpy's 0-d object array holding None) stay
+    None."""
     out = {}
     for name in LaneQP._fields:
         v = fields.get(name)

@@ -19,9 +19,13 @@ from mpc_collisionavoidance_tpu_torch.kernels import _build
 # usv_acados (5, 2), and the guidance family: usv_guidance_ca (9, 1),
 # usv_guidance (10, 1), usv_guidance2 (12, 1), usv_guidance3 (11, 1),
 # usv_guidance4 (4, 1), usv_guidance5 (5, 1), and the race car race_cars,
-# race_cars_dev (6, 2)
+# race_cars_dev (6, 2); and the macro stages of partially condensed QPs
+# (`ops/condense_partial.py`, nu' = M nu): the flagship at M = 4, 5, 10
+# (8, 4), (8, 5), (8, 10) (its M = 2 is (8, 2)), usv_pf_ca at M = 2, 4
+# (14, 4), (14, 8), race_cars_dev at M = 2 (6, 4)
 SUPPORTED = ((8, 1), (14, 2), (8, 2), (5, 2), (9, 1), (10, 1), (12, 1),
-             (11, 1), (4, 1), (5, 1), (6, 2))
+             (11, 1), (4, 1), (5, 1), (6, 2), (8, 4), (8, 5), (8, 10),
+             (14, 4), (14, 8), (6, 4))
 DTYPES = (torch.float32, torch.float64)
 
 launches = 0

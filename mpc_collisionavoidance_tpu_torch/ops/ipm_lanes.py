@@ -9,21 +9,27 @@ freeze mask and status are per-lane (L,) vectors.  All ten slack/dual
 families are carried: control box (lo/hi), state box (lo/hi), hard h rows
 (lo/hi), soft rows (sl/su) and the slack bounds (bsl/bsu).
 
-Two backends, picked by `riccati`:
+Three backends, picked by `riccati`:
 - "sweep" (default): the iterations run as tensor code here, with
   one Riccati sweep per iteration through `ops.riccati_lanes.
   lqr_solve_lanes` (the CUDA kernel K1 for CUDA tensors, the plain sweep
   for CPU tensors).  Fixed, adaptive and Mehrotra centering, `mu0="auto"`,
   stall escalation and the gap trace.
+- "pscan": the same iterations with the Newton step's LQR solved by the
+  parallel-scan Riccati `ops.riccati_pscan.lqr_solve_pscan` (O(log N)
+  depth, plain PyTorch on either device), with every schedule option.
 - "fused": the whole fixed-sigma solve in one launch of the CUDA kernel K3
   (`kernels/ipm.py`) for CUDA tensors; for CPU tensors its plain version
   `fused_ipm_lanes_plain`, which is this module's eager iteration at the
   fixed schedule with the plain sweep.  Fixed sigma, scalar mu0, no
-  escalation, no control-coupled rows (as the JAX package's fused kernel).
+  escalation, no control-coupled rows or stage-varying cost (as the JAX
+  package's fused kernel).
 
-Ported: the dtype-aware gap floor / status tolerance, the freeze rule and
-the status rules.  Not ported yet (raises `NotImplementedError`):
-control-coupled rows `Dh`/`Ds` from partial condensing.
+The QP's cost blocks are static 2-D blocks (the full-resolution QP, the
+production path) or stage/lane-varying 4-D ones, and its h and soft rows
+may couple the controls (`Dh`, `Ds`): both come from partial condensing
+(`ops/condense_partial.py`).  Ported: the dtype-aware gap floor / status
+tolerance, the freeze rule and the status rules.
 
 Stall escalation (the reference's `lax.while_loop`) is `extra_iters`
 guarded steps.  Each computes on the device the loop's predicate (some
@@ -45,6 +51,8 @@ from mpc_collisionavoidance_tpu_torch.kernels import ipm as ipm_kernel
 from mpc_collisionavoidance_tpu_torch.ops import lanes as ln
 from mpc_collisionavoidance_tpu_torch.ops.riccati_lanes import (
     LaneLQR, lqr_solve_lanes, lqr_solve_lanes_plain)
+from mpc_collisionavoidance_tpu_torch.ops.riccati_pscan import (
+    lqr_solve_pscan)
 
 
 class LaneQP(NamedTuple):
@@ -53,11 +61,12 @@ class LaneQP(NamedTuple):
     B: torch.Tensor       # (N, nx, nu, L)
     c: torch.Tensor       # (N, nx, L)
     dx0: torch.Tensor     # (nx, L)
-    # static cost blocks, already dt-scaled
-    Qc: torch.Tensor      # (nx, nx)
+    # cost: static blocks (2-D, already dt-scaled; broadcast lazily) or
+    # stage/lane-varying ones (4-D, from partial condensing)
+    Qc: torch.Tensor      # (nx, nx) | (N, nx, nx, L)
     QN: torch.Tensor      # (nx, nx)
-    Sc: torch.Tensor      # (nu, nx)
-    Rc: torch.Tensor      # (nu, nu)
+    Sc: torch.Tensor      # (nu, nx) | (N, nu, nx, L)
+    Rc: torch.Tensor      # (nu, nu) | (N, nu, nu, L)
     qx: torch.Tensor      # (N+1, nx, L)
     qu: torch.Tensor      # (N, nu, L)
     # control box rows (gl form): du_sel - ub_lo >= 0 ; -du_sel - ub_hi >= 0
@@ -82,10 +91,10 @@ class LaneQP(NamedTuple):
     Zu: torch.Tensor      # (nS, 1)
     lsh: torch.Tensor     # (nS, 1)
     ush: torch.Tensor     # (nS, 1)
-    # control coupling of h/soft rows (partially condensed QPs) — not
-    # ported; must be None
-    Dh: Optional[torch.Tensor] = None
-    Ds: Optional[torch.Tensor] = None
+    # optional control coupling of the h/soft rows (partially condensed
+    # QPs: a row is C dx + D du + offset); None = state-only rows
+    Dh: Optional[torch.Tensor] = None   # (N, nHh, nu, L)
+    Ds: Optional[torch.Tensor] = None   # (N, nS, nu, L)
 
 
 class LaneIPMSolution(NamedTuple):
@@ -150,7 +159,7 @@ def check_schedule(riccati: str, centering: str, mu0, extra_iters: int):
     whole-IPM kernel bakes fixed sigma, a scalar mu0 and a fixed iteration
     count (as the JAX package's).  Shared by `ipm_solve_lanes`,
     `LaneRTISolver` and `SolverConfig`."""
-    if riccati not in ("sweep", "fused"):
+    if riccati not in ("sweep", "pscan", "fused"):
         raise ValueError(f"unknown riccati backend '{riccati}'")
     if riccati == "fused":
         if centering != "fixed":
@@ -214,10 +223,11 @@ def ipm_solve_lanes(qp: LaneQP,
                     stall_tol: Optional[float] = None,
                     return_gap_trace: bool = False,
                     escalation: Optional[Escalation] = None):
-    """`riccati`: "sweep" (eager iterations, one Riccati sweep each) or
-    "fused" (the whole fixed-sigma solve in one kernel launch; module
-    docstring).  `centering="adaptive"` replaces the fixed sigma with the
-    per-lane heuristic sigma_k = clip((1 - alpha_{k-1})^3, 1e-3, 0.5)
+    """`riccati`: "sweep" (eager iterations, one Riccati sweep each),
+    "pscan" (the same with the parallel-scan Riccati) or "fused" (the
+    whole fixed-sigma solve in one kernel launch; module docstring).
+    `centering="adaptive"` replaces the fixed sigma with the per-lane
+    heuristic sigma_k = clip((1 - alpha_{k-1})^3, 1e-3, 0.5)
     driven by the previous fraction-to-boundary step;
     `centering="mehrotra"` is the predictor-corrector: an affine probe
     (a second Riccati sweep) sets sigma = clip((mu_aff/mu)^3, 1e-4, 0.99)
@@ -235,9 +245,11 @@ def ipm_solve_lanes(qp: LaneQP,
     reference's does."""
     check_schedule(riccati, centering, mu0, extra_iters)
     if riccati == "fused":
-        if qp.Dh is not None or qp.Ds is not None:
+        if qp.Dh is not None or qp.Ds is not None or qp.Qc.ndim == 4:
             raise ValueError("the fused whole-IPM kernel does not support "
-                             "control-coupled rows (Dh/Ds)")
+                             "control-coupled rows (Dh/Ds) or stage-varying "
+                             "cost (partially condensed QPs); use "
+                             "riccati='sweep' or 'pscan'")
         if qp.A.device.type == "cpu":
             fused = fused_ipm_lanes_plain
         else:
@@ -247,15 +259,13 @@ def ipm_solve_lanes(qp: LaneQP,
         return LaneIPMSolution(dx=dx, du=du, gap=gap, eq_res=eq_res,
                                status=lane_status(dx, du, gap, eq_res, tol))
 
-    if qp.Dh is not None or qp.Ds is not None:
-        raise NotImplementedError("control-coupled rows (Dh/Ds, partial "
-                                  "condensing) are not ported yet")
     eff_tol = _eff_tol(tol, qp.A.dtype)
     dx, du, gap, eq_res, gaps = _ipm_iterate(
         qp, idxbu, idxbx, iters=iters, tau=tau, sigma=sigma, mu0=mu0,
         centering=centering, extra_iters=extra_iters,
         stall=eff_tol if stall_tol is None else stall_tol,
-        sweep=lqr_solve_lanes, escalation=escalation)
+        sweep=lqr_solve_pscan if riccati == "pscan" else lqr_solve_lanes,
+        escalation=escalation)
     sol = LaneIPMSolution(dx=dx, du=du, gap=gap, eq_res=eq_res,
                           status=lane_status(dx, du, gap, eq_res, tol))
     return (sol, gaps) if return_gap_trace else sol
@@ -292,6 +302,19 @@ def _ipm_iterate(qp: LaneQP, idxbu, idxbx, *, iters, tau, sigma, mu0,
     gap_floor = 1e-13 if f64 else 3e-7
     iu = _index(tuple(int(i) for i in idxbu), device)
     ix = _index(tuple(int(i) for i in idxbx), device)
+    # control coupling of the h/soft rows, stage-varying cost (partially
+    # condensed QPs)
+    has_Dh = qp.Dh is not None and nHh > 0
+    has_Ds = qp.Ds is not None and nS > 0
+    varying = qp.Qc.ndim == 4
+
+    def h_val(dxp, du):
+        hv = ln.srows_mv(qp.Ch, dxp)
+        return hv + ln.srows_mv(qp.Dh, du) if has_Dh else hv
+
+    def s_val(dxp, du):
+        gv = ln.srows_mv(qp.Cs, dxp)
+        return gv + ln.srows_mv(qp.Ds, du) if has_Ds else gv
 
     def du_sel(du):
         return du[:, iu, :]
@@ -305,10 +328,10 @@ def _ipm_iterate(qp: LaneQP, idxbu, idxbx, *, iters, tau, sigma, mu0,
         g_uhi = -du_sel(du) - qp.ub_hi
         g_xlo = qp.xmask * dx_sel(dxp) - qp.xb_lo
         g_xhi = -qp.xmask * dx_sel(dxp) - qp.xb_hi
-        hv = ln.srows_mv(qp.Ch, dxp)
+        hv = h_val(dxp, du)
         g_hlo = hv - qp.hh_lo
         g_hhi = -hv - qp.hh_hi
-        gv = qp.hofs + ln.srows_mv(qp.Cs, dxp)
+        gv = qp.hofs + s_val(dxp, du)
         return g_ulo, g_uhi, g_xlo, g_xhi, g_hlo, g_hhi, gv
 
     # ---------------- initialization ----------------
@@ -334,10 +357,13 @@ def _ipm_iterate(qp: LaneQP, idxbu, idxbx, *, iters, tau, sigma, mu0,
 
     # static cost blocks broadcast over (stage, lane); Sc4 is materialized
     # once, since the Riccati sweep reads it unchanged every iteration
-    Qc4 = qp.Qc[None, :, :, None].expand(N, nx, nx, L)
+    if varying:
+        Qc4, Sc4, Rc4 = qp.Qc, qp.Sc, qp.Rc
+    else:
+        Qc4 = qp.Qc[None, :, :, None].expand(N, nx, nx, L)
+        Sc4 = qp.Sc[None, :, :, None].expand(N, nu, nx, L).contiguous()
+        Rc4 = qp.Rc[None, :, :, None].expand(N, nu, nu, L)
     QN4 = qp.QN[None, :, :, None].expand(1, nx, nx, L)
-    Sc4 = qp.Sc[None, :, :, None].expand(N, nu, nx, L).contiguous()
-    Rc4 = qp.Rc[None, :, :, None].expand(N, nu, nu, L)
     eye_x = torch.eye(nx, **opts)[None, :, :, None]
     eye_u = torch.eye(nu, **opts)[None, :, :, None]
 
@@ -388,16 +414,29 @@ def _ipm_iterate(qp: LaneQP, idxbu, idxbx, *, iters, tau, sigma, mu0,
             diag_u = torch.zeros((N, nu, L), **opts)
             diag_u[:, iu, :] += a_ulo + a_uhi
             Rbar = Rbar + diag_u[:, :, None, :] * eye_u
+        Sbar = Sc4
+        if has_Dh:
+            w_h = a_hlo + a_hhi
+            Rbar = Rbar + ln.sgram_rows(qp.Dh, w_h)
+            Sbar = Sbar + ln.sgram_cross(qp.Dh, qp.Ch, w_h)
+        if has_Ds:
+            w_s = abar_l + abar_u
+            Rbar = Rbar + ln.sgram_rows(qp.Ds, w_s)
+            Sbar = Sbar + ln.sgram_cross(qp.Ds, qp.Cs, w_s)
 
         # ---- mu-independent gradient bases + dynamics residuals ----
         dxp, dxN = dx[:-1], dx[-1]
-        qx_base = (qp.qx[:-1]
-                   + torch.einsum("ij,kjl->kil", qp.Qc, dxp)
-                   + torch.einsum("ui,kul->kil", qp.Sc, du))
+        if varying:
+            qx_base = qp.qx[:-1] + ln.smv(qp.Qc, dxp) + ln.smtv(qp.Sc, du)
+            qu_base = qp.qu + ln.smv(qp.Sc, dxp) + ln.smv(qp.Rc, du)
+        else:
+            qx_base = (qp.qx[:-1]
+                       + torch.einsum("ij,kjl->kil", qp.Qc, dxp)
+                       + torch.einsum("ui,kul->kil", qp.Sc, du))
+            qu_base = (qp.qu
+                       + torch.einsum("ui,kil->kul", qp.Sc, dxp)
+                       + torch.einsum("uv,kvl->kul", qp.Rc, du))
         qx_N = qp.qx[-1] + torch.einsum("ij,jl->il", qp.QN, dxN)
-        qu_base = (qp.qu
-                   + torch.einsum("ui,kil->kul", qp.Sc, dxp)
-                   + torch.einsum("uv,kvl->kul", qp.Rc, du))
         cbar = ln.smv(qp.A, dxp) + ln.smv(qp.B, du) + qp.c - dx[1:]
         ddx0 = qp.dx0 - dx[0]
 
@@ -438,19 +477,25 @@ def _ipm_iterate(qp: LaneQP, idxbu, idxbx, *, iters, tau, sigma, mu0,
                     - (m_uhi / t_uhi - a_uhi * r_uhi)
                 qu_bar = qu_bar.clone()
                 qu_bar[:, iu, :] += -vec_u
+            if has_Dh:
+                qu_bar = qu_bar - ln.srows_tv(qp.Dh, v_hlo) \
+                    + ln.srows_tv(qp.Dh, v_hhi)
+            if has_Ds:
+                qu_bar = qu_bar - ln.srows_tv(qp.Ds, qtil_l) \
+                    + ln.srows_tv(qp.Ds, qtil_u)
 
             # ---- Newton step via the lane Riccati sweep (the kernel takes
             # contiguous tensors; einsum may return permuted strides) ----
             Ddx, Ddu = sweep(LaneLQR(*(
-                t.contiguous() for t in (qp.A, qp.B, cbar, Q_all, Sc4, Rbar,
+                t.contiguous() for t in (qp.A, qp.B, cbar, Q_all, Sbar, Rbar,
                                          qx_all, qu_bar, ddx0))))
             Ddxp = Ddx[:-1]
 
             # ---- recover slack/dual steps ----
-            Dgv = ln.srows_mv(qp.Cs, Ddxp) if nS else gv
+            Dgv = s_val(Ddxp, Ddu) if nS else gv
             Dsl = (k_l - a_sl * Dgv) / beta_l if nS else sl
             Dsu = (k_u + a_su * Dgv) / beta_u if nS else su
-            Dhv = ln.srows_mv(qp.Ch, Ddxp) if nHh else r_hlo * 0
+            Dhv = h_val(Ddxp, Ddu) if nHh else r_hlo * 0
             Dt = (
                 du_sel(Ddu) + r_ulo,
                 -du_sel(Ddu) + r_uhi,

@@ -1,6 +1,6 @@
 """Lane-batched small-matrix algebra (counterpart of
-`mpc_collisionavoidance_tpu/ops/lanes.py`, the helpers the Riccati sweep
-and the lane IPM use).
+`mpc_collisionavoidance_tpu/ops/lanes.py`, the helpers the Riccati sweep,
+the lane IPM, partial condensing and the parallel-scan Riccati use).
 
 Layout: the INSTANCE axis is minor-most — tensors are (m, n, L), or
 (N, m, n, L) with a leading stage axis — so the lanes of one row are
@@ -32,6 +32,11 @@ def mv(A, x):
 def mtv(A, x):
     """A^T @ x: (k,m,L),(k,L) -> (m,L)."""
     return torch.einsum("kil,kl->il", A, x)
+
+
+def transpose(A):
+    """(m,n,L) -> (n,m,L)."""
+    return A.transpose(0, 1)
 
 
 def sym(A):
@@ -86,6 +91,11 @@ def smv(A, x):
     return torch.einsum("nikl,nkl->nil", A, x)
 
 
+def smtv(A, x):
+    """A^T x stagewise: (N,k,m,L),(N,k,L) -> (N,m,L)."""
+    return torch.einsum("nkml,nkl->nml", A, x)
+
+
 def srows_mv(C, x):
     """Row values stagewise: (N,r,m,L),(N,m,L) -> (N,r,L)."""
     return torch.einsum("nrml,nml->nrl", C, x)
@@ -99,6 +109,32 @@ def srows_tv(C, v):
 def sgram_rows(C, w):
     """sum_r w[.,r] C[.,r] C[.,r]^T stagewise: (N,r,m,L),(N,r,L) -> (N,m,m,L)."""
     return torch.einsum("nril,nrl,nrjl->nijl", C, w, C)
+
+
+def sgram_cross(D, C, w):
+    """sum_r w[.,r] D[.,r] C[.,r]^T stagewise: (N,r,m,L),(N,r,n,L),(N,r,L)
+    -> (N,m,n,L).  The cross term of constraint-row grams when rows couple
+    two variable blocks (partially condensed rows C dx + D du)."""
+    return torch.einsum("nril,nrl,nrjl->nijl", D, w, C)
+
+
+def ge_solve_mat(M, B):
+    """Solve M X = B for a general (non-symmetric) tiny M: (..., n, n, L) x
+    (..., n, k, L) -> (..., n, k, L), any leading axes batched.
+
+    Gauss-Jordan elimination WITHOUT pivoting, as the JAX package's: callers
+    pass well-conditioned systems (the parallel-scan Riccati's resolvents
+    I + C J with C, J PSD have their spectrum in [1, inf)).  One column per
+    step, three ops each over the whole batch (the pivot row's division,
+    the rank-1 update of every row, the pivot row's write), so the op
+    count is 3 n whatever the batch and k."""
+    n = M.shape[-3]
+    X = torch.cat([M, B], dim=-2)
+    for col in range(n):
+        prow = X[..., col:col + 1, :, :] / X[..., col:col + 1, col:col + 1, :]
+        X = torch.addcmul(X, X[..., :, col:col + 1, :], prow, value=-1)
+        X[..., col:col + 1, :, :] = prow
+    return X[..., n:, :]
 
 
 # ---- the per-instance engine's batch axes onto the lane axis ----

@@ -26,7 +26,9 @@ dims, optional stage-constant yref), byte-identical to the JAX package's
 
 The device picks the kernels: on a CUDA device every tick runs the
 hand-written kernels (the linearization kernel, then the Riccati kernel
-per IPM iteration, or the fused whole-IPM kernel with `riccati="fused"`);
+per IPM iteration, or the fused whole-IPM kernel with `riccati="fused"`;
+`riccati="pscan"` solves each iteration's LQR with the parallel-scan
+Riccati in plain PyTorch instead);
 the lane engine's ticks, preparations and feedbacks run as one captured
 CUDA graph each (`solver/capture.py`; `warmup()` captures them, as the JAX
 server's compiles its jitted ticks), the vmap engine's op by op.  On the
@@ -123,8 +125,7 @@ class RTServer:
             raise ValueError("stall escalation (extra_iters > 0) requires "
                              "engine='lane'")
         if engine == "vmap" and riccati != "sweep":
-            raise ValueError("the fused whole-IPM kernel requires "
-                             "engine='lane'")
+            raise ValueError(f"riccati={riccati!r} requires engine='lane'")
         if model not in builders.BUILDERS:
             raise ValueError(f"unknown model {model!r}; the port serves "
                              f"{sorted(builders.BUILDERS)}")
@@ -658,8 +659,7 @@ def main(argv=None):
                "have no counterpart: the device picks the kernels (the "
                "CUDA kernels on a CUDA device, their plain PyTorch "
                "versions on the CPU) and no bucket needs a compile.  Its "
-               "--riccati lax and pallas are --riccati sweep here; its "
-               "--riccati pscan (ROADMAP A8) is not ported yet.")
+               "--riccati lax and pallas are --riccati sweep here.")
     parser.add_argument("socket", nargs="?",
                         default=os.path.join(tempfile.gettempdir(),
                                              "nmpc_rt.sock"),
@@ -704,11 +704,12 @@ def main(argv=None):
                         help="IPM centering schedule (mehrotra: two "
                              "Riccati sweeps per iteration)")
     parser.add_argument("--riccati", default=None,
-                        choices=("sweep", "fused"),
+                        choices=("sweep", "pscan", "fused"),
                         help="IPM backend: sweep (one Riccati kernel per "
-                             "iteration) or fused (the whole IPM in one "
-                             "kernel; needs --centering fixed, a float "
-                             "--mu0 and --extra-iters 0)")
+                             "iteration), pscan (the parallel-scan Riccati "
+                             "per iteration, O(log N) depth) or fused (the "
+                             "whole IPM in one kernel; needs --centering "
+                             "fixed, a float --mu0 and --extra-iters 0)")
     parser.add_argument("--max-batch", type=int, default=128,
                         help="vehicles served at once (the lane width)")
     parser.add_argument("--rti-split", action="store_true",

@@ -12,8 +12,12 @@ Layouts:
 The solver is bound to one device and dtype.  The device picks the
 kernels: on CUDA tensors the tick runs the fused linearization kernel
 once, then either the Riccati kernel once per IPM iteration
-(`riccati="sweep"`, the default) or the fused whole-IPM kernel once
-(`riccati="fused"`); on CPU tensors it runs their plain PyTorch versions.
+(`riccati="sweep"`, the default), the parallel-scan Riccati in plain
+PyTorch once per iteration (`riccati="pscan"`) or the fused whole-IPM
+kernel once (`riccati="fused"`); on CPU tensors it runs their plain
+PyTorch versions.  With `condense=M` the QP is partially condensed into
+N/M macro stages of M nu controls before the IPM
+(`ops/condense_partial.py`), so the Riccati kernel runs at (nx, M nu).
 
 On a CUDA device `step_fn`, `prepare_fn` and `feedback_fn` each run as one
 captured CUDA graph (`solver/capture.py`, the counterpart of the JAX
@@ -25,8 +29,7 @@ outputs, holds until the next tick.  `capture=False` runs them op by op
 instead, for comparisons and profiling.
 
 `LaneSolverAdapter` gives one vehicle the per-instance API on this
-engine at lane width 1.  Not ported yet: partial condensing (`condense`)
-and the pscan backend.
+engine at lane width 1.
 """
 
 from typing import NamedTuple, Optional
@@ -35,6 +38,8 @@ import numpy as np
 import torch
 
 from mpc_collisionavoidance_tpu_torch.ocp.spec import OCPSpec
+from mpc_collisionavoidance_tpu_torch.ops.condense_partial import (
+    condense_lane_qp, expand_solution)
 from mpc_collisionavoidance_tpu_torch.ops.ipm_lanes import (
     Escalation, LaneQP, check_schedule, ipm_solve_lanes)
 from mpc_collisionavoidance_tpu_torch.ops.linearize_lanes import (
@@ -68,16 +73,23 @@ class LaneRTISolver:
     def __init__(self, spec: OCPSpec, ipm_iters: int = 12,
                  ipm_tol: float = 1e-7, riccati: str = "sweep",
                  centering: str = "fixed", mu0=1.0, extra_iters: int = 0,
-                 stall_tol: Optional[float] = None, *,
+                 stall_tol: Optional[float] = None, condense: int = 1, *,
                  device, dtype, capture: bool = True):
         """`riccati`: "sweep" (eager IPM, one Riccati sweep per iteration —
-        the production path) or "fused" (the whole fixed-sigma IPM in one
-        kernel launch, K3; fixed centering, float mu0, no escalation).
+        the production path), "pscan" (the same with the parallel-scan
+        Riccati, O(log N) depth, `ops/riccati_pscan.py`) or "fused" (the
+        whole fixed-sigma IPM in one kernel launch, K3; fixed centering,
+        float mu0, no escalation).
         `centering`: "fixed" (sigma = 0.1), "adaptive" (per-lane sigma
         from the previous fraction-to-boundary step) or "mehrotra"
         (predictor-corrector, two Riccati sweeps per iteration; sweep
         backend only).  `mu0`: float or "auto" (per-lane gradient-scaled).
         `extra_iters` / `stall_tol`: stall escalation (ops/ipm_lanes.py).
+        `condense`: partial-condensing group size M (HPIPM's knob, the
+        reference's PARTIAL_CONDENSING_HPIPM): groups of M shooting
+        intervals are condensed before the IPM, so the Riccati chain
+        walks N/M stages (`ops/condense_partial.py`).  1 = no condensing.
+        Must divide N; incompatible with riccati="fused".
         `device`, `dtype`: where and in what precision the solver runs; the
         static cost blocks are moved there once, here.  `capture`: on a
         CUDA device, run each tick as a captured graph (the main path);
@@ -85,6 +97,14 @@ class LaneRTISolver:
         `last_esc_iters`: the escalation iterations of the last tick, a
         device int32."""
         check_schedule(riccati, centering, mu0, extra_iters)
+        if condense < 1 or spec.N % condense != 0:
+            raise ValueError(
+                f"condense group size {condense} must divide N={spec.N}")
+        if condense > 1 and riccati == "fused":
+            raise ValueError("partial condensing is incompatible with the "
+                             "fused whole-IPM kernel (static-cost baking); "
+                             "use riccati='sweep' or 'pscan'")
+        self.condense = int(condense)
         self.spec = spec
         self.ipm_iters = int(ipm_iters)
         self.ipm_tol = ipm_tol
@@ -313,7 +333,12 @@ class LaneRTISolver:
     # ------------------------------------------------------------------
     def _solve_qp(self, qp: LaneQP, escalation):
         escalation = escalation or Escalation(self.device)
-        sol = ipm_solve_lanes(qp, self.idxbu, self.idxbx,
+        idxbu, idxbx = self.idxbu, self.idxbx
+        if self.condense > 1:
+            qp, idxbu, aux = condense_lane_qp(qp, self.condense, idxbu,
+                                              idxbx)
+            idxbx = ()
+        sol = ipm_solve_lanes(qp, idxbu, idxbx,
                               iters=self.ipm_iters, tol=self.ipm_tol,
                               riccati=self.riccati,
                               centering=self.centering, mu0=self.mu0,
@@ -321,6 +346,9 @@ class LaneRTISolver:
                               stall_tol=self.stall_tol,
                               escalation=escalation)
         self.last_esc_iters = escalation.iters
+        if self.condense > 1:
+            dx, du = expand_solution(aux, sol.dx, sol.du)
+            sol = sol._replace(dx=dx, du=du)
         return sol
 
     def _advance(self, state: LaneState, sol):

@@ -120,6 +120,24 @@ def test_riccati_kernel_matches_plain(card, nx, nu, L, N, dtype):
         torch.testing.assert_close(g, w, rtol=rtol, atol=atol)
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("nx,nu,L,N", [
+    (8, 4, 1, 25), (8, 4, 130, 25), (8, 5, 33, 20), (8, 10, 130, 10),
+    (8, 10, 1, 2), (14, 4, 130, 50), (14, 4, 33, 2), (14, 8, 33, 25),
+    (14, 8, 130, 25), (6, 4, 130, 25), (6, 4, 1, 2)])
+def test_riccati_macro_instances_match_plain(card, nx, nu, L, N, dtype):
+    """The macro stages of condensed QPs (nu > 2: Huu and its factor in
+    the warp's shared scratch) at their main-path N/M and at N=2, shorter
+    than the tile rings, on ragged lane groups."""
+    d = _random_lqr(N, nx, nu, L, seed=L + nu, dtype=dtype, device=card)
+    got = riccati.lqr_solve_lanes_cuda(*d)
+    want = lqr_solve_lanes_plain(d)
+    torch.cuda.synchronize()
+    rtol, atol = TOLS[dtype]
+    for g, w in zip(got, want):
+        torch.testing.assert_close(g, w, rtol=rtol, atol=atol)
+
+
 @pytest.mark.parametrize("nx,nu", riccati.SUPPORTED)
 def test_riccati_kernel_nan_lane_leaves_the_others_bitwise(card, nx, nu):
     """One lane's A set to NaN: that lane goes non-finite, and every other
@@ -633,6 +651,33 @@ def test_captured_tick_equals_eager_tick(card, schedule, dtype):
     assert int(solver.last_esc_iters) == k
     if schedule == "starved":
         assert 0 < k < STARVED.extra_iters
+
+
+@pytest.mark.parametrize("option", ["condense5", "pscan"])
+def test_captured_option_tick_equals_eager_tick(card, option):
+    """The lane engine's options on the production schedule, float32:
+    condensed by 5 (K1 at (8, 5)) and the parallel-scan Riccati (no K1);
+    the captured tick and its replay equal the eager tick bitwise."""
+    from mpc_collisionavoidance_tpu_torch.solver.batch import LaneRTISolver
+    pe = production_engine()
+    kw = dict(ipm_iters=pe.ipm_iters, ipm_tol=pe.ipm_tol,
+              centering=pe.centering, mu0=pe.mu0,
+              extra_iters=pe.extra_iters, stall_tol=pe.stall_tol)
+    kw.update(condense=5) if option == "condense5" else kw.update(
+        riccati="pscan")
+    spec, x0s, lanes = _flagship_lanes(6, 25, torch.float32, card)
+    eager = LaneRTISolver(spec, device=card, dtype=torch.float32,
+                          capture=False, **kw)
+    solver = LaneRTISolver(spec, device=card, dtype=torch.float32, **kw)
+    st = solver.init_state(x0s)
+    before = riccati.launches
+    _, want = eager.step_fn(st, *lanes)
+    assert (riccati.launches > before) == (option == "condense5")
+    _, got = solver.step_fn(st, *lanes)
+    _assert_bitwise(got, want)
+    (_, got), graphs = _no_sync(lambda: solver.step_fn(st, *lanes))
+    assert graphs == 1
+    _assert_bitwise(got, want)
 
 
 def test_captured_escalation_launches_are_counted(card):

@@ -113,8 +113,18 @@ def test_unported_options_raise():
     with pytest.raises(ValueError, match="mehrotra"):
         ipm_lanes.ipm_solve_lanes(qp_t, (0,), (), riccati="fused",
                                   centering="mehrotra")
-    with pytest.raises(NotImplementedError, match="Dh/Ds"):
-        ipm_lanes.ipm_solve_lanes(qp_t._replace(Dh=qp_t.Ch), (0,), ())
+    # control-coupled rows and stage-varying cost (partially condensed
+    # QPs, tests/test_torch_condense_partial.py) run on the sweep and pscan
+    # backends; the fused kernel refuses them, as JAX's does
+    N, nu, L = qp_t.B.shape[0], qp_t.B.shape[2], qp_t.B.shape[-1]
+    Dh = torch.zeros((N, qp_t.Ch.shape[1], nu, L), dtype=torch.float64)
+    with pytest.raises(ValueError, match="control-coupled"):
+        ipm_lanes.ipm_solve_lanes(qp_t._replace(Dh=Dh), (0,), (),
+                                  riccati="fused")
+    Qc4 = qp_t.Qc[None, :, :, None].expand(N, -1, -1, L)
+    with pytest.raises(ValueError, match="stage-varying"):
+        ipm_lanes.ipm_solve_lanes(qp_t._replace(Qc=Qc4), (0,), (),
+                                  riccati="fused")
 
 
 # the OCPs of the gap-trace tests: (builder, scenario, N)

@@ -498,6 +498,56 @@ def test_wire_loop_matches_jax_server(tmp_path):
     _assert_replies_close(ours, ref, atol=1e-6)
 
 
+def _pscan_kw():
+    """The engine flags of `--riccati pscan --ipm-iters 6 --extra-iters 0`,
+    resolved as the command line resolves them (the production schedule
+    otherwise)."""
+    from mpc_collisionavoidance_tpu_torch.rt.server import (
+        resolve_engine_args)
+    eng = resolve_engine_args(riccati="pscan", ipm_iters=6, extra_iters=0)
+    assert eng["riccati"] == "pscan"
+    return dict(N=20, Tf=1.0, max_batch=4, **eng)
+
+
+def test_wire_loop_with_pscan_matches_the_sweep_server(tmp_path):
+    """`--riccati pscan`: the command line takes it (a host without CUDA
+    then fails on the device, not on the flag), and a 5-tick wire closed
+    loop through the port's server on the pscan backend equals the same
+    loop on the sweep backend, float32: identical statuses, u0/x1 within
+    float32 round-off of two orders of the same solve (atol 1e-5)."""
+    if not torch.cuda.is_available():
+        proc = subprocess.run(
+            [sys.executable, "-m",
+             "mpc_collisionavoidance_tpu_torch.rt.server",
+             str(tmp_path / "x.sock"), "--riccati", "pscan"],
+            cwd=REPO, capture_output=True, text=True, timeout=300)
+        assert proc.returncode != 0 and "no CUDA device" in proc.stderr
+    replies = []
+    for riccati in ("sweep", "pscan"):
+        kw = {**_pscan_kw(), "riccati": riccati}
+        with _Serving(RTServer(str(tmp_path / f"{riccati}.sock"),
+                               device="cpu", **kw)) as srv:
+            replies.append(_loop1(srv.address, 5))
+    _assert_replies_close(replies[1], replies[0], atol=1e-5)
+
+
+@pytest.mark.slow
+def test_wire_loop_with_pscan_matches_jax_pscan_server(tmp_path):
+    """The same loop through JAX's lane server with riccati="pscan" (slow:
+    JAX's associative scan takes ~1 min to compile on the CPU) and the
+    port's, identical arguments, float32: identical statuses, u0/x1
+    within 1e-5."""
+    from mpc_collisionavoidance_tpu.rt.server import RTServer as JaxServer
+    kw = _pscan_kw()
+    with _Serving(JaxServer(str(tmp_path / "j.sock"), engine="lane",
+                            **kw)) as srv:
+        ref = _loop1(srv.address, 5)
+    with _Serving(RTServer(str(tmp_path / "t.sock"), device="cpu",
+                           **kw)) as srv:
+        ours = _loop1(srv.address, 5)
+    _assert_replies_close(ours, ref, atol=1e-5)
+
+
 @pytest.mark.parametrize("model", ["usv_low_level", "usv_acados"])
 def test_wire_loop_of_a_model_with_no_rows_matches_jax_server(tmp_path,
                                                               model):
