@@ -197,8 +197,8 @@ thirteen models.  Phases:
     (N=100), 20 ticks each float64 card vs CPU at 1e-6 with identical
     status, and their float32 eager ticks beside each node's budget.
     The float64 CPU runs of (d)-(g) run in one worker process (spawned,
-    one thread, joined before (d)) while the card runs (a)-(c) and the
-    boat's mission.
+    one thread, started with phase 16, joined before (d)) while the card
+    runs phase 16, (a)-(c) and the boat's mission.
 18. the lane engine's options on the production schedule: partial
     condensing (`LaneRTISolver(..., condense=M)`: N/M macro stages of
     M nu controls, K1 at (nx, M nu)) for the flagship at M in {2, 4, 5,
@@ -217,6 +217,23 @@ thirteen models.  Phases:
     the flagship at M=4, the hull and the race car at M=2 and the pscan
     ticks of the flagship and the hull, with each graph's nodes, capture
     and instantiation times.  A line `phase 18 table:` holds its figures.
+19. the experiment CLI (`python -m mpc_collisionavoidance_tpu_torch`,
+    `cli.py`) as a user runs it: (a) `models` as a subprocess, exit 0 and
+    13 models; (b) `run --model usv_guidance_ca1` at its defaults (1000
+    steps, N=100, B=1 on the captured production tick, float32) in a
+    child interpreter (`CLI_CHILD`: `runpy.run_module` as `-m` runs it)
+    that writes its launches and `device_memory_stats()` at exit: exit 0,
+    finite, K2 >= 1 and K1 >= 4 per tick; `compile_plus_run_s`,
+    `steady_run_s`, ms per tick and the peak device memory printed; (c)
+    `run --config` on the per-instance engine in float64 (`CLI_CONFIGS`:
+    `usv_guidance4` N=10 for 30 steps, the flagship N=100 for 20), the
+    card's metrics within 1e-9 of the CPU's (run in a worker process
+    meanwhile), K1 = iterations and K2 = 1 per tick; (d) `mission
+    --challenge 0 --markers` (600 ticks on the adapter): 300 frames read
+    back, no collision, `final_pos` beside the JAX CLI's; (e) `race
+    --steps 120` on the eager per-instance engine (float64): finite,
+    s_final > 0.3, K1 18 and K2 1 per tick.  `--plots` (b, e) and `--gif`
+    (a 40-tick mission) are passed where matplotlib imports.
 
 Each main path is driven with every launch count set to 0 just before and
 read just after (phase 16's goldens, server and timed ticks each so), the
@@ -2472,8 +2489,8 @@ def _fleet_logs(dtype, device, capture, Bn, ticks):
 
 def cpu_references(fleet_b, fleet_ticks, node_ticks, cascade_ticks):
     """The float64 CPU runs that 17d-17g hold the card against, as numpy:
-    `guidance_stack` runs this in a worker process while the card runs
-    17a-17c.  Each node run (17g) closes its own loop; the card replays
+    `main` runs this in a worker process while the card runs phase 16 and
+    17a-17e.  Each node run (17g) closes its own loop; the card replays
     the measurements it was fed."""
     import torch
     torch.set_num_threads(1)
@@ -2819,35 +2836,37 @@ def other_nodes(card, ref):
     return out
 
 
-def guidance_stack(card):
-    """Phase 17: the guidance stack (17a-17g); the float64 CPU runs that
-    17d-17g compare with run meanwhile in one worker process
-    (`cpu_references`), joined before 17d.  Returns {(model, label):
-    launch counts} of its main-path runs."""
+def _cpu_worker():
+    """One spawned worker process for a phase's float64 CPU runs; the
+    `with` block that holds it stops it."""
     import concurrent.futures
     import multiprocessing
+    return concurrent.futures.ProcessPoolExecutor(
+        max_workers=1, mp_context=multiprocessing.get_context("spawn"))
+
+
+def guidance_stack(card, cpu):
+    """Phase 17: the guidance stack (17a-17g); `cpu` is the future of the
+    float64 CPU runs that 17d-17g compare with (`cpu_references`, started
+    in a worker process before phase 16), joined before 17d.  Returns
+    {(model, label): launch counts} of its main-path runs."""
     t0 = time.perf_counter()
 
     def step_done(label):
         print(f"  [{time.perf_counter() - t0:.1f} s] 17{label} done")
 
-    with concurrent.futures.ProcessPoolExecutor(
-            max_workers=1,
-            mp_context=multiprocessing.get_context("spawn")) as pool:
-        cpu = pool.submit(cpu_references, FLEET_CPU_B, FLEET_CPU_TICKS,
-                          NODE_TICKS, CASCADE_CPU_TICKS)
-        guidance_perception()
-        step_done("a")
-        sweep, breach = fleet_mission(card, "b", _production(), gated=True)
-        step_done("b")
-        fused, _ = fleet_mission(card, "c", _fused(), gated=False)
-        step_done("c")
-        counts = {(FLAGSHIP, "17b fleet"): sweep,
-                  (FLAGSHIP, "17c fleet"): fused}
-        counts.update(one_boat(card))
-        step_done("e (the boat's mission)")
-        ref = cpu.result()
-        step_done(" CPU references")
+    guidance_perception()
+    step_done("a")
+    sweep, breach = fleet_mission(card, "b", _production(), gated=True)
+    step_done("b")
+    fused, _ = fleet_mission(card, "c", _fused(), gated=False)
+    step_done("c")
+    counts = {(FLAGSHIP, "17b fleet"): sweep,
+              (FLAGSHIP, "17c fleet"): fused}
+    counts.update(one_boat(card))
+    step_done("e (the boat's mission)")
+    ref = cpu.result()
+    step_done(" CPU references")
     fleet_card_vs_cpu(ref["17d"])
     step_done("d")
     counts.update(boat_instance(ref["17e"]))
@@ -2940,8 +2959,6 @@ def lane_options(card, baseline):
     graph's nodes, capture and instantiation times.  The CPU ticks run in
     a worker process (`option_cpu_references`) meanwhile.  Returns
     ({(run, label): launch counts}, {(run, label): figures})."""
-    import concurrent.futures
-    import multiprocessing
     import types
 
     import torch
@@ -2951,9 +2968,7 @@ def lane_options(card, baseline):
     def step_done(label):
         print(f"  [{time.perf_counter() - t0:.1f} s] 18 {label} done")
 
-    with concurrent.futures.ProcessPoolExecutor(
-            max_workers=1,
-            mp_context=multiprocessing.get_context("spawn")) as pool:
+    with _cpu_worker() as pool:
         cpu = pool.submit(option_cpu_references)
         card64 = {}
         for name, label in OPTION_RUNS:
@@ -2996,6 +3011,258 @@ def lane_options(card, baseline):
                       against=f"CPU plain ({sec:.1f} s, worker)")
     step_done("card vs CPU")
     return counts, table
+
+
+# ---- phase 19: the command line ----
+
+CLI = "mpc_collisionavoidance_tpu_torch"
+# 19b: `python -m mpc_collisionavoidance_tpu_torch ARGS` (runpy.run_module
+# with alter_sys, which is what -m runs) in a child interpreter that writes
+# its kernel launch counts and device memory to the file named by its
+# first argument when it exits
+CLI_CHILD = """
+import atexit, json, runpy, sys
+report_path = sys.argv.pop(1)
+
+
+def report():
+    import torch
+    from mpc_collisionavoidance_tpu_torch.kernels import (ipm, linearize,
+                                                          riccati)
+    from mpc_collisionavoidance_tpu_torch.solver import capture
+    from mpc_collisionavoidance_tpu_torch.utils.profiling import (
+        device_memory_stats)
+    torch.cuda.synchronize()
+    capture.settle_launch_counts()
+    with open(report_path, "w") as f:
+        json.dump({"counts": {"riccati_lanes": riccati.launches,
+                              "linearize_lanes": linearize.launches,
+                              "fused_ipm_lanes": ipm.launches},
+                   "memory": device_memory_stats()}, f)
+
+
+atexit.register(report)
+sys.argv[0] = "mpc_collisionavoidance_tpu_torch"
+runpy.run_module("mpc_collisionavoidance_tpu_torch", run_name="__main__",
+                 alter_sys=True)
+"""
+# 19c: `run --config` on the per-instance engine: the JAX suite's config
+# (tests/test_cli.py:25-36) for 30 steps and the flagship at its N=100 for
+# 20, float64 on the card against the CPU
+CLI_CONFIGS = {
+    "usv_guidance4": ({"model": "usv_guidance4", "N": 10, "Tf": 0.1,
+                       "solver": {"engine": "instance", "ipm_iters": 6}},
+                      30),
+    FLAGSHIP: ({"model": FLAGSHIP, "N": 100, "Tf": 5.0,
+                "solver": {"engine": "instance"}}, 20),
+}
+# 19d: what the JAX CLI's `mission --challenge 0` prints on the CPU
+JAX_MISSION = {"ticks": 600, "frames": 300, "collisions": 0,
+               "final_pos": [4.451, 14.377]}
+# 19e: the race's steps.  The command's default, 700, took 61.5 s on an
+# H100 80GB HBM3 at 700 W (88 ms per eager per-instance tick), past the
+# phase's 90 s with 19b-19d; 120 is the JAX suite's depth
+# (tests/test_cli.py::test_cli_race)
+RACE_STEPS = 120
+# the metrics of `run` that are wall-clock times, not results
+CLI_TIMES = ("compile_plus_run_s", "steady_run_s", "solves_per_s_closed_loop")
+
+
+def _cli(argv):
+    """(exit code, stdout's lines) of the port's `cli.main(argv)` in this
+    process."""
+    import contextlib
+    import io
+
+    from mpc_collisionavoidance_tpu_torch import cli
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = cli.main(argv)
+    return rc, buf.getvalue().strip().splitlines()
+
+
+def _config_run(path, steps, device):
+    rc, lines = _cli(["run", "--config", path, "--steps", str(steps),
+                      "--device", device])
+    if rc != 0:
+        raise AssertionError(f"19c run --config {path} on {device}: exit "
+                             f"{rc}")
+    return json.loads(lines[-1])
+
+
+def cli_cpu_references(paths):
+    """19c's CPU runs (float64, one thread): {name: the run's metrics}.
+    `command_line` runs this in a worker process while the card runs
+    19b."""
+    import torch
+    torch.set_num_threads(1)
+    return {name: _config_run(paths[name], CLI_CONFIGS[name][1], "cpu")
+            for name in CLI_CONFIGS}
+
+
+def _expect(what, c, k1_per_tick, ticks):
+    """K3 none; K2 one launch per tick and K1 `k1_per_tick` per tick on
+    the eager per-instance tick; None: the captured production lane tick,
+    K2 at least one per tick and K1 at least 4 (the tick that captures
+    also runs an eager warm-up, and escalation adds K1 launches)."""
+    if k1_per_tick is None:
+        ok = (c["riccati_lanes"] >= 4 * ticks
+              and c["linearize_lanes"] >= ticks)
+    else:
+        ok = (c["riccati_lanes"] == k1_per_tick * ticks
+              and c["linearize_lanes"] == ticks)
+    if not (ok and c["fused_ipm_lanes"] == 0):
+        raise AssertionError(f"{what}: launch counts {c} over {ticks} "
+                             "ticks")
+
+
+def command_line(card):
+    """Phase 19: the experiment CLI (`python -m
+    mpc_collisionavoidance_tpu_torch`) on the card.  19a `models` as a
+    subprocess (meanwhile 19b-19c run); 19b `run --model usv_guidance_ca1`
+    at its defaults (1000 steps, N=100, the production lane tick captured,
+    B=1) in a child interpreter that reads its launches and peak device
+    memory at exit; 19c `run --config` on the per-instance engine, float64,
+    card vs CPU (the CPU runs in a worker process during 19b-19d); 19d
+    `mission --challenge 0 --markers` (600 ticks, 300 frames read back, no
+    collision); 19e `race --steps 120` (per-instance engine, float64).
+    `--plots` (19b, 19e) and `--gif` (a 40-tick mission) where matplotlib
+    imports.  Returns {(run, label): launch counts}."""
+    from mpc_collisionavoidance_tpu_torch.utils import viz
+    t0 = time.perf_counter()
+    counts = {}
+
+    def step_done(label):
+        print(f"  [{time.perf_counter() - t0:.1f} s] 19{label} done")
+
+    try:
+        import matplotlib  # noqa: F401
+        mpl = True
+    except ImportError:
+        mpl = False
+    print(f"19: matplotlib imports on this image: {mpl} (--plots and --gif "
+          f"{'passed' if mpl else 'not passed'})")
+    with tempfile.TemporaryDirectory() as tmp, _cpu_worker() as pool:
+        tmp = pathlib.Path(tmp)
+        paths = {}
+        for name, (cfg, _) in CLI_CONFIGS.items():
+            paths[name] = str(tmp / f"{name}.json")
+            pathlib.Path(paths[name]).write_text(json.dumps(cfg))
+        cpu = pool.submit(cli_cpu_references, paths)
+        models = subprocess.Popen([sys.executable, "-m", CLI, "models"],
+                                  cwd=REPO, stdout=subprocess.PIPE,
+                                  stderr=subprocess.PIPE, text=True)
+        # 19b
+        report = tmp / "run.json"
+        argv = ["run", "--model", FLAGSHIP]
+        if mpl:
+            argv += ["--plots", str(tmp / "flagship")]
+        run = subprocess.run([sys.executable, "-c", CLI_CHILD, str(report),
+                              *argv], cwd=REPO, capture_output=True,
+                             text=True, timeout=600)
+        if run.returncode != 0:
+            raise AssertionError(f"19b {' '.join(argv)}: exit "
+                                 f"{run.returncode}: {run.stderr[-2000:]}")
+        out = json.loads(run.stdout.strip().splitlines()[-1])
+        child = json.loads(report.read_text())
+        steps = out["steps"]
+        peak = child["memory"]["peak_bytes_in_use"]
+        print(f"19b python -m {CLI} {' '.join(argv[:3])} ({card}): "
+              f"steps {steps}, N {out['N']}, {out['engine']} "
+              f"{out['schedule']}, finite {out['finite']}, status_ok_rate "
+              f"{out['status_ok_rate']}, compile_plus_run_s "
+              f"{out['compile_plus_run_s']}, steady_run_s "
+              f"{out['steady_run_s']} ({1e3 * out['steady_run_s'] / steps:.3f}"
+              f" ms per tick, {out['solves_per_s_closed_loop']} solves/s), "
+              f"ye_mae {out['ye_mae']:.6f}; device memory peak {peak} bytes "
+              f"({peak / 2**20:.1f} MiB) of {child['memory']['bytes_limit']}; "
+              f"launches {child['counts']}")
+        if not (out["finite"] and steps == 1000 and out["N"] == 100):
+            raise AssertionError(f"19b: {out}")
+        if mpl and not (tmp / "flagship_xy.png").exists():
+            raise AssertionError("19b: --plots wrote no flagship_xy.png")
+        _expect("19b", child["counts"], None, 2 * steps)
+        counts[(FLAGSHIP, "19b run")] = child["counts"]
+        step_done("b")
+        # 19c
+        card_runs = {}
+        for name, (cfg, steps) in CLI_CONFIGS.items():
+            _reset_counts()
+            card_runs[name] = _config_run(paths[name], steps, DEVICE)
+            c = _read_counts()
+            _expect(f"19c {name}", c, cfg["solver"].get("ipm_iters", 12),
+                    2 * steps)
+            counts[(name, "19c run --config")] = c
+        step_done("c (card)")
+        # 19d
+        markers = tmp / "m.jsonl"
+        _reset_counts()
+        t = time.perf_counter()
+        rc, lines = _cli(["mission", "--device", DEVICE, "--markers",
+                          str(markers)])
+        sec = time.perf_counter() - t
+        c = _read_counts()
+        head = json.loads(lines[0])
+        frames = viz.read_jsonl(str(markers))
+        print(f"19d mission --challenge 0: {head} (JAX's CLI on the CPU: "
+              f"{JAX_MISSION}); {len(frames)} frames read back; {sec:.1f} s "
+              f"with the markers ({1e3 * sec / head['ticks']:.2f} ms per "
+              f"tick); K1 {c['riccati_lanes'] / head['ticks']:g} and K2 "
+              f"{c['linearize_lanes'] / head['ticks']:g} per tick")
+        if rc != 0 or head["ticks"] != 600 or head["frames"] != 300 \
+                or head["collisions"] != 0 or len(frames) != 300:
+            raise AssertionError(f"19d: exit {rc}, {head}")
+        _expect("19d", c, None, 600)
+        counts[(FLAGSHIP, "19d mission")] = c
+        if mpl:
+            gif = tmp / "mission.gif"
+            rc, _ = _cli(["mission", "--device", DEVICE, "--steps", "40",
+                          "--stride", "4", "--gif", str(gif)])
+            if rc != 0 or gif.read_bytes()[:6] not in (b"GIF87a", b"GIF89a"):
+                raise AssertionError("19d: --gif wrote no GIF")
+            print("19d mission --steps 40 --gif: GIF written")
+        step_done("d")
+        rc = models.wait(timeout=300)
+        lines = models.stdout.read().strip().splitlines()
+        print(f"19a python -m {CLI} models: exit {rc}, {len(lines)} models")
+        if rc != 0 or len(lines) != 13:
+            raise AssertionError(f"19a: exit {rc}, {models.stderr.read()}")
+        ref = cpu.result()
+        for name, got in card_runs.items():
+            want = ref[name]
+            err = max(abs(got[k] - want[k]) for k in want
+                      if isinstance(want[k], float) and k not in CLI_TIMES)
+            same = all(got[k] == want[k] for k in want
+                       if not isinstance(want[k], float))
+            print(f"19c run --config {name} {CLI_CONFIGS[name][1]} steps "
+                  f"float64 card vs CPU: metrics max |err| {err:.3e}, the "
+                  f"rest equal {same}; card steady_run_s "
+                  f"{got['steady_run_s']}, CPU {want['steady_run_s']}")
+            if err > 1e-9 or not same or not got["finite"]:
+                raise AssertionError(f"19c {name}: card {got} vs CPU {want}")
+        step_done("c")
+        # 19e
+        argv = ["race", "--device", DEVICE, "--steps", str(RACE_STEPS)]
+        if mpl:
+            argv += ["--plots", str(tmp / "race")]
+        _reset_counts()
+        t = time.perf_counter()
+        rc, lines = _cli(argv)
+        sec = time.perf_counter() - t
+        c = _read_counts()
+        out = json.loads(lines[-1])
+        print(f"19e race {RACE_STEPS} steps (RTISolver float64, eager): "
+              f"{out}; {sec:.1f} s ({1e3 * sec / RACE_STEPS:.1f} ms per "
+              f"tick); K1 {c['riccati_lanes'] / RACE_STEPS:g} and K2 "
+              f"{c['linearize_lanes'] / RACE_STEPS:g} per tick")
+        if rc != 0 or not out["finite"] or out["s_final"] <= 0.3:
+            raise AssertionError(f"19e: exit {rc}, {out}")
+        if mpl and not (tmp / "race_track.png").exists():
+            raise AssertionError("19e: --plots wrote no race_track.png")
+        _expect("19e", c, 18, RACE_STEPS)
+        counts[("race_cars_track", "19e race")] = c
+        step_done("e")
+    return counts
 
 
 def _production_counts(c):
@@ -3072,15 +3339,23 @@ def main():
     phase_done("phase 14 (the race car)")
     captured_ticks()
     phase_done("phase 15 (captured ticks)")
-    counts.update(instance_engine(card))
-    phase_done("phase 16 (the per-instance engine)")
-    counts.update(guidance_stack(card))
+    # phase 17's float64 CPU runs start in a worker with phase 16, so
+    # that the card does not wait for them
+    with _cpu_worker() as pool:
+        guidance_cpu = pool.submit(cpu_references, FLEET_CPU_B,
+                                   FLEET_CPU_TICKS, NODE_TICKS,
+                                   CASCADE_CPU_TICKS)
+        counts.update(instance_engine(card))
+        phase_done("phase 16 (the per-instance engine)")
+        counts.update(guidance_stack(card, guidance_cpu))
     phase_done("phase 17 (the guidance stack)")
     options, table = lane_options(card, baseline)
     counts.update(options)
     phase_done("phase 18 (the lane engine's options)")
     print("phase 18 table: " + json.dumps(
         {f"{n} {label}": v for (n, label), v in table.items()}))
+    counts.update(command_line(card))
+    phase_done("phase 19 (the command line)")
 
     def launched(kernel, models):
         return sum(c[kernel] for (m, _), c in counts.items() if m in models)

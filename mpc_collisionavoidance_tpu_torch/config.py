@@ -12,15 +12,40 @@ picks the instance engine's QP engine: "riccati" or "dense" (full
 condensing).  The device of the solver's tensors picks kernels or plain
 versions (the CUDA kernels for a CUDA device, their plain PyTorch versions
 for the CPU).
+
+`FrameworkConfig` is the experiment config of the command line (`cli.py
+run --config`): model, horizon and solver, to and from plain dicts (JSON).
+A user's experiment JSON is shared with the JAX package:
+`FrameworkConfig.from_dict` also reads every dict that the JAX
+`FrameworkConfig.to_dict()` writes, which carries keys and backend names
+that the port does not have:
+
+    JAX key            JAX value                     port
+    solver.riccati     "lax", "pallas",              "sweep" (the instance
+                       "pallas_interpret"            engine: "lax" only)
+                       "fused", "fused_interpret"    "fused"
+                       "pscan"                       "pscan"
+    solver.linearize   "lax", "pallas",              dropped (the device
+                       "pallas_interpret"            picks kernel or plain)
+    solver.dtype       "float32", "float64"          dropped (the command
+                                                     picks it, as JAX's does)
+    parallel           {"n_devices", "axis_name",    dropped (the port has
+                        "batch_per_device"}          no multi-device path)
+
+A dropped value is checked as JAX checks it, and a riccati name as
+`SolverConfig` checks the port's (an unknown one, or another than "lax" on
+the instance engine, raises JAX's message).
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional
+from typing import Any, Dict, Optional
 
 import torch
 
+from mpc_collisionavoidance_tpu_torch.models import registry
+from mpc_collisionavoidance_tpu_torch.ocp import builders
 from mpc_collisionavoidance_tpu_torch.ops.ipm_lanes import check_schedule
 from mpc_collisionavoidance_tpu_torch.solver.batch import LaneRTISolver
 from mpc_collisionavoidance_tpu_torch.solver.sqp_rti import RTISolver
@@ -59,6 +84,9 @@ class SolverConfig:
             raise ValueError(f"unknown engine '{self.engine}'")
         if self.qp_backend not in ("riccati", "dense"):
             raise ValueError(f"unknown qp_backend '{self.qp_backend}'")
+        if self.engine == "instance" and self.riccati != "sweep":
+            raise ValueError(f"{self.riccati} riccati requires the lane "
+                             "engine")
         check_schedule(self.riccati, self.centering, self.mu0,
                        self.extra_iters)
         if self.engine == "instance":
@@ -69,9 +97,6 @@ class SolverConfig:
             if self.extra_iters:
                 raise ValueError("stall escalation (extra_iters > 0) is "
                                  "lane-engine-only")
-            if self.riccati != "sweep":
-                raise ValueError(f"riccati='{self.riccati}' requires the "
-                                 "lane engine")
             if self.qp_backend == "dense" and self.centering != "fixed":
                 raise ValueError("mehrotra centering is implemented on the "
                                  "riccati QP backend only")
@@ -113,3 +138,73 @@ def production_engine() -> SolverConfig:
         mu0="auto",
         centering="adaptive",
     )
+
+
+# the JAX package's riccati backend names (its `config.py:60-63`) and the
+# port's own, each onto the port's backend; the instance engine maps only
+# "lax", so that SolverConfig refuses JAX's other names there
+_RICCATI = {"lax": "sweep", "pallas": "sweep", "pallas_interpret": "sweep",
+            "fused": "fused", "fused_interpret": "fused", "pscan": "pscan"}
+_JAX_LINEARIZE = ("lax", "pallas", "pallas_interpret")
+_JAX_DTYPES = ("float32", "float64")
+_JAX_PARALLEL = ("n_devices", "axis_name", "batch_per_device")
+
+
+def _solver_from_dict(d: Dict[str, Any]) -> SolverConfig:
+    """A port `SolverConfig` from the port's or the JAX package's solver
+    dict (the module docstring's table)."""
+    d = dict(d)
+    linearize = d.pop("linearize", "lax")
+    if linearize not in _JAX_LINEARIZE:
+        raise ValueError(f"unknown linearize backend '{linearize}'")
+    if d.get("engine") == "instance" and linearize != "lax":
+        raise ValueError("pallas linearize requires the lane engine")
+    dtype = d.pop("dtype", "float32")
+    if dtype not in _JAX_DTYPES:
+        raise ValueError(f"unknown dtype '{dtype}'")
+    if "riccati" in d:
+        names = ({"lax": "sweep"} if d.get("engine") == "instance"
+                 else _RICCATI)
+        d["riccati"] = names.get(d["riccati"], d["riccati"])
+    return SolverConfig(**d)
+
+
+@dataclasses.dataclass(frozen=True)
+class FrameworkConfig:
+    """Top-level config: model + horizon + solver."""
+    model: str = "usv_guidance_ca1"
+    N: int = 100
+    Tf: float = 5.0
+    solver: SolverConfig = dataclasses.field(default_factory=SolverConfig)
+
+    def __post_init__(self):
+        known = sorted(set(registry.names()) | set(builders.BUILDERS))
+        if self.model not in known:
+            raise ValueError(
+                f"unknown model '{self.model}'; known: {known}")
+        if self.N < 1 or self.Tf <= 0:
+            raise ValueError(f"bad horizon N={self.N}, Tf={self.Tf}")
+
+    def build_spec(self):
+        return builders.build(self.model, Tf=self.Tf, N=self.N)
+
+    def build_solver(self, *, device, dtype):
+        """Instantiate the configured solver engine for this OCP on
+        `device`/`dtype` (`SolverConfig.build`)."""
+        return self.solver.build(self.build_spec(), device=device,
+                                 dtype=dtype)
+
+    def to_dict(self) -> Dict[str, Any]:
+        return dataclasses.asdict(self)
+
+    @classmethod
+    def from_dict(cls, d: Dict[str, Any]) -> "FrameworkConfig":
+        """From the port's `to_dict()` or the JAX package's (the module
+        docstring's table)."""
+        d = dict(d)
+        if isinstance(d.get("solver"), dict):
+            d["solver"] = _solver_from_dict(d["solver"])
+        unknown = set(d.pop("parallel", None) or ()) - set(_JAX_PARALLEL)
+        if unknown:
+            raise ValueError(f"unknown parallel keys {sorted(unknown)}")
+        return cls(**d)

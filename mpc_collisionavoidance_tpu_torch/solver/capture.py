@@ -24,7 +24,9 @@ Launch counts: no kernel wrapper runs when a graph launches, so a launch
 adds to the kernels' counters what the wrappers counted while the fixed
 segments were captured, and `settle_launch_counts()` adds each escalation
 step's launches times the steps that ran, read from the device (a sync).
-`launches` counts graph launches.  A capture or launch that fails raises.
+It counts the steps of programs already released too: a program's step
+count outlives it until the next settle.  `launches` counts graph
+launches.  A capture or launch that fails raises.
 """
 
 import ctypes
@@ -45,6 +47,7 @@ _KERNELS = (riccati, linearize, ipm)
 
 launches = 0
 _PROGRAMS = weakref.WeakSet()
+_RELEASED = []      # the `_Steps` of programs released since the last settle
 _SETTLE_LOCK = threading.Lock()
 
 
@@ -71,11 +74,29 @@ def cuda_versions():
 
 def settle_launch_counts():
     """Add to the kernels' counters the launches of the escalation steps
-    that every live program ran since the last call.  Reads each program's
-    device step count, so it waits for the ticks."""
+    that every program, live or released since, ran since the last call.
+    Reads each program's device step count, so it waits for the ticks."""
     with _SETTLE_LOCK:
         for program in list(_PROGRAMS):
             program.settle()
+        while _RELEASED:
+            _RELEASED.pop().settle()
+
+
+class _Steps:
+    """A program's escalation steps: `total` the device's count of the
+    steps its ticks ran, `per_step` the launches of one step, `settled`
+    the steps already added to the counters.  It outlives its program: the
+    program's finalizer puts it in `_RELEASED` (no device read there)."""
+
+    def __init__(self, total, per_step):
+        self.total, self.per_step, self.settled = total, per_step, 0
+
+    def settle(self):
+        total = int(self.total)
+        for k, n in zip(_KERNELS, self.per_step):
+            k.launches += n * (total - self.settled)
+        self.settled = total
 
 
 class SegmentedCapture(Escalation):
@@ -195,7 +216,8 @@ class Program:
         self.warmup_s, self.capture_s = warmup_s, t2 - t1
         self.instantiate_s = time.perf_counter() - t2
         self.pool_bytes = torch.cuda.memory_reserved(device) - reserved
-        self._settled = 0
+        self._steps = _Steps(seg.total, self.per_step)
+        weakref.finalize(self, _RELEASED.append, self._steps)
         _PROGRAMS.add(self)
 
     def launch(self):
@@ -208,10 +230,7 @@ class Program:
             k.launches += n
 
     def settle(self):
-        total = int(self.escalation.total)
-        for k, n in zip(_KERNELS, self.per_step):
-            k.launches += n * (total - self._settled)
-        self._settled = total
+        self._steps.settle()
 
 
 def _shape(a):

@@ -7,6 +7,8 @@ Run them on the card with
 """
 
 import dataclasses
+import gc
+import weakref
 
 import numpy as np
 import pytest
@@ -691,6 +693,26 @@ def test_captured_escalation_launches_are_counted(card):
     (program,) = solver._graphs.programs.values()
     assert program.conditional == STARVED.extra_iters
     assert program.fixed[1:] == (1, 0) and program.per_step == (1, 0, 0)
+
+
+def test_released_program_escalation_launches_are_counted(card):
+    """The escalation steps of a program released before the counters are
+    read are counted all the same (the command line drops its solver
+    before a caller reads them): K1 = 2 fixed + the device's count."""
+    spec, x0s, lanes = _flagship_lanes(6, 25, torch.float64, card)
+    solver = STARVED.build(spec, device=card, dtype=torch.float64)
+    st = solver.init_state(x0s)
+    solver.step_fn(LaneState(*(t.clone() for t in st)), *lanes)  # captures
+    before = _counts()
+    solver.step_fn(st, *lanes)
+    k = int(solver.last_esc_iters)
+    (program,) = solver._graphs.programs.values()
+    released = weakref.ref(program)
+    del solver, st, program
+    gc.collect()
+    assert released() is None
+    counts = tuple(a - b for a, b in zip(_counts(), before))
+    assert k > 0 and counts == (2 + k, 1, 0)
 
 
 def test_captured_rti_split_equals_eager(card):

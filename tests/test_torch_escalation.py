@@ -268,3 +268,20 @@ def test_race_car_float32_escalation_counts_match_jax(jax_escalations):
         np.asarray(x)
     assert port == jax_escalations
     assert all(k > 0 for k in jax_escalations[1:])
+
+
+def test_settle_counts_released_programs_steps():
+    """`capture.settle_launch_counts` adds the escalation steps of a
+    program released since the last settle: its `_Steps` (the device step
+    count, one step's launches, the steps already counted) outlive it."""
+    from mpc_collisionavoidance_tpu_torch.kernels import riccati
+    from mpc_collisionavoidance_tpu_torch.solver import capture
+    steps = capture._Steps(torch.tensor(3), (1, 0, 0))
+    before = riccati.launches
+    steps.settle()                       # settled while the program lived
+    steps.total += 2                     # two more steps, then released
+    capture._RELEASED.append(steps)
+    capture.settle_launch_counts()
+    assert riccati.launches - before == 5 and not capture._RELEASED
+    capture.settle_launch_counts()
+    assert riccati.launches - before == 5

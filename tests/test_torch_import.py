@@ -67,6 +67,38 @@ def test_rt_server_help_with_jax_blocked():
     assert "--engine" in proc.stdout
 
 
+def test_cli_with_jax_blocked():
+    """In an interpreter where `import jax` fails, `python -m
+    mpc_collisionavoidance_tpu_torch --help`, `run --help` and `models`
+    exit 0; `--device` shows in the run help, and models lists 13."""
+    assert {"mpc_collisionavoidance_tpu_torch.cli",
+            "mpc_collisionavoidance_tpu_torch.__main__"} <= set(MODULES)
+    code = "\n".join([
+        "import contextlib, io, runpy, sys",
+        "sys.modules['jax'] = None",
+        "sys.modules['mpc_collisionavoidance_tpu'] = None",
+        "for argv in (['--help'], ['run', '--help'], ['models']):",
+        "    sys.argv = ['mpc_collisionavoidance_tpu_torch'] + argv",
+        "    buf = io.StringIO()",
+        "    try:",
+        "        with contextlib.redirect_stdout(buf):",
+        "            runpy.run_module('mpc_collisionavoidance_tpu_torch',",
+        "                             run_name='__main__')",
+        "    except SystemExit as e:",
+        "        assert e.code in (0, None), (argv, e.code)",
+        "    print('>>', ' '.join(argv))",
+        "    print(buf.getvalue())",
+        "assert 'jax' not in [m for m in sys.modules if sys.modules[m]]",
+    ])
+    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr
+    out = proc.stdout.split(">> ")
+    assert out[1].startswith("--help") and "mission" in out[1]
+    assert out[2].startswith("run --help") and "--device" in out[2]
+    assert len(out[3].strip().splitlines()) == 14     # ">> models" + 13
+
+
 # the per-instance engine's modules (ROADMAP A7)
 INSTANCE_MODULES = {
     f"mpc_collisionavoidance_tpu_torch.{m}" for m in (
