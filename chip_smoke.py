@@ -54,7 +54,8 @@ thirteen models.  Phases:
    `fused_ipm_lanes_plain` on the card, on QPs from the solver's own
    `_build_qp` at each OCP's default scenario (perturbed) and its
    builder's N: every structure (`K3_STRUCTURES`; usv_position_control's
-   QP too) at L in {1, 130, 512}; float64 dx/du atol 1e-9, gap rtol 1e-9,
+   QP too) at L = 130 (the ragged block) and 512 in float64 and at 512 in
+   float32 (`K3_COMPARED`); float64 dx/du atol 1e-9, gap rtol 1e-9,
    identical status; float32 du atol 5e-3 (the float32 gap-floor ball)
    and status-0 shares within 0.02; one NaN lane -> status 2 in both, the
    other lanes' status unchanged; each structure's time at L in {1, 128,
@@ -234,6 +235,21 @@ thirteen models.  Phases:
     --steps 120` on the eager per-instance engine (float64): finite,
     s_final > 0.3, K1 18 and K2 1 per tick.  `--plots` (b, e) and `--gif`
     (a 40-tick mission) are passed where matplotlib imports.
+20. the scenario-parallel layer (`parallel/`, `mesh_phase`): (a) one
+    rank on a one-rank NCCL mesh, captured ticks: `dryrun_multichip` at
+    the flagship's full shape (the lane engine at L=512, the sharded
+    per-instance engine at B=4, the escalation tier, a 2-vehicle 30-tick
+    fleet mission) with every JAX gate (converged shares > 0.9, the
+    engines' u0 within 5e-4, clearance > 0, advance > 0.2 m); then the
+    production tick at B=512 float32 with its lanes over the mesh (the
+    escalation predicate all-reduced inside the captured graph) bitwise
+    equal to the tick without a mesh, the same escalation count, K1 >= 4
+    and K2 = 1 counted; (b) two ranks sharing the card (gloo, eager: NCCL
+    refuses two ranks on one GPU), each stepping 256 of the escalation
+    tier's 512 float64 lanes: within 1e-12 of one process's tick over
+    the 512, identical status, the same escalation count on both ranks,
+    and `fleet_metrics` equal on both and to one process's.  NCCL across
+    GPUs and scaling are not measured: the host has one GPU.
 
 Each main path is driven with every launch count set to 0 just before and
 read just after (phase 16's goldens, server and timed ticks each so), the
@@ -1016,8 +1032,10 @@ def structure_of(qp, idxbu, idxbx):
             qp.Ch.shape[1], qp.Cs.shape[1])
 
 
-# (L, dtype name) at which K3 is timed here (tools/k3_compare.py adds
-# float64 at 512)
+# (L, dtype name) at which K3 is held against its plain version (whose
+# calls, ~0.5-3 s each, are most of phase 4's time), and at which it is
+# timed (tools/k3_compare.py adds float64 at 512)
+K3_COMPARED = ((130, "float64"), (B, "float64"), (B, "float32"))
 K3_TIMED = ((1, "float32"), (128, "float32"), (B, "float32"))
 K3_ITERS = 12
 # K3's structures, each named by the first model that runs it, with the
@@ -1064,46 +1082,46 @@ def check_fused_ipm():
     result = {}
     for name in [m for models in K3_STRUCTURES.values() for m in models]:
         worst = {torch.float32: 0.0, torch.float64: 0.0}
-        for L in (1, 130, B):
-            for dtype in (torch.float64, torch.float32):
-                qp, iu, ix = fused_qp(name, L, dtype, seed=L)
-                args = (qp, iu, ix)
-                got = ipm.fused_ipm_lanes_cuda(*args, iters=iters)
-                want, want_ms = _timed(lambda: fused_ipm_lanes_plain(
-                    *args, iters=iters))
-                torch.cuda.synchronize()
-                s_got, s_want = (lane_status(*o, tol) for o in (got, want))
-                err = _max_err(got[:2], want[:2])
-                du_err = float((got[1] - want[1]).abs().max())
-                gap_rel = float(((got[2] - want[2]).abs()
-                                 / want[2].abs().clamp_min(1e-300)).max())
-                share = [float((s == 0).double().mean())
-                         for s in (s_got, s_want)]
-                print(f"K3 fused IPM {name} L={L} {str(dtype)[6:]}: "
-                      f"max|err| dx/du {err:.3e}, du {du_err:.3e}, gap rel "
-                      f"{gap_rel:.3e}, status-0 {share[0]:.4f} vs "
-                      f"{share[1]:.4f}, status identical "
-                      f"{bool(torch.equal(s_got, s_want))}")
-                if not all(torch.isfinite(g).all() for g in got):
-                    raise AssertionError(f"K3 {name} L={L}: non-finite")
-                if dtype == torch.float64:
-                    worst[dtype] = max(worst[dtype], err)
-                    _check_close(f"K3 {name} dx/du L={L} float64", got[:2],
-                                 want[:2], 0.0, 1e-9)
-                    _check_close(f"K3 {name} gap L={L} float64", got[2:3],
-                                 want[2:3], 1e-9, 0.0)
-                    if not torch.equal(s_got, s_want):
-                        raise AssertionError(f"K3 {name} L={L} float64: "
-                                             "status differs")
-                else:
-                    worst[dtype] = max(worst[dtype], du_err)
-                    if du_err > 5e-3 or abs(share[0] - share[1]) > 0.02:
-                        raise AssertionError(
-                            f"K3 {name} L={L} float32: du err {du_err:.3e} "
-                            f"(limit 5e-3), status-0 shares {share}")
-                if L == B and dtype == torch.float32:
-                    plain_ms = want_ms
-                    _fused_nan_lane(name, *args, s_got)
+        for L, dname in K3_COMPARED:
+            dtype = getattr(torch, dname)
+            qp, iu, ix = fused_qp(name, L, dtype, seed=L)
+            args = (qp, iu, ix)
+            got = ipm.fused_ipm_lanes_cuda(*args, iters=iters)
+            want, want_ms = _timed(lambda: fused_ipm_lanes_plain(
+                *args, iters=iters))
+            torch.cuda.synchronize()
+            s_got, s_want = (lane_status(*o, tol) for o in (got, want))
+            err = _max_err(got[:2], want[:2])
+            du_err = float((got[1] - want[1]).abs().max())
+            gap_rel = float(((got[2] - want[2]).abs()
+                             / want[2].abs().clamp_min(1e-300)).max())
+            share = [float((s == 0).double().mean())
+                     for s in (s_got, s_want)]
+            print(f"K3 fused IPM {name} L={L} {str(dtype)[6:]}: "
+                  f"max|err| dx/du {err:.3e}, du {du_err:.3e}, gap rel "
+                  f"{gap_rel:.3e}, status-0 {share[0]:.4f} vs "
+                  f"{share[1]:.4f}, status identical "
+                  f"{bool(torch.equal(s_got, s_want))}")
+            if not all(torch.isfinite(g).all() for g in got):
+                raise AssertionError(f"K3 {name} L={L}: non-finite")
+            if dtype == torch.float64:
+                worst[dtype] = max(worst[dtype], err)
+                _check_close(f"K3 {name} dx/du L={L} float64", got[:2],
+                             want[:2], 0.0, 1e-9)
+                _check_close(f"K3 {name} gap L={L} float64", got[2:3],
+                             want[2:3], 1e-9, 0.0)
+                if not torch.equal(s_got, s_want):
+                    raise AssertionError(f"K3 {name} L={L} float64: "
+                                         "status differs")
+            else:
+                worst[dtype] = max(worst[dtype], du_err)
+                if du_err > 5e-3 or abs(share[0] - share[1]) > 0.02:
+                    raise AssertionError(
+                        f"K3 {name} L={L} float32: du err {du_err:.3e} "
+                        f"(limit 5e-3), status-0 shares {share}")
+            if L == B and dtype == torch.float32:
+                plain_ms = want_ms
+                _fused_nan_lane(name, *args, s_got)
         times = {}
         for L, dname in K3_TIMED:
             dtype = getattr(torch, dname)
@@ -3265,6 +3283,223 @@ def command_line(card):
     return counts
 
 
+# ---- phase 20: the mesh ----
+
+MESH_RANKS = 2             # (b): two ranks sharing the card
+MESH_LANES = 512           # (b): the escalation tier's lanes, 256 per rank
+MESH_TIMEOUT_S = 300       # (b): the launcher's limit; each rank's group
+                           # times out in half of it
+# (b)'s tick: the escalation tier of JAX's dryrun_multichip
+MESH_ESC = dict(ipm_iters=2, extra_iters=12, ipm_tol=3e-6,
+                centering="adaptive")
+MESH_RANK = "import sys, chip_smoke; chip_smoke.mesh_rank(sys.argv[1])"
+
+
+def _escalation_inputs():
+    """(b)'s global inputs at MESH_LANES lanes: dryrun_multichip's (the
+    flagship's scenario, ye perturbed by 0.1 N(0, 1), seed 0), with the
+    obstacles of the second half of the lanes (rank 1's) drawn around the
+    boat, so that those QPs stall longer than rank 0's: alone, rank 0
+    would stop escalating before the mesh does (as the CPU test's
+    `tests/torch_parallel_worker.py::escalation_inputs`).  Returns x0b
+    (L, 8) batch-first, params (16, L) and lh (8, L) lane-minor."""
+    from mpc_collisionavoidance_tpu_torch.sim import scenarios
+    sc = scenarios.guidance_ca1_default()
+    rng = np.random.default_rng(0)
+    x0b = np.broadcast_to(sc.x0, (MESH_LANES, 8)).astype(np.float64).copy()
+    x0b[:, 2] += 0.1 * rng.standard_normal(MESH_LANES)
+    p = np.broadcast_to(np.asarray(sc.params, float)[:, None],
+                        (16, MESH_LANES)).copy()
+    lh = np.broadcast_to(np.asarray(sc.lh, float)[:, None],
+                         (8, MESH_LANES)).copy()
+    h = MESH_LANES // 2
+    p[:, h:] = rng.uniform(-2, 2, (16, h)) * 0.5
+    return x0b, p, lh
+
+
+def _escalation_tick(device, mesh=None, group=None):
+    """(b)'s tick, the escalation tier in float64, eager: on this rank's
+    lanes of `mesh` (all of them without one), its predicate reduced over
+    `group` (None: this process's lanes alone).  Returns (output, state,
+    escalation steps, launch counts)."""
+    import torch
+
+    from mpc_collisionavoidance_tpu_torch.parallel.sharding import (
+        shard_batch, shard_lanes)
+    from mpc_collisionavoidance_tpu_torch.solver.batch import (
+        LaneRTISolver, to_lanes)
+    x0b, p, lh = _escalation_inputs()
+    lanes = (to_lanes(torch.as_tensor(x0b)), p, lh)
+    if mesh is not None:
+        x0b, lanes = shard_batch(mesh, x0b), shard_lanes(mesh, lanes)
+    solver = LaneRTISolver(_spec(FLAGSHIP), **MESH_ESC, device=device,
+                           dtype=torch.float64, capture=False, group=group)
+    state = solver.init_state(x0b)
+    _reset_counts()
+    state, out = solver.step_fn(state, *lanes)
+    counts = _read_counts()
+    return out, state, int(solver.last_esc_iters), counts
+
+
+def mesh_rank(outdir):
+    """One rank of phase 20(b), started by `parallel.dryrun.launch`: the
+    escalation tick on its half of the lanes of a two-rank mesh on the
+    one card, and `fleet_metrics` of it, saved to outdir/rank<r>.npz; then
+    the same lanes with a rank-local predicate (no group), whose step
+    count is saved too.  NCCL refuses two ranks on one GPU, so the ranks
+    that share the card run gloo (its CUDA collectives stage through the
+    host and cannot be captured: the tick runs eagerly)."""
+    import datetime
+
+    import torch
+    import torch.distributed as dist
+
+    from mpc_collisionavoidance_tpu_torch.parallel import distributed
+    from mpc_collisionavoidance_tpu_torch.parallel.sharding import (
+        fleet_metrics)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    device = torch.device("cuda", 0)
+    rank = distributed.init(device=device, backend="gloo",
+                            timeout=datetime.timedelta(
+                                seconds=MESH_TIMEOUT_S // 2))
+    mesh = distributed.make_mesh(device=device)
+    out, state, steps, counts = _escalation_tick(device, mesh,
+                                                 mesh.get_group())
+    frac, gmax = fleet_metrics(mesh, out.status, out.gap)
+    local_steps = _escalation_tick(device, mesh)[2]
+    np.savez(os.path.join(outdir, f"rank{rank}.npz"), steps=steps,
+             local_steps=local_steps,
+             metrics=np.array([float(frac), float(gmax)]),
+             counts=np.array([counts[k] for k in sorted(counts)]),
+             **{k: v.cpu().numpy() for k, v in (*out._asdict().items(),
+                                                *state._asdict().items())})
+    dist.destroy_process_group()
+
+
+def mesh_phase(card):
+    """Phase 20: the scenario-parallel layer (`parallel/`) on the one card.
+    (a) one rank, NCCL (a one-rank group), captured ticks:
+    `dryrun_multichip` at the flagship's full shape with every JAX gate,
+    then the production tick at B=512 float32 with the lane axis over the
+    one-rank mesh (its escalation predicate all-reduced in the captured
+    graph, in the unconditional segment before each escalation step, so
+    extra_iters times a replay) bitwise equal to the same tick without a
+    mesh, capturing call and replay, with equal escalation counts and
+    K1 >= 4, K2 = 1 counted on the replay.  A one-rank all-reduce moves
+    nothing: (a) shows that the collective captures and replays, not
+    NCCL between GPUs.  (b) two ranks sharing the card (gloo, eager;
+    `mesh_rank`, started first so that they start while (a) runs): the
+    escalation tier in float64 at L=512, 256 lanes each, on inputs where
+    rank 1's lanes stall longer, against this process's tick over the
+    512 lanes (1e-12, identical status, the same escalation count on both
+    ranks; rank 0 alone would stop earlier), and `fleet_metrics` equal
+    on both ranks and to this process's.  Returns {(run, label): launch
+    counts}."""
+    import concurrent.futures
+
+    import torch
+    import torch.distributed as dist
+
+    from mpc_collisionavoidance_tpu_torch.parallel import distributed, dryrun
+    from mpc_collisionavoidance_tpu_torch.parallel.sharding import (
+        fleet_metrics)
+    t0 = time.perf_counter()
+    counts = {}
+
+    def step_done(label):
+        print(f"  [{time.perf_counter() - t0:.1f} s] 20{label} done")
+
+    outdir = tempfile.mkdtemp(prefix="mesh_ranks_")
+    pool = concurrent.futures.ThreadPoolExecutor(1)
+    ranks = pool.submit(dryrun.launch, MESH_RANKS, ["-c", MESH_RANK, outdir],
+                        MESH_TIMEOUT_S)
+    try:
+        # ---- (a) one rank, NCCL, captured ----
+        mesh = distributed.global_scenario_mesh(device=DEVICE)
+        print(f"  20a: a {mesh.size()}-rank {dist.get_backend()} mesh on "
+              f"{card}")
+        _reset_counts()
+        metrics = dryrun.dryrun_multichip(
+            device=DEVICE, log=lambda line: print("  " + line))
+        counts[(FLAGSHIP, "mesh dryrun")] = c = _read_counts()
+        print(f"  20a dryrun_multichip(1): {json.dumps(metrics)}; "
+              f"launches {c}")
+        step_done("a (dryrun_multichip)")
+        plain, st, x, p, lh, _ = _setup(FLAGSHIP, B, torch.float32, DEVICE,
+                                        _production())
+        meshed = _production().build(_spec(FLAGSHIP), device=DEVICE,
+                                     dtype=torch.float32,
+                                     group=mesh.get_group())
+        for call in ("capturing call", "replay"):
+            _, want = plain.step_fn(st, x, p, lh)
+            k_plain = int(plain.last_esc_iters)
+            _reset_counts()
+            _, got = meshed.step_fn(st, x, p, lh)
+            c = _read_counts()
+            k = int(meshed.last_esc_iters)
+            _bitwise(f"mesh production tick B={B} float32 {call}", got, want)
+            if k != k_plain:
+                raise AssertionError(f"mesh tick {call}: escalation {k}, "
+                                     f"without the mesh {k_plain}")
+        if not _production_counts(c):
+            raise AssertionError(f"mesh tick launches {c}")
+        counts[(FLAGSHIP, "mesh tick")] = c
+        print(f"  20a: production tick B={B} float32 on the one-rank "
+              f"mesh == without it, bitwise (capturing call and replay), "
+              f"escalation {k} = {k_plain}, launches {c}")
+        step_done("a (the meshed production tick)")
+
+        # ---- (b) two ranks sharing the card, gloo, eager ----
+        want, wstate, steps, _ = _escalation_tick(torch.device(DEVICE))
+        ref = [float(v) for v in fleet_metrics(mesh, want.status, want.gap)]
+        code, text = ranks.result()
+        if code != 0:
+            raise AssertionError(f"20b: the ranks failed (exit {code}):\n"
+                                 f"{text[-4000:]}")
+        data = [np.load(os.path.join(outdir, f"rank{r}.npz"))
+                for r in range(MESH_RANKS)]
+        err = 0.0
+        for k, v in (*want._asdict().items(), *wstate._asdict().items()):
+            got = np.concatenate([d[k] for d in data], axis=-1)
+            v = v.cpu().numpy()
+            if k == "status":
+                if not np.array_equal(got, v):
+                    raise AssertionError("20b: status differs")
+                continue
+            err = max(err, float(np.abs(got - v).max()))
+        rank_steps = [int(d["steps"]) for d in data]
+        local_steps = [int(d["local_steps"]) for d in data]
+        rank_metrics = [d["metrics"].tolist() for d in data]
+        print(f"  20b: {MESH_RANKS} gloo ranks x {MESH_LANES // MESH_RANKS} "
+              f"lanes, escalation tier float64: max |err| {err:.3e} vs one "
+              f"process, escalation {rank_steps} (one process {steps}; "
+              f"each rank alone {local_steps}), fleet_metrics "
+              f"{rank_metrics} (one process {ref})")
+        if err > 1e-12 or rank_steps != [steps] * MESH_RANKS:
+            raise AssertionError("20b: the two ranks differ from one "
+                                 "process")
+        # the inputs split the ranks, so a rank-local predicate would fail
+        if not local_steps[0] < steps:
+            raise AssertionError(f"20b: rank 0 alone runs {local_steps[0]} "
+                                 f"escalation steps, the mesh {steps}: the "
+                                 "check cannot tell a rank-local predicate")
+        if (rank_metrics[0] != rank_metrics[1]
+                or rank_metrics[0][0] != ref[0]
+                or abs(rank_metrics[0][1] - ref[1]) > 1e-12):
+            raise AssertionError("20b: fleet_metrics differ")
+        summed = np.sum([d["counts"] for d in data], axis=0)
+        counts[(FLAGSHIP, "mesh gloo")] = dict(zip(
+            sorted(_launch_counts()), (int(n) for n in summed)))
+        step_done("b (two gloo ranks)")
+    finally:
+        pool.shutdown(wait=True)
+        if dist.is_initialized():
+            dist.destroy_process_group()
+    print("  20: NCCL across GPUs (the captured all-reduce moving data "
+          "between cards) and scaling: not measured, this host has one GPU")
+    return counts
+
+
 def _production_counts(c):
     return (c["riccati_lanes"] >= 4 and c["linearize_lanes"] == 1
             and c["fused_ipm_lanes"] == 0)
@@ -3356,6 +3591,8 @@ def main():
         {f"{n} {label}": v for (n, label), v in table.items()}))
     counts.update(command_line(card))
     phase_done("phase 19 (the command line)")
+    counts.update(mesh_phase(card))
+    phase_done("phase 20 (the mesh)")
 
     def launched(kernel, models):
         return sum(c[kernel] for (m, _), c in counts.items() if m in models)

@@ -9,8 +9,8 @@ copies.
 
 Ported: the lane engine's RTI tick on every model of the JAX package's
 zoo, the per-instance engine and its goldens, the real-time server on
-both, the guidance nodes and their simulations, and all three of its TPU
-kernels:
+both, the guidance nodes and their simulations, the experiment CLI, the
+scenario-parallel layer, and all three of its TPU kernels:
 
 models   : Model container + every model's dynamics/constraints in torch
 ocp      : OCPSpec and the builders
@@ -32,7 +32,11 @@ solver   : LaneRTISolver (lane layout, instance axis minor-most),
            LaneSolverAdapter (one vehicle on it) and RTISolver
            (per-instance shapes with leading batch axes)
 parity   : the committed goldens, recomputed by RTISolver
-config   : SolverConfig and the production schedule
+config   : SolverConfig, the production schedule and FrameworkConfig
+parallel : the scenario-parallel layer on torch.distributed (one process
+           per device): meshes, batch and lane slices, the sharded
+           per-instance step, fleet metrics as all-reduces, and
+           dryrun_multichip with its launcher
 rt       : the real-time server and its frames
 interop  : numpy carry-over of QPs / LQRs / warm starts / mission, controller
            and fleet carries from the JAX package

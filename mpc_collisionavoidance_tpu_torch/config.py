@@ -29,8 +29,10 @@ that the port does not have:
                        "pallas_interpret"            picks kernel or plain)
     solver.dtype       "float32", "float64"          dropped (the command
                                                      picks it, as JAX's does)
-    parallel           {"n_devices", "axis_name",    dropped (the port has
-                        "batch_per_device"}          no multi-device path)
+    parallel           {"n_devices", "axis_name",    dropped (the port's
+                        "batch_per_device"}          mesh spans every rank,
+                                                     on one "dp" axis:
+                                                     `parallel/`)
 
 A dropped value is checked as JAX checks it, and a riccati name as
 `SolverConfig` checks the port's (an unknown one, or another than "lax" on
@@ -104,11 +106,16 @@ class SolverConfig:
             raise ValueError("the dense QP backend requires the instance "
                              "engine")
 
-    def build(self, spec, *, device, dtype, capture=True):
+    def build(self, spec, *, device, dtype, capture=True, group=None):
         """Instantiate the configured engine for an OCPSpec on
-        `device`/`dtype` (`capture`: `LaneRTISolver`'s; the instance
-        engine runs op by op)."""
+        `device`/`dtype` (`capture`, `group`: `LaneRTISolver`'s; the
+        instance engine runs op by op, and is sharded by
+        `parallel.make_sharded_batch_solver`)."""
         if self.engine == "instance":
+            if group is not None:
+                raise ValueError("the instance engine takes no process "
+                                 "group: shard its batch with parallel."
+                                 "make_sharded_batch_solver")
             return RTISolver(spec, ipm_iters=self.ipm_iters,
                              ipm_tol=self.ipm_tol,
                              qp_backend=self.qp_backend,
@@ -119,7 +126,7 @@ class SolverConfig:
                              centering=self.centering, mu0=self.mu0,
                              extra_iters=self.extra_iters,
                              stall_tol=self.stall_tol, device=device,
-                             dtype=dtype, capture=capture)
+                             dtype=dtype, capture=capture, group=group)
 
 
 def production_engine() -> SolverConfig:

@@ -46,6 +46,7 @@ import functools
 from typing import NamedTuple, Optional, Tuple
 
 import torch
+import torch.distributed as dist
 
 from mpc_collisionavoidance_tpu_torch.kernels import ipm as ipm_kernel
 from mpc_collisionavoidance_tpu_torch.ops import lanes as ln
@@ -138,20 +139,51 @@ class Escalation:
     """The guard of the stall-escalation steps, and their count.
 
     `loop(n, stalled, step)` runs up to `n` steps: before each, the device
-    bool `stalled()` decides whether `step()` runs.  This plain form reads
-    the predicate on the host and stops at the first False (the carry then
-    no longer changes, so no later step would run).  `iters` is a device
-    int32 that every step that runs adds one to."""
+    bool `predicate(stalled)` decides whether `step()` runs.  This plain
+    form reads the predicate on the host and stops at the first False (the
+    carry then no longer changes, so no later step would run).  `iters` is
+    a device int32 that every step that runs adds one to.
 
-    def __init__(self, device):
+    With a process `group` (the lane axis sharded over a mesh's ranks;
+    `check_group` says which groups serve), the predicate is the all-reduce MAX of every rank's: some
+    lane of some rank stalls.  This is the predicate of JAX's sharded tick,
+    whose `any` XLA reduces over every device; every rank then runs the
+    same steps, and each joins every collective."""
+
+    def __init__(self, device, group=None):
         self.iters = torch.zeros((), dtype=torch.int32, device=device)
+        self.group = group
+
+    def predicate(self, stalled):
+        pred = stalled()
+        if self.group is None:
+            return pred
+        pred = pred.to(torch.int32)
+        dist.all_reduce(pred, op=dist.ReduceOp.MAX, group=self.group)
+        return pred > 0
 
     def loop(self, n, stalled, step):
         for _ in range(n):
-            if not bool(stalled()):
+            if not bool(self.predicate(stalled)):
                 break
             step()
             self.iters += 1
+
+
+def check_group(group, device: torch.device, capture: bool):
+    """Raise ValueError for an escalation `group` (a process group, or
+    None) that a lane engine on `device` cannot reduce over: NCCL off a
+    CUDA device, and gloo under a captured CUDA tick (gloo's collectives
+    cannot be captured in a CUDA graph: pass `capture=False`)."""
+    if group is None:
+        return
+    backend = dist.get_backend(group)
+    if backend == "nccl" and device.type != "cuda":
+        raise ValueError(f"an NCCL group for a solver on '{device}'")
+    if device.type == "cuda" and capture and backend != "nccl":
+        raise ValueError(f"a captured tick reduces its escalation predicate "
+                         f"inside the CUDA graph, which needs NCCL; the "
+                         f"group runs {backend}: pass capture=False")
 
 
 def check_schedule(riccati: str, centering: str, mu0, extra_iters: int):

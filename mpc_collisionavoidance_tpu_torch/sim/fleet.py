@@ -61,13 +61,15 @@ class FleetMissionEngine:
 
     def __init__(self, spec: OCPSpec, config: Optional[SolverConfig] = None,
                  *, device="cuda", dtype=torch.float32, capture: bool = True,
-                 **solver_kw):
+                 group=None, **solver_kw):
         """`config`: the lane engine's `SolverConfig` (e.g.
         `config.production_engine()`, or `SolverConfig(riccati="fused")`);
         None builds one from `solver_kw` (`SolverConfig`'s fields) with the
         JAX engine's default of 10 IPM iterations.  `device`, `dtype`: where
         and in what precision the fleet runs (a CUDA device on a host
-        without one raises ValueError); `capture`: the lane engine's."""
+        without one raises ValueError); `capture`, `group`: the lane
+        engine's (with a mesh's group, each rank runs its own vehicles,
+        the vehicle axis sharded over the mesh, `parallel/`)."""
         if spec.model.name != "usv_guidance_ca1":
             raise ValueError(f"FleetMissionEngine runs usv_guidance_ca1, "
                              f"not {spec.model.name}")
@@ -80,7 +82,7 @@ class FleetMissionEngine:
         self.spec = spec
         self.device, self.dtype = require_device(device), dtype
         self.solver = config.build(spec, device=self.device, dtype=dtype,
-                                   capture=capture)
+                                   capture=capture, group=group)
         self._plant = integrators.make_discrete_dynamics(
             spec.model.f, spec.dt, num_steps=4)
         self._params0 = torch.zeros((spec.model.np_,), dtype=dtype,

@@ -41,7 +41,7 @@ from mpc_collisionavoidance_tpu_torch.ocp.spec import OCPSpec
 from mpc_collisionavoidance_tpu_torch.ops.condense_partial import (
     condense_lane_qp, expand_solution)
 from mpc_collisionavoidance_tpu_torch.ops.ipm_lanes import (
-    Escalation, LaneQP, check_schedule, ipm_solve_lanes)
+    Escalation, LaneQP, check_group, check_schedule, ipm_solve_lanes)
 from mpc_collisionavoidance_tpu_torch.ops.linearize_lanes import (
     linearize_lanes)
 from mpc_collisionavoidance_tpu_torch.solver.capture import TickGraphs
@@ -74,7 +74,7 @@ class LaneRTISolver:
                  ipm_tol: float = 1e-7, riccati: str = "sweep",
                  centering: str = "fixed", mu0=1.0, extra_iters: int = 0,
                  stall_tol: Optional[float] = None, condense: int = 1, *,
-                 device, dtype, capture: bool = True):
+                 device, dtype, capture: bool = True, group=None):
         """`riccati`: "sweep" (eager IPM, one Riccati sweep per iteration —
         the production path), "pscan" (the same with the parallel-scan
         Riccati, O(log N) depth, `ops/riccati_pscan.py`) or "fused" (the
@@ -94,9 +94,19 @@ class LaneRTISolver:
         static cost blocks are moved there once, here.  `capture`: on a
         CUDA device, run each tick as a captured graph (the main path);
         False runs it op by op (ignored on the CPU, which has no graphs).
+        `group`: the process group of the ranks over which the lane axis
+        is sharded (a mesh's, `parallel/`): each rank steps its own lanes
+        and the stall escalation's predicate is all-reduced over the
+        group, as in JAX's sharded tick.  A captured CUDA tick captures
+        that all-reduce (NCCL); a gloo group on a CUDA device needs
+        `capture=False` (`ops/ipm_lanes.py::check_group`).  None: one
+        device.
         `last_esc_iters`: the escalation iterations of the last tick, a
         device int32."""
         check_schedule(riccati, centering, mu0, extra_iters)
+        self.device = torch.device(device)
+        check_group(group, self.device, capture)
+        self.group = group
         if condense < 1 or spec.N % condense != 0:
             raise ValueError(
                 f"condense group size {condense} must divide N={spec.N}")
@@ -113,7 +123,6 @@ class LaneRTISolver:
         self.mu0 = mu0
         self.extra_iters = int(extra_iters)
         self.stall_tol = stall_tol
-        self.device = torch.device(device)
         self.dtype = dtype
         m = spec.model
         N = spec.N
@@ -332,7 +341,7 @@ class LaneRTISolver:
 
     # ------------------------------------------------------------------
     def _solve_qp(self, qp: LaneQP, escalation):
-        escalation = escalation or Escalation(self.device)
+        escalation = escalation or Escalation(self.device, self.group)
         idxbu, idxbx = self.idxbu, self.idxbx
         if self.condense > 1:
             qp, idxbu, aux = condense_lane_qp(qp, self.condense, idxbu,

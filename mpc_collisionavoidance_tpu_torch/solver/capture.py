@@ -103,12 +103,15 @@ class SegmentedCapture(Escalation):
     """An `Escalation` that captures each step as a conditional segment.
 
     `pred` is the device bool every IF node reads: the segment before a
-    step writes the predicate there.  `iters` counts the steps of the last
+    step writes the predicate there.  That segment is unconditional (a
+    child graph between the IF nodes, `csrc/graph.cu`), so with a process
+    group every replay runs all `n` of its all-reduces, also after the
+    predicate has turned False.  `iters` counts the steps of the last
     tick (zeroed in the first segment), `total` those of every tick.  Each
     segment records the kernel launches its wrappers counted."""
 
-    def __init__(self, device):
-        super().__init__(device)
+    def __init__(self, device, group=None):
+        super().__init__(device, group)
         self.total = torch.zeros((), dtype=torch.int64, device=device)
         self.pred = torch.zeros((), dtype=torch.bool, device=device)
         self.pool = torch.cuda.graph_pool_handle()
@@ -129,7 +132,7 @@ class SegmentedCapture(Escalation):
 
     def loop(self, n, stalled, step):
         for _ in range(n):
-            self.pred.copy_(stalled())
+            self.pred.copy_(self.predicate(stalled))
             self.end()
             self.begin(conditional=True)
             step()
@@ -143,15 +146,18 @@ class Program:
     """One captured tick: `fn(escalation) -> (outputs, writes)` over static
     tensors, `writes` the (destination, source) pairs the captured tick
     copies last (the new state into the state's tensors; the warm-up call
-    skips them).  `launch()` runs it on the current stream."""
+    skips them).  `group`: the escalation's process group (a sharded lane
+    axis); its all-reduce is captured in the segment that writes the
+    predicate, after the warm-up has set up the communicator.  `launch()`
+    runs it on the current stream."""
 
-    def __init__(self, fn, device):
+    def __init__(self, fn, device, group=None):
         self.device = device
         stream = torch.cuda.Stream(device)
         stream.wait_stream(torch.cuda.current_stream(device))
         with torch.cuda.device(device), torch.cuda.stream(stream):
             t0 = time.perf_counter()
-            fn(Escalation(device))       # warm-up, not captured
+            fn(Escalation(device, group))    # warm-up, not captured
             torch.cuda.synchronize(device)
             warmup_s = time.perf_counter() - t0
             # a collection during the capture could free an earlier
@@ -164,7 +170,7 @@ class Program:
             gc.disable()
             reserved = torch.cuda.memory_reserved(device)
             t1 = time.perf_counter()
-            seg = SegmentedCapture(device)
+            seg = SegmentedCapture(device, group)
             before = _counts()
             try:
                 seg.begin(conditional=False)
@@ -245,13 +251,15 @@ def _shape(a):
 class TickGraphs:
     """A solver's captured ticks, keyed like jit's cache: the tick, its
     batch width, and the shape of every argument (None for an optional
-    one not given).  `solver` gives dtype and device.  An output of one of
+    one not given).  `solver` gives dtype, device and the escalation's
+    process group (`LaneRTISolver.group`).  An output of one of
     its programs serves as another program's input as it is (the prepared
     QP feeds the feedback tick without a copy); the solver's own tensors
     among them (the cost blocks in a QP) are never written."""
 
     def __init__(self, solver):
         self.dtype, self.device = solver.dtype, solver.device
+        self.group = solver.group
         self.programs = {}
         self.states = {}
         self._owned = {}
@@ -329,7 +337,7 @@ class TickGraphs:
                 writes = () if new is None else tuple(zip(st, new))
                 return out, writes
 
-            program = Program(fn, self.device)
+            program = Program(fn, self.device, self.group)
             program.inputs = statics
             self.programs[key] = program
             self._own(program.outputs)

@@ -900,3 +900,60 @@ def test_vmap_server_on_card_serves(card, tmp_path):
         loop.call_soon_threadsafe(loop.stop)
         thread.join(60)
         loop.close()
+
+
+@pytest.fixture
+def lone_group():
+    """A test that starts a one-rank process group in this process; the
+    group is destroyed after it."""
+    import torch.distributed as dist
+    yield
+    if dist.is_initialized():
+        dist.destroy_process_group()
+
+
+@pytest.mark.parametrize("schedule", ["production", "starved"])
+def test_mesh_tick_equals_unmeshed_tick_bitwise(card, lone_group, schedule):
+    """chip_smoke phase 20(a) at B=64: the flagship's tick (N=100,
+    float32, captured) with its lanes over a one-rank NCCL mesh, whose
+    escalation predicate is all-reduced in the captured graph (in the
+    unconditional segments before the steps), equals the tick without a
+    mesh bitwise, capturing call and replay, with the same escalation
+    count; K1 >= 4 and K2 = 1 on the counted replay."""
+    from mpc_collisionavoidance_tpu_torch.parallel import distributed
+    config = {"production": production_engine(), "starved": STARVED}[schedule]
+    group = distributed.global_scenario_mesh().get_group()
+    spec, x0s, lanes = _flagship_lanes(64, 100, torch.float32, card)
+    plain = config.build(spec, device=card, dtype=torch.float32)
+    meshed = config.build(spec, device=card, dtype=torch.float32,
+                          group=group)
+    st = plain.init_state(x0s)
+    for _ in range(2):
+        _, want = plain.step_fn(st, *lanes)
+        before = _counts()
+        _, got = meshed.step_fn(st, *lanes)
+        launched = tuple(a - b for a, b in zip(_counts(), before))
+        _assert_bitwise(got, want)
+        assert int(meshed.last_esc_iters) == int(plain.last_esc_iters)
+    assert launched[0] >= 4 and launched[1:] == (1, 0), launched
+    if schedule == "starved":
+        assert 0 < int(meshed.last_esc_iters) < STARVED.extra_iters
+
+
+def test_gloo_mesh_refuses_a_captured_tick(card, lone_group):
+    """A gloo group on the card: gloo's collectives cannot be captured,
+    so a captured lane engine on it raises ValueError; capture=False
+    runs."""
+    import torch.distributed as dist
+    from mpc_collisionavoidance_tpu_torch.parallel import distributed
+    dist.init_process_group("gloo", store=dist.HashStore(), rank=0,
+                            world_size=1)
+    group = distributed.make_mesh(device=card).get_group()
+    assert dist.get_backend(group) == "gloo"
+    spec, x0s, lanes = _flagship_lanes(6, 25, torch.float32, card)
+    with pytest.raises(ValueError, match="needs NCCL"):
+        STARVED.build(spec, device=card, dtype=torch.float32, group=group)
+    eager = STARVED.build(spec, device=card, dtype=torch.float32,
+                          capture=False, group=group)
+    _, out = eager.step_fn(eager.init_state(x0s), *lanes)
+    assert torch.isfinite(out.u0).all() and int(eager.last_esc_iters) > 0

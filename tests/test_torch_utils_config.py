@@ -129,8 +129,8 @@ def test_rejects_what_jax_rejects(solver, match):
 
 def test_jax_parallel_dict_is_checked_and_dropped():
     """JAX's `parallel` part (ParallelConfig) loads and is dropped, as the
-    port has no multi-device path; a key JAX's ParallelConfig does not
-    take is refused by both."""
+    port's mesh always spans every rank on one "dp" axis (`parallel/`);
+    a key JAX's ParallelConfig does not take is refused by both."""
     jd = jconfig.FrameworkConfig(
         parallel=jconfig.ParallelConfig(n_devices=4, batch_per_device=256)
     ).to_dict()
