@@ -3,9 +3,9 @@
     python3 chip_smoke.py
 
 Drives the port's main paths (`mpc_collisionavoidance_tpu_torch`) through
-their hand-written CUDA kernels, each tick (and preparation, feedback) as
-one captured CUDA graph (`solver/capture.py`), and exits non-zero if
-anything fails:
+their hand-written CUDA kernels, each tick (and preparation, feedback) of
+both engines as one captured CUDA graph (`solver/capture.py`), and exits
+non-zero if anything fails:
 the production RTI tick of the flagship OCP `usv_guidance_ca1` (nx=8,
 nu=1, N=100, 8 soft obstacle rows), of the 14-state hull `usv_pf_ca`
 (nx=14, nu=2, N=100, 5 state-box rows, 4 hard obstacle rows) and of the
@@ -151,7 +151,8 @@ thirteen models.  Phases:
     graph's nodes, conditional (escalation) nodes, capture and
     instantiation times and pool memory printed.
 16. the per-instance engine (`solver/sqp_rti.py::RTISolver`, the JAX
-    package's reference engine, whose tick runs op by op): (a)
+    package's reference engine, whose step, preparation and feedback
+    each replay one captured graph, as phase 15's ticks do): (a)
     `ops/riccati.py::lqr_solve` on CUDA tensors, which flattens the batch
     onto K1's lanes, against the per-instance plain `lqr_solve_plain` on
     the card for (8, 1), (14, 2) at N=100 and (6, 2) at N=50, B in {1,
@@ -162,13 +163,29 @@ thirteen models.  Phases:
     curved track, every QPData field (float32 rtol 2e-4 atol 2e-5,
     float64 atol 1e-10 rtol 1e-12); (c) the committed goldens' 30-tick
     prefixes in float64 on the card at atol 1e-6: all 13 RTI fixtures and
-    the converged-SQP ones of the flagship and the hull; (d) one flagship
-    tick at B=8 of the dense QP backend against the Riccati one (atol
-    5e-6); (e) `RTServer(engine="vmap")` serving the flagship over UDS,
-    one vehicle and a fleet of 8, every reply status 0; (f) the eager
-    tick's median and p99 over 20 ticks and its K1/K2 launches per tick
-    at B=1 and 64, float32, for the flagship and the hull on both QP
-    backends, printed.
+    the converged-SQP ones of the flagship and the hull, captured, and
+    the flagship's RTI run also eagerly (`capture=False`), bitwise equal;
+    (d) one flagship tick at B=8 of the dense QP backend against the
+    Riccati one (atol 5e-6); (e) `RTServer(engine="vmap")` serving the
+    flagship over UDS, one vehicle and a fleet of 8, every reply status
+    0, then two vehicles taking 10 solo ticks each in turn under
+    `rti_split`, replies equal to an eager server's (`capture=False`);
+    (f) the captured and the eager tick's median and p99 over 20 and 10
+    ticks and the captured one's K1/K2 launches per tick (18 and 1 on the
+    Riccati backend, 0 and 1 dense) at B=1 and 64, float32, for the
+    flagship and the hull on both QP backends, printed; (g) the captured
+    tick against the eager one, bitwise, state and output, step_fn and
+    prepare_fn + feedback_fn: the flagship, the hull, `usv_low_level`
+    and the race car on the curved track at B=1 (unbatched) and 64,
+    float32 and float64; Mehrotra centering on the flagship and the hull
+    (K1 36 per replay); the dense backend at (d)'s B=8; each replay with
+    no sync, one graph launch, K1 18 and K2 1 counted; the float64
+    captured tick against the CPU's plain tick from the same inputs
+    (atol 1e-10, identical status; B=1, and the flagship's B=64); two
+    states taking 6 ticks each in turn through one captured solver
+    against two eager solvers; each program's graph nodes, capture and
+    instantiation times and pool bytes printed.  A line `phase 16 table:`
+    holds (f)'s times and (g)'s programs.
 17. the guidance stack (`guidance/`, `sim/`), eager around the solvers'
     ticks: (a) perception (LiDAR cull, top-8 intake) and the waypoint
     manager at B=512 on the card vs the CPU, float32 (atol 1e-5) and
@@ -189,14 +206,18 @@ thirteen models.  Phases:
     flies the challenge-0 mission for 1200 ticks (completes within 1.2 m
     of the last waypoint, buoy clearance > 1.3 m, no collision, tick p99
     < 50 ms, each tick synced), its captured log equals an eager one, and
-    on `RTISolver` float64 card vs CPU for 20 ticks at 1e-8 (K1 18, K2 1
-    per tick); (f) the cascade (guidance on the adapter, `usv_low_level`
-    N=100 on `RTISolver`), 40 guidance ticks (200 inner) in float32, both
-    loops' p50/p99 printed beside 50 and 10 ms, and 5 guidance ticks
-    float64 card vs CPU at 1e-6; (g) `PFController` (usv_pf, N=100),
-    `ThrustMPCController` (usv_acados, N=20) and the six variant nodes
-    (N=100), 20 ticks each float64 card vs CPU at 1e-6 with identical
-    status, and their float32 eager ticks beside each node's budget.
+    on `RTISolver` (captured) float64 card vs CPU for 20 ticks at 1e-8
+    (K1 18, K2 1 per tick and per capture) and bitwise against the eager
+    solver; (f) the cascade (guidance on the adapter, `usv_low_level`
+    N=100 on the captured `RTISolver`), 40 guidance ticks (200 inner) in
+    float32, both loops' p50/p99 printed beside 50 and 10 ms, 2 guidance
+    ticks with the inner solver eager bitwise equal (its p50/p99 beside),
+    and 5 guidance ticks float64 card vs CPU at 1e-6; (g) `PFController`
+    (usv_pf, N=100), `ThrustMPCController` (usv_acados, N=20) and the six
+    variant nodes (N=100), on captured ticks, 20 ticks each float64 card
+    vs CPU at 1e-6 with identical status, and 20 float32 captured ticks
+    and the first 10 eager (the same measurements, commands bitwise
+    equal), both p50/p99 beside each node's budget.
     The float64 CPU runs of (d)-(g) run in one worker process (spawned,
     one thread, started with phase 16, joined before (d)) while the card
     runs phase 16, (a)-(c) and the boat's mission.
@@ -226,15 +247,18 @@ thirteen models.  Phases:
     that writes its launches and `device_memory_stats()` at exit: exit 0,
     finite, K2 >= 1 and K1 >= 4 per tick; `compile_plus_run_s`,
     `steady_run_s`, ms per tick and the peak device memory printed; (c)
-    `run --config` on the per-instance engine in float64 (`CLI_CONFIGS`:
-    `usv_guidance4` N=10 for 30 steps, the flagship N=100 for 20), the
-    card's metrics within 1e-9 of the CPU's (run in a worker process
-    meanwhile), K1 = iterations and K2 = 1 per tick; (d) `mission
-    --challenge 0 --markers` (600 ticks on the adapter): 300 frames read
-    back, no collision, `final_pos` beside the JAX CLI's; (e) `race
-    --steps 120` on the eager per-instance engine (float64): finite,
-    s_final > 0.3, K1 18 and K2 1 per tick.  `--plots` (b, e) and `--gif`
-    (a 40-tick mission) are passed where matplotlib imports.
+    `run --config` on the captured per-instance engine in float64
+    (`CLI_CONFIGS`: `usv_guidance4` N=10 for 30 steps, the flagship N=100
+    for 20), the card's metrics within 1e-9 of the CPU's (run in a worker
+    process meanwhile), K1 = iterations and K2 = 1 per tick and per
+    capture, and the first config with `--eager`: equal metrics; (d)
+    `mission --challenge 0 --markers` (600 ticks on the adapter): 300
+    frames read back, no collision, `final_pos` beside the JAX CLI's; (e)
+    `race --steps 120` on the captured per-instance engine (float64):
+    finite, s_final > 0.3, K1 18 and K2 1 per tick and per capture; then
+    `race --steps 20` with and without `--eager`: equal output.
+    `--plots` (b, e) and `--gif` (a 40-tick mission) are passed where
+    matplotlib imports.
 20. the scenario-parallel layer (`parallel/`, `mesh_phase`): (a) one
     rank on a one-rank NCCL mesh, captured ticks: `dryrun_multichip` at
     the flagship's full shape (the lane engine at L=512, the sharded
@@ -252,10 +276,11 @@ thirteen models.  Phases:
     GPUs and scaling are not measured: the host has one GPU.
 
 Each main path is driven with every launch count set to 0 just before and
-read just after (phase 16's goldens, server and timed ticks each so), the
-lane engine's on ticks that replay their captured graphs (a tick that
-captures runs an eager warm-up first, so the counted tick is not the
-first): a replay adds the launches its wrappers counted at capture, and
+read just after (phase 16's goldens, server and timed ticks each so), on
+ticks that replay their captured graphs (a tick that captures runs an
+eager warm-up first: the lane engine's counted tick is not the first, and
+the per-instance runs' gates count each capture as one more tick): a
+replay adds the launches its wrappers counted at capture, and
 the escalation steps' launches times the steps that ran on the device,
 read after the tick (`capture.settle_launch_counts`).  The race car's
 runs are named by the K2 form they take: `race_cars` on the straight
@@ -1904,6 +1929,8 @@ def captured_ticks():
 # horizon of each (nx, nu) checked, and the batch widths
 INSTANCE_K1 = {(8, 1): 100, (14, 2): 100, (6, 2): 50}
 INSTANCE_B = (1, 64)
+# 16f: the timed captured ticks, and the eager ones beside them
+INSTANCE_TICKS, INSTANCE_EAGER = 20, 10
 # the golden runs' names in the kernels line: the race car's goldens run
 # on the synthetic curved track
 GOLDEN_RUN_NAME = {"race_cars": "race_cars_track"}
@@ -2015,11 +2042,23 @@ def instance_k2_route():
                              rtol, atol)
 
 
+def _golden(name, family, capture=True):
+    from mpc_collisionavoidance_tpu_torch.parity import goldens
+    if family == "rti":
+        return goldens.compute_golden_rti(
+            name, 30, goldens.RTI_GOLDEN_RUNS[name][1], device=DEVICE,
+            capture=capture)
+    return goldens.compute_golden(name, 30, goldens.GOLDEN_RUNS[name][2],
+                                  device=DEVICE, capture=capture)
+
+
 def instance_goldens():
     """16c: the committed goldens' 30-tick prefixes on the card in float64
-    at atol 1e-6: every RTI fixture, and the converged-SQP fixtures of the
-    flagship and the hull.  Returns {(run name, "instance golden"): launch
-    counts} (each run's counts set to 0 just before it)."""
+    at atol 1e-6, on the captured tick: every RTI fixture, and the
+    converged-SQP fixtures of the flagship and the hull; the flagship's RTI
+    run also eagerly (`capture=False`), bitwise equal.  Returns {(run name,
+    "instance golden"): launch counts} (each run's counts set to 0 just
+    before it)."""
     from mpc_collisionavoidance_tpu_torch.parity import goldens
     runs = [(name, "rti") for name in goldens.RTI_GOLDEN_RUNS]
     runs += [(FLAGSHIP, "sqp"), (HULL, "sqp")]
@@ -2027,12 +2066,7 @@ def instance_goldens():
     for name, family in runs:
         t0 = time.perf_counter()
         _reset_counts()
-        if family == "rti":
-            got = goldens.compute_golden_rti(
-                name, 30, goldens.RTI_GOLDEN_RUNS[name][1], device=DEVICE)
-        else:
-            got = goldens.compute_golden(
-                name, 30, goldens.GOLDEN_RUNS[name][2], device=DEVICE)
+        got = _golden(name, family)
         c = _read_counts()
         counts[(GOLDEN_RUN_NAME.get(name, name),
                 f"instance golden {family}")] = c
@@ -2047,6 +2081,16 @@ def instance_goldens():
             raise AssertionError(f"golden {name} [{family}]: drift over 1e-6")
         if c["linearize_lanes"] < 30 or c["riccati_lanes"] < 30:
             raise AssertionError(f"golden {name} [{family}]: launches {c}")
+        if (name, family) == (FLAGSHIP, "rti"):
+            t0 = time.perf_counter()
+            eager = _golden(name, family, capture=False)
+            same = all(np.array_equal(a, b) for a, b in zip(got, eager))
+            print(f"16c golden {name} [{family}] eager (capture=False) vs "
+                  f"captured: bitwise {same}, "
+                  f"{time.perf_counter() - t0:.1f} s")
+            if not same:
+                raise AssertionError("16c: the captured golden run differs "
+                                     "from the eager one")
     return counts
 
 
@@ -2141,59 +2185,301 @@ def instance_served(card):
           f"launches {counts} ({card})")
     if bad:
         raise AssertionError(f"vmap server: replies not status 0: {bad[:3]}")
+    turns = {}
+    for capture in (True, False):
+        with _serving(model=FLAGSHIP, N=100, Tf=5.0, engine="vmap",
+                      rti_split=True, capture=capture,
+                      **_server_engine(engine="vmap", ipm_iters=18, mu0=1.0,
+                                       ipm_tol=1e-7)) as server:
+            turns[capture] = _turns(server.path, xs[:2], p, lh, 10)
+    same = turns[True] == turns[False]
+    statuses = sorted({r.status for v in turns[True] for r in v})
+    print(f"16e vmap server flagship, rti_split: two vehicles taking 10 solo "
+          f"ticks each in turn, captured vs eager server (capture=False): "
+          f"replies equal {same}, statuses {statuses}")
+    if not same or statuses != [0]:
+        raise AssertionError("16e: the vehicles in turn got other replies "
+                             "than from the eager server, or not status 0")
     return counts
+
+
+def _turns(path, xs, p, lh, ticks):
+    """Closed-loop v1 ticks of the vehicles `xs` (their first x0), one
+    connection each, taken in turn (each request alone in its window: the
+    solo path).  Replies per vehicle."""
+    xs, out = list(xs), [[] for _ in xs]
+    with contextlib.ExitStack() as stack:
+        socks = [stack.enter_context(contextlib.closing(_connect(path)))
+                 for _ in xs]
+        for seq in range(ticks):
+            for i, s in enumerate(socks):
+                _send1(s, seq, xs[i], p, lh)
+                out[i].append(_reply1(s, seq))
+                xs[i] = out[i][-1].x1
+    return out
 
 
 def instance_tick_times(card):
-    """16f: the eager per-instance tick, float32, warm closed loop (x0 <-
-    x1): median and p99 over 20 ticks (CUDA events, after one warm-up
-    tick) and K1/K2 launches per tick, at B=1 and B=64, for the flagship
-    and the hull on both QP backends.  Returns {(model, label): launch
-    counts} of the Riccati runs (the engine's main path)."""
+    """16f: the per-instance tick, float32, warm closed loop (x0 <- x1),
+    captured and eager (`capture=False`) in turns: each one's median and
+    p99 over `INSTANCE_TICKS` captured and `INSTANCE_EAGER` eager ticks
+    (CUDA events, after a first tick that captures or warms up) and the
+    captured tick's K1/K2 launches per tick, at B=1 and B=64, for the
+    flagship and the hull on both QP backends.  Returns
+    {(model, label): launch counts} of the captured Riccati runs (the
+    engine's main path) and {(model, backend, B): (captured median, p99,
+    eager median, p99)}."""
     import torch
-    counts = {}
+    counts, table = {}, {}
     for name, backend, Bn in itertools.product(
             (FLAGSHIP, HULL), ("riccati", "dense"), (1, 64)):
-        solver, st, x, p, lh = _instance_setup(name, Bn, torch.float32,
-                                               qp_backend=backend)
-        st, out = solver.step_fn(st, x, p, lh)          # warm-up
-        x = out.x1
-        times = []
-        _reset_counts()
-        for _ in range(20):
-            start = torch.cuda.Event(enable_timing=True)
-            end = torch.cuda.Event(enable_timing=True)
-            start.record()
-            st, out = solver.step_fn(st, x, p, lh)
-            end.record()
+        row = []
+        for capture in (True, False):
+            solver, st, x, p, lh = _instance_setup(
+                name, Bn, torch.float32, qp_backend=backend,
+                capture=capture)
+            st, out = solver.step_fn(st, x, p, lh)      # captures or warms
             x = out.x1
-            end.synchronize()
-            times.append(start.elapsed_time(end))
-        c = _read_counts()
-        if not torch.isfinite(out.u0).all():
-            raise AssertionError(f"{name} {backend} B={Bn}: non-finite u0")
-        if backend == "riccati":
-            counts[(name, f"instance B={Bn}")] = c
-        per = {k: v / 20 for k, v in c.items()}
-        print(f"16f instance tick {name} {backend} B={Bn} float32: median "
-              f"{np.median(times):.3f} ms, p99 "
-              f"{np.percentile(times, 99):.3f} ms, launches per tick "
-              f"K1 {per['riccati_lanes']:g}, K2 {per['linearize_lanes']:g}"
-              f", K3 {per['fused_ipm_lanes']:g}, status-0 "
-              f"{float((out.status == 0).float().mean()):.3f} ({card})")
-    return counts
+            times = []
+            _reset_counts()
+            for _ in range(INSTANCE_TICKS if capture else INSTANCE_EAGER):
+                start = torch.cuda.Event(enable_timing=True)
+                end = torch.cuda.Event(enable_timing=True)
+                start.record()
+                st, out = solver.step_fn(st, x, p, lh)
+                end.record()
+                x = out.x1
+                end.synchronize()
+                times.append(start.elapsed_time(end))
+            c = _read_counts()
+            if not torch.isfinite(out.u0).all():
+                raise AssertionError(f"{name} {backend} B={Bn}: non-finite "
+                                     "u0")
+            row += [float(np.median(times)), float(np.percentile(times, 99))]
+            if capture:
+                if backend == "riccati":
+                    counts[(name, f"instance B={Bn}")] = c
+                per = {k: v / INSTANCE_TICKS for k, v in c.items()}
+                want = {"riccati_lanes": 18 if backend == "riccati" else 0,
+                        "linearize_lanes": 1, "fused_ipm_lanes": 0}
+                if per != want:
+                    raise AssertionError(f"16f {name} {backend} B={Bn}: "
+                                         f"launches per tick {per}")
+                status0 = float((out.status == 0).float().mean())
+        table[(name, backend, Bn)] = tuple(row)
+        print(f"16f instance tick {name} {backend} B={Bn} float32: captured "
+              f"median {row[0]:.3f} ms, p99 {row[1]:.3f} ms; eager median "
+              f"{row[2]:.3f} ms, p99 {row[3]:.3f} ms ({row[2] / row[0]:.1f}x)"
+              f"; captured launches per tick K1 {per['riccati_lanes']:g}, "
+              f"K2 {per['linearize_lanes']:g}, K3 "
+              f"{per['fused_ipm_lanes']:g}, status-0 {status0:.3f} ({card})")
+    return counts, table
+
+
+# 16g: the runs whose captured tick is held against the eager one
+INSTANCE_CAPTURED = (FLAGSHIP, HULL, LOW_LEVEL, "race_cars_track")
+INSTANCE_MEHROTRA = (FLAGSHIP, HULL)
+
+
+def _instance_case(name, Bn, dtype, device, **kw):
+    """(RTISolver of `name`, its state, x0, params, lh, references) at
+    `_instance_inputs`'s iterate (the warm start is that iterate; yref per
+    stage), on `device`; B=1 drops the batch axis (a node's shapes)."""
+    from mpc_collisionavoidance_tpu_torch.solver.sqp_rti import (
+        RTISolver, SolverState)
+    xbar, ubar, x0, yref, yref_e, params, lh = _instance_inputs(
+        name, Bn, dtype, device)
+    if Bn == 1:
+        xbar, ubar, x0, yref, yref_e, params = (
+            t[0] for t in (xbar, ubar, x0, yref, yref_e, params))
+        lh = None if lh is None else lh[0]
+    solver = RTISolver(_spec(name), **kw, device=device, dtype=dtype)
+    return (solver, SolverState(xbar, ubar), x0, params, lh,
+            dict(yref=yref, yref_e=yref_e))
+
+
+def _leaves(tree):
+    import torch
+    if tree is None:
+        return []
+    if isinstance(tree, torch.Tensor):
+        return [tree]
+    return [t for v in tree for t in _leaves(v)]
+
+
+def _same_bits(got, want):
+    """Every tensor of `got` has the shape and the bits of `want`'s."""
+    import torch
+    g, w = _leaves(got), _leaves(want)
+    return len(g) == len(w) and all(
+        a.shape == b.shape and torch.equal(_bits(a), _bits(b))
+        for a, b in zip(g, w))
+
+
+def _program_figures(solver, what):
+    """Print (one line) and return each captured program's nodes,
+    conditional nodes, capture and instantiation seconds and pool
+    bytes."""
+    rows = [dict(run=what, entry=key[0], nodes=prog.nodes,
+                 conditional=prog.conditional, capture_s=prog.capture_s,
+                 instantiate_s=prog.instantiate_s,
+                 pool_bytes=prog.pool_bytes)
+            for key, prog in solver._graphs.programs.items()]
+    print(f"16g {what} programs: " + "; ".join(
+        f"{r['entry']} {r['nodes']} nodes ({r['conditional']} "
+        f"conditional), capture {r['capture_s']:.3f} s, instantiate "
+        f"{r['instantiate_s']:.3f} s, pool {r['pool_bytes']} bytes"
+        for r in rows))
+    return rows
+
+
+def _instance_vs_eager(name, Bn, dtype, k1, split, **kw):
+    """One 16g case: the captured tick (capturing call, then a replay with
+    no sync and one graph launch, counted) bitwise equal to the eager one
+    from the same inputs, state and output; with `split`, prepare_fn +
+    feedback_fn likewise.  Returns (the captured output, the programs'
+    figures)."""
+    eager, st, x, p, lh, refs = _instance_case(name, Bn, dtype, DEVICE,
+                                               capture=False, **kw)
+    solver = _instance_case(name, Bn, dtype, DEVICE, **kw)[0]
+    what = (f"{name} B={Bn} {str(dtype)[6:]} "
+            f"{kw.get('qp_backend', 'riccati')} "
+            f"{kw.get('centering', 'fixed')}")
+    want = eager.step_fn(st, x, p, lh, **refs)
+    ok = _same_bits(solver.step_fn(st, x, p, lh, **refs), want)
+    before = _launch_counts()
+    got, graphs = _replay(solver, lambda: solver.step_fn(st, x, p, lh,
+                                                         **refs))
+    after = _launch_counts()
+    launched = {k: after[k] - before[k] for k in after}
+    ok = ok and _same_bits(got, want) and graphs == 1
+    if split:
+        want_s = eager.feedback_fn(st, eager.prepare_fn(st, p, lh, **refs),
+                                   x)
+        solver.feedback_fn(st, solver.prepare_fn(st, p, lh, **refs), x)
+        qp, n_prep = _replay(solver, lambda: solver.prepare_fn(st, p, lh,
+                                                               **refs))
+        got_s, n_feed = _replay(solver, lambda: solver.feedback_fn(st, qp,
+                                                                   x))
+        ok = ok and _same_bits(got_s, want_s) and n_prep == n_feed == 1
+    want_counts = {"riccati_lanes": k1, "linearize_lanes": 1,
+                   "fused_ipm_lanes": 0}
+    print(f"16g {what}: captured == eager bitwise {ok} (step"
+          f"{', prepare + feedback' if split else ''}; replays with no "
+          f"sync, one graph launch each); launches per replay {launched}")
+    if not ok:
+        raise AssertionError(f"16g {what}: the captured tick differs from "
+                             "the eager one")
+    if launched != want_counts:
+        raise AssertionError(f"16g {what}: launches per replay {launched}, "
+                             f"want {want_counts}")
+    return got, _program_figures(solver, what)
+
+
+def instance_captured(card):
+    """16g: the captured per-instance tick against the eager one
+    (`capture=False`), bitwise, state and output: the flagship, the hull,
+    usv_low_level and the race car on the curved track at B in {1, 64}
+    (B=1 unbatched) in float32 and float64 from `_instance_inputs`'s
+    iterate, step_fn and prepare_fn + feedback_fn; Mehrotra centering on
+    the flagship and the hull; the dense backend at 16d's flagship B=8
+    (30 iterations).  Each replay makes no sync and one graph launch and
+    counts K1 18 (36 under Mehrotra, 0 dense) and K2 1.  The float64
+    captured tick against the CPU's plain tick from the same inputs, atol
+    1e-10, identical status (B=1, and the flagship's B=64).  Two states
+    taking ticks in turn through one captured solver against two eager
+    solvers.  Returns the programs' figures."""
+    import torch
+    rows = []
+    for name, Bn, dtype in itertools.product(
+            INSTANCE_CAPTURED, INSTANCE_B, (torch.float32, torch.float64)):
+        got, figs = _instance_vs_eager(name, Bn, dtype, 18, split=True)
+        rows += figs
+        if dtype == torch.float64 and (Bn == 1 or name == FLAGSHIP):
+            cpu, st, x, p, lh, refs = _instance_case(name, Bn, dtype, "cpu")
+            want = cpu.step_fn(st, x, p, lh, **refs)
+            err = max(float((g.cpu() - w).abs().max())
+                      for g, w in zip(_leaves(got[1])[:5],
+                                      _leaves(want[1])[:5]))
+            same = torch.equal(got[1].status.cpu(), want[1].status)
+            print(f"16g {name} B={Bn} float64: captured card tick vs CPU "
+                  f"plain tick max |err| {err:.3e} (u0, x1, xtraj, utraj, "
+                  f"qp_gap), status identical {same}")
+            if err > 1e-10 or not same:
+                raise AssertionError(f"16g {name} B={Bn}: the captured "
+                                     "card tick disagrees with the CPU")
+    for name, Bn, dtype in itertools.product(
+            INSTANCE_MEHROTRA, INSTANCE_B, (torch.float32, torch.float64)):
+        rows += _instance_vs_eager(name, Bn, dtype, 36, split=False,
+                                   centering="mehrotra")[1]
+    for dtype in (torch.float32, torch.float64):
+        rows += _instance_vs_eager(FLAGSHIP, 8, dtype, 0, split=True,
+                                   qp_backend="dense", ipm_iters=30)[1]
+    instance_turns()
+    return rows
+
+
+def instance_turns():
+    """16g: two vehicles' states (the flagship, B=1, float32, ye 0.3
+    apart) take 6 ticks each in turn through one captured solver, full
+    ticks and the RTI split alternating, against two eager solvers:
+    bitwise, one static state."""
+    import torch
+
+    from mpc_collisionavoidance_tpu_torch.solver.sqp_rti import SolverState
+    solver, st, x, p, lh, refs = _instance_case(FLAGSHIP, 1, torch.float32,
+                                                DEVICE)
+    eager = [_instance_case(FLAGSHIP, 1, torch.float32, DEVICE,
+                            capture=False)[0] for _ in range(2)]
+    logs = []
+    for solvers in ((solver, solver), eager):
+        sts = [st, SolverState(st.xbar + 0.3, st.ubar)]
+        xs = [x, x + 0.3]
+        log = []
+        for k in range(6):
+            for i, s in enumerate(solvers):
+                if k % 2:
+                    qp = s.prepare_fn(sts[i], p, lh, **refs)
+                    sts[i], out = s.feedback_fn(sts[i], qp, xs[i])
+                else:
+                    sts[i], out = s.step_fn(sts[i], xs[i], p, lh, **refs)
+                xs[i] = out.x1
+                log += _leaves(out)
+        logs.append(log)
+    same = _same_bits(logs[0], logs[1])
+    print(f"16g two states in turn through one captured solver (6 ticks "
+          f"each, step and split alternating) vs two eager solvers: bitwise "
+          f"{same}, static states {len(solver._graphs.states)}")
+    if not same or len(solver._graphs.states) != 1:
+        raise AssertionError("16g: states taking turns through one captured "
+                             "solver differ from two eager solvers")
 
 
 def instance_engine(card):
     """Phase 16: the per-instance engine (`solver/sqp_rti.py`) on the
-    card.  Returns {(run, label): launch counts} of its runs."""
+    card.  Returns {(run, label): launch counts} of its runs, the timed
+    ticks of 16f and the captured programs' figures of 16g."""
+    t0 = time.perf_counter()
+
+    def step_done(label):
+        print(f"  [{time.perf_counter() - t0:.1f} s] 16{label} done")
+
     instance_k1_route()
+    step_done("a")
     instance_k2_route()
+    step_done("b")
     counts = instance_goldens()
+    step_done("c")
     instance_dense()
+    step_done("d")
     counts[(FLAGSHIP, "instance vmap server")] = instance_served(card)
-    counts.update(instance_tick_times(card))
-    return counts
+    step_done("e")
+    times, table = instance_tick_times(card)
+    counts.update(times)
+    step_done("f")
+    programs = instance_captured(card)
+    step_done("g")
+    return counts, table, programs
 
 
 # ---- phase 17: the guidance stack ----
@@ -2209,6 +2495,7 @@ BOAT_BUDGET_MS = 50.0        # the flagship node at 20 Hz
 CASCADE_TICKS = 40
 CASCADE_CPU_TICKS = 5
 NODE_TICKS = 20
+NODE_EAGER = 10              # 17g's eager comparison: its first 10 ticks
 CHALLENGE0_WPS = ((4.0, -5.0), (4.0, 25.0))
 # 17g's nodes with each one's budget in ms (phases 12 and 13)
 NODE_BUDGET_MS = {PF: FAMILY_BUDGET_MS[PF],
@@ -2637,7 +2924,7 @@ def one_boat(card):
     return {(FLAGSHIP, "17e adapter mission"): counts}
 
 
-def _instance_boat(device):
+def _instance_boat(device, capture=True):
     """The flagship node on `RTISolver` (N=100, 18 fixed iterations) in
     float64."""
     import torch
@@ -2647,40 +2934,70 @@ def _instance_boat(device):
     from mpc_collisionavoidance_tpu_torch.solver.sqp_rti import RTISolver
     spec = builders.usv_guidance_ca1()
     return GuidanceController(spec, solver=RTISolver(
-        spec, device=device, dtype=torch.float64))
+        spec, device=device, dtype=torch.float64, capture=capture))
+
+
+def _eager(ctrl):
+    """`ctrl` with its `RTISolver` replaced by an eager twin
+    (`capture=False`: the same OCP and schedule, op by op)."""
+    from mpc_collisionavoidance_tpu_torch.solver.sqp_rti import RTISolver
+    s = ctrl.solver
+    ctrl.solver = RTISolver(s.spec, ipm_iters=s.ipm_iters, ipm_tol=s.ipm_tol,
+                            qp_backend=s.qp_backend, centering=s.centering,
+                            mu0=s.mu0, device=s.device, dtype=s.dtype,
+                            capture=False)
+    return ctrl
+
+
+def _captured_counts(what, c, ticks, programs, k1):
+    """Gate a captured per-instance run's launches: K2 once per tick plus
+    once per program's capture (its eager warm-up), K1 `k1` per K2."""
+    k2 = ticks + programs
+    if (c["linearize_lanes"] != k2 or c["riccati_lanes"] != k1 * k2
+            or c["fused_ipm_lanes"]):
+        raise AssertionError(f"{what}: launch counts {c} over {ticks} "
+                             f"ticks and {programs} captures")
 
 
 def boat_instance(ref):
-    """17e, second part: the flagship node on `RTISolver` (eager) in
+    """17e, second part: the flagship node on `RTISolver` (captured) in
     float64, card vs CPU (`ref`), 20 challenge-0 ticks at 1e-8, K1 18 and
-    K2 1 per tick.  Returns {(model, label): launch counts}."""
+    K2 1 per tick (and per capture); the same ticks eagerly
+    (`capture=False`) bitwise equal.  Returns {(model, label): launch
+    counts}."""
     ctrl = _instance_boat(DEVICE)
     _reset_counts()
     got = _mission_tensors(_challenge0(ctrl, NODE_TICKS))
     c = _read_counts()
     err = _max_err(got, _torch_list(ref))
-    print(f"17e one boat on RTISolver float64 card vs CPU {NODE_TICKS} "
-          f"ticks: max |err| {err:.3e}, launches per tick K1 "
-          f"{c['riccati_lanes'] / NODE_TICKS:g}, K2 "
-          f"{c['linearize_lanes'] / NODE_TICKS:g}")
-    if err > 1e-8:
-        raise AssertionError("17e: RTISolver controller card != CPU")
-    if (c["riccati_lanes"] != 18 * NODE_TICKS
-            or c["linearize_lanes"] != NODE_TICKS or c["fused_ipm_lanes"]):
-        raise AssertionError(f"17e: RTISolver launch counts {c}")
+    eager = _mission_tensors(_challenge0(_instance_boat(
+        DEVICE, capture=False), NODE_TICKS))
+    same = all(np.array_equal(a.numpy(), b.numpy())
+               for a, b in zip(got, eager))
+    programs = len(ctrl.solver._graphs.programs)
+    print(f"17e one boat on RTISolver float64 card (captured) vs CPU "
+          f"{NODE_TICKS} ticks: max |err| {err:.3e}; vs eager bitwise "
+          f"{same}; launches {c} over {NODE_TICKS} ticks and {programs} "
+          f"capture(s)")
+    if err > 1e-8 or not same:
+        raise AssertionError("17e: RTISolver controller card != CPU, or "
+                             "captured != eager")
+    _captured_counts("17e", c, NODE_TICKS, programs, 18)
     return {(FLAGSHIP, "17e instance"): c}
 
 
 HULL0 = (0.0, 0.001, 0.0, 0.0, 0.0, 0.0)
 
 
-def _cascade_controllers(device, dtype):
+def _cascade_controllers(device, dtype, capture=True):
+    """The flagship node on the adapter and the `usv_low_level` node on
+    `RTISolver` (`capture`: the inner solver's)."""
     from mpc_collisionavoidance_tpu_torch.guidance.low_level import (
         LowLevelController)
     from mpc_collisionavoidance_tpu_torch.ocp import builders
-    return (_boat_controller(device, dtype),
-            LowLevelController(builders.usv_low_level(), device=device,
-                               dtype=dtype))
+    ll = LowLevelController(builders.usv_low_level(), device=device,
+                            dtype=dtype)
+    return _boat_controller(device, dtype), (ll if capture else _eager(ll))
 
 
 def _run_cascade(g, ll, ticks):
@@ -2694,11 +3011,13 @@ def _run_cascade(g, ll, ticks):
 def cascade_loops(card, ref):
     """17f: the two-rate cascade on the challenge-0 course: guidance on
     `LaneSolverAdapter` (production, captured, N=100), the low level
-    `usv_low_level` (N=100) on `RTISolver` (8 fixed iterations, eager),
+    `usv_low_level` (N=100) on `RTISolver` (8 fixed iterations, captured),
     40 guidance ticks (200 inner), float32: finite, both loops' p50/p99
-    (each tick synced) printed beside 50 ms and 10 ms, not gated; then
-    float64 card vs CPU (`ref`) for 5 guidance ticks at 1e-6.  Returns
-    {(model, label): launch counts}."""
+    (each tick synced) printed beside 50 ms and 10 ms, not gated; its
+    first 2 guidance ticks (10 inner) with the inner solver eager
+    (`capture=False`) bitwise equal, the eager inner tick's p50/p99
+    beside; then float64 card vs CPU (`ref`) for 5 guidance ticks at 1e-6.
+    Returns {(model, label): launch counts}."""
     import torch
     g, ll = _cascade_controllers(DEVICE, torch.float32)
     _run_cascade(g, ll, 1)                                # captures
@@ -2708,6 +3027,21 @@ def cascade_loops(card, ref):
     t0 = time.perf_counter()
     log = _run_cascade(g, ll, CASCADE_TICKS)
     wall = time.perf_counter() - t0
+    logs = []
+    eager_ms = []
+    for capture in (True, False):
+        g2, ll2 = _cascade_controllers(DEVICE, torch.float32, capture)
+        if not capture:
+            _instrumented(ll2, "tick", eager_ms, [])
+        logs.append(_run_cascade(g2, ll2, 2))
+    same = _same_bits(tuple(logs[0]), tuple(logs[1]))
+    ep = _pcts(eager_ms[1:])
+    print(f"17f cascade 2 guidance ticks float32, inner solver captured vs "
+          f"eager: bitwise {same}; eager inner tick p50 {ep[0]:.3f} ms p99 "
+          f"{ep[1]:.3f} ms")
+    if not same:
+        raise AssertionError("17f: the captured inner loop differs from "
+                             "the eager one")
     finite = all(bool(torch.isfinite(t).all())
                  for t in (log.pos, log.psi, log.u, log.thrust))
     gp, lp = _pcts(g_ms), _pcts(ll_ms)
@@ -2788,13 +3122,17 @@ def _node_drive(name):
             np.array([0.7, 0.0, 0.0, 1.5, 0.0, 0.3]), plant)
 
 
-def _node_run(name, device, dtype, ticks, meas_seq=None, instrument=None):
+def _node_run(name, device, dtype, ticks, meas_seq=None, instrument=None,
+              capture=True):
     """Drive node `name` for `ticks` ticks: its plant closes the loop, or
     each tick takes `meas_seq`'s measurement.  `instrument`: (times,
-    counts) for `_instrumented`.  Returns (the measurements fed, each
-    tick's commands as {field: float64 array}, the controller)."""
+    counts) for `_instrumented`; `capture=False`: its solver eager.
+    Returns (the measurements fed, each tick's commands as {field:
+    float64 array}, the controller)."""
     build, init, step, meas0, plant = _node_drive(name)
     ctrl = build(device, dtype)
+    if not capture:
+        _eager(ctrl)
     if instrument is not None:
         _instrumented(ctrl, "tick", *instrument)
     st = init(ctrl, meas0)
@@ -2817,11 +3155,15 @@ def _pf_meas(veh):
 
 def other_nodes(card, ref):
     """17g: usv_pf (N=100), usv_acados (N=20) and the six variants
-    (N=100), each 20 ticks in float64 on the card against the CPU's run
-    (`ref`, which closed its own loop) from the same measurements:
-    commands at 1e-6, identical status; then 20 float32 ticks on the card,
-    each synced, median and p99 beside the node's budget (printed).
-    Returns {(model, label): launch counts}."""
+    (N=100), on their captured `RTISolver` ticks, each 20 ticks in float64
+    on the card against the CPU's run (`ref`, which closed its own loop)
+    from the same measurements: commands at 1e-6, identical status; then
+    20 float32 ticks on the card, each synced, median and p99 of the 19
+    after the capturing one beside the node's budget (printed), and the
+    first `NODE_EAGER` measurements through the eager solver
+    (`capture=False`): its commands bitwise equal, its median and p99
+    beside.  Returns {(model,
+    label): launch counts} of the float32 ticks after the first."""
     import torch
     out = {}
     for name, budget in NODE_BUDGET_MS.items():
@@ -2836,20 +3178,37 @@ def other_nodes(card, ref):
         same = all(np.array_equal(g["solver_status"], w["solver_status"])
                    for g, w in zip(got, want))
         times, per_call = [], []
-        _, _, c32 = _node_run(name, DEVICE, torch.float32, NODE_TICKS,
-                              instrument=(times, per_call))
-        counts = _summed(per_call)
-        p50, p99 = _pcts(times)
+        fed32, got32, c32 = _node_run(name, DEVICE, torch.float32,
+                                      NODE_TICKS, instrument=(times,
+                                                              per_call))
+        counts = _summed(per_call[1:])
+        p50, p99 = _pcts(times[1:])
+        e_times = []
+        _, eager32, _ = _node_run(name, DEVICE, torch.float32, NODE_EAGER,
+                                  meas_seq=fed32, instrument=(e_times, []),
+                                  capture=False)
+        e50, e99 = _pcts(e_times[1:])
+        bitwise = all(np.array_equal(g[f], w[f]) for g, w in
+                      zip(got32, eager32) for f in g)
+        n = NODE_TICKS - 1
         print(f"17g {name} N={c32.spec.N}: float64 card vs CPU "
               f"{NODE_TICKS} ticks max |err| {err:.3e}, status identical "
-              f"{same} (card {pair_s:.1f} s); float32 eager tick p50 "
-              f"{p50:.3f} ms p99 {p99:.3f} ms beside the {budget:.0f} ms "
-              f"budget; launches per tick K1 "
-              f"{counts['riccati_lanes'] / NODE_TICKS:g}, K2 "
-              f"{counts['linearize_lanes'] / NODE_TICKS:g} ({card})")
+              f"{same} (card {pair_s:.1f} s); float32 captured tick p50 "
+              f"{p50:.3f} ms p99 {p99:.3f} ms, eager p50 {e50:.3f} ms p99 "
+              f"{e99:.3f} ms, beside the {budget:.0f} ms budget; captured "
+              f"== eager commands bitwise {bitwise}; launches per captured "
+              f"tick K1 {counts['riccati_lanes'] / n:g}, K2 "
+              f"{counts['linearize_lanes'] / n:g} ({card})")
         if err > 1e-6 or not same:
             raise AssertionError(f"17g {name}: the card disagrees with the "
                                  "CPU")
+        if not bitwise:
+            raise AssertionError(f"17g {name}: the captured node's commands "
+                                 "differ from the eager node's")
+        if (counts["linearize_lanes"] != n or counts["fused_ipm_lanes"]
+                or counts["riccati_lanes"] != c32.solver.ipm_iters * n):
+            raise AssertionError(f"17g {name}: launches {counts} over {n} "
+                                 "captured ticks")
         out[(name, "17g node")] = counts
     return out
 
@@ -3082,6 +3441,8 @@ JAX_MISSION = {"ticks": 600, "frames": 300, "collisions": 0,
 # phase's 90 s with 19b-19d; 120 is the JAX suite's depth
 # (tests/test_cli.py::test_cli_race)
 RACE_STEPS = 120
+# 19e's eager comparison: `race --steps 20` with and without --eager
+RACE_EAGER_STEPS = 20
 # the metrics of `run` that are wall-clock times, not results
 CLI_TIMES = ("compile_plus_run_s", "steady_run_s", "solves_per_s_closed_loop")
 
@@ -3099,9 +3460,9 @@ def _cli(argv):
     return rc, buf.getvalue().strip().splitlines()
 
 
-def _config_run(path, steps, device):
+def _config_run(path, steps, device, eager=False):
     rc, lines = _cli(["run", "--config", path, "--steps", str(steps),
-                      "--device", device])
+                      "--device", device] + (["--eager"] if eager else []))
     if rc != 0:
         raise AssertionError(f"19c run --config {path} on {device}: exit "
                              f"{rc}")
@@ -3119,16 +3480,18 @@ def cli_cpu_references(paths):
 
 
 def _expect(what, c, k1_per_tick, ticks):
-    """K3 none; K2 one launch per tick and K1 `k1_per_tick` per tick on
-    the eager per-instance tick; None: the captured production lane tick,
-    K2 at least one per tick and K1 at least 4 (the tick that captures
-    also runs an eager warm-up, and escalation adds K1 launches)."""
+    """K3 none; on the captured per-instance tick K2 one launch per tick
+    and K1 `k1_per_tick` per K2, plus one tick's for the capture's eager
+    warm-up (one program per run); None: the captured production lane
+    tick, K2 at least one per tick and K1 at least 4 (the tick that
+    captures also runs an eager warm-up, and escalation adds K1
+    launches)."""
     if k1_per_tick is None:
         ok = (c["riccati_lanes"] >= 4 * ticks
               and c["linearize_lanes"] >= ticks)
     else:
-        ok = (c["riccati_lanes"] == k1_per_tick * ticks
-              and c["linearize_lanes"] == ticks)
+        ok = (c["riccati_lanes"] == k1_per_tick * (ticks + 1)
+              and c["linearize_lanes"] == ticks + 1)
     if not (ok and c["fused_ipm_lanes"] == 0):
         raise AssertionError(f"{what}: launch counts {c} over {ticks} "
                              "ticks")
@@ -3211,6 +3574,18 @@ def command_line(card):
             _expect(f"19c {name}", c, cfg["solver"].get("ipm_iters", 12),
                     2 * steps)
             counts[(name, "19c run --config")] = c
+        # one eager comparison: the first config with `--eager`
+        name, (cfg, steps) = next(iter(CLI_CONFIGS.items()))
+        eager = _config_run(paths[name], steps, DEVICE, eager=True)
+        same = all(eager[k] == card_runs[name][k] for k in eager
+                   if k not in CLI_TIMES)
+        print(f"19c run --config {name} --eager: metrics equal to the "
+              f"captured run's {same}; steady_run_s captured "
+              f"{card_runs[name]['steady_run_s']}, eager "
+              f"{eager['steady_run_s']}")
+        if not same:
+            raise AssertionError(f"19c {name}: --eager {eager} vs captured "
+                                 f"{card_runs[name]}")
         step_done("c (card)")
         # 19d
         markers = tmp / "m.jsonl"
@@ -3269,9 +3644,10 @@ def command_line(card):
         sec = time.perf_counter() - t
         c = _read_counts()
         out = json.loads(lines[-1])
-        print(f"19e race {RACE_STEPS} steps (RTISolver float64, eager): "
-              f"{out}; {sec:.1f} s ({1e3 * sec / RACE_STEPS:.1f} ms per "
-              f"tick); K1 {c['riccati_lanes'] / RACE_STEPS:g} and K2 "
+        print(f"19e race {RACE_STEPS} steps (RTISolver float64, "
+              f"captured): {out}; {sec:.1f} s ({1e3 * sec / RACE_STEPS:.1f} "
+              f"ms per tick, the capture included); K1 "
+              f"{c['riccati_lanes'] / RACE_STEPS:g} and K2 "
               f"{c['linearize_lanes'] / RACE_STEPS:g} per tick")
         if rc != 0 or not out["finite"] or out["s_final"] <= 0.3:
             raise AssertionError(f"19e: exit {rc}, {out}")
@@ -3279,6 +3655,21 @@ def command_line(card):
             raise AssertionError("19e: --plots wrote no race_track.png")
         _expect("19e", c, 18, RACE_STEPS)
         counts[("race_cars_track", "19e race")] = c
+        # one eager comparison: RACE_EAGER_STEPS steps with and without
+        # --eager, each its own process-wide solver
+        runs = {}
+        for flag in ((), ("--eager",)):
+            t = time.perf_counter()
+            rc, lines = _cli(["race", "--device", DEVICE, "--steps",
+                              str(RACE_EAGER_STEPS), *flag])
+            runs[flag] = (rc, lines[-1], time.perf_counter() - t)
+        (rc_c, out_c, sec_c), (rc_e, out_e, sec_e) = runs.values()
+        print(f"19e race {RACE_EAGER_STEPS} steps captured vs --eager: "
+              f"output equal {out_c == out_e}; {sec_c:.2f} s vs "
+              f"{sec_e:.2f} s ({1e3 * sec_e / RACE_EAGER_STEPS:.1f} ms per "
+              f"eager tick)")
+        if rc_c or rc_e or out_c != out_e:
+            raise AssertionError(f"19e: captured {out_c} vs eager {out_e}")
         step_done("e")
     return counts
 
@@ -3580,7 +3971,14 @@ def main():
         guidance_cpu = pool.submit(cpu_references, FLEET_CPU_B,
                                    FLEET_CPU_TICKS, NODE_TICKS,
                                    CASCADE_CPU_TICKS)
-        counts.update(instance_engine(card))
+        instance, instance_times, programs = instance_engine(card)
+        counts.update(instance)
+        print("phase 16 table: " + json.dumps({
+            "16f": {f"{n} {backend} B={Bn}": dict(zip(
+                ("captured_ms", "captured_p99_ms", "eager_ms",
+                 "eager_p99_ms"), row))
+                for (n, backend, Bn), row in instance_times.items()},
+            "16g": programs}))
         phase_done("phase 16 (the per-instance engine)")
         counts.update(guidance_stack(card, guidance_cpu))
     phase_done("phase 17 (the guidance stack)")

@@ -19,9 +19,9 @@ The commands take the JAX package's flags, defaults and JSON keys, except
 that `--platform` is `--device`: "cuda" by default, where a host with no
 CUDA device is an error; "cpu" runs the kernels' plain versions.  The
 experiment JSON is shared with the JAX package (`config.py`).  Each run is
-a Python loop over ticks: on the card each lane-engine tick is one
-captured CUDA graph and each per-instance tick runs op by op, where the
-JAX package jits the whole loop.  `--plots` and `--gif` need matplotlib.
+a Python loop over ticks: on the card each tick, on either engine, is one
+captured CUDA graph (`--eager`: op by op, for comparisons), where the JAX
+package jits the whole loop.  `--plots` and `--gif` need matplotlib.
 The JAX package's `bench` command runs its `bench.py`, which imports jax:
 the port has no such command yet.
 """
@@ -102,11 +102,12 @@ def _cmd_run(args):
         from mpc_collisionavoidance_tpu_torch.solver.batch import (
             LaneSolverAdapter)
         run_dtype = torch.float32
-        solver = LaneSolverAdapter(cfg.build_solver(device=device,
-                                                    dtype=run_dtype))
+        solver = LaneSolverAdapter(cfg.build_solver(
+            device=device, dtype=run_dtype, capture=not args.eager))
     else:
         run_dtype = torch.float64
-        solver = cfg.build_solver(device=device, dtype=run_dtype)
+        solver = cfg.build_solver(device=device, dtype=run_dtype,
+                                  capture=not args.eager)
 
     def t(a):
         return torch.as_tensor(np.asarray(a), dtype=run_dtype, device=device)
@@ -203,7 +204,7 @@ def _cmd_race(args):
     tr = trk.make_synthetic_track()
     spec = builders.build("race_cars", track=tr)
     m = spec.model
-    solver = RTISolver(spec, ipm_iters=18, **f64)
+    solver = RTISolver(spec, ipm_iters=18, **f64, capture=not args.eager)
     ny, nx, N = spec.cost.ny, m.nx, spec.N
     ramp_unit = 3.0 * torch.arange(N, **f64) / N
 
@@ -297,6 +298,12 @@ def _device_flag(p):
                         "is an error) or cpu (the kernels' plain versions)")
 
 
+def _eager_flag(p):
+    p.add_argument("--eager", action="store_true",
+                   help="run each tick op by op instead of replaying its "
+                        "captured CUDA graph (for comparisons)")
+
+
 def main(argv=None):
     parser = argparse.ArgumentParser(prog="mpc_collisionavoidance_tpu_torch")
     sub = parser.add_subparsers(dest="cmd", required=True)
@@ -313,6 +320,7 @@ def main(argv=None):
     p_run.add_argument("--steps", type=int, default=1000)
     p_run.add_argument("--plots", help="save dashboards to this path prefix")
     _device_flag(p_run)
+    _eager_flag(p_run)
     p_run.set_defaults(fn=_cmd_run)
 
     p_race = sub.add_parser(
@@ -321,6 +329,7 @@ def main(argv=None):
     p_race.add_argument("--steps", type=int, default=700)
     p_race.add_argument("--plots", help="save the track plot to this prefix")
     _device_flag(p_race)
+    _eager_flag(p_race)
     p_race.set_defaults(fn=_cmd_race)
 
     p_mis = sub.add_parser(

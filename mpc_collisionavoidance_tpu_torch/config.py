@@ -108,9 +108,10 @@ class SolverConfig:
 
     def build(self, spec, *, device, dtype, capture=True, group=None):
         """Instantiate the configured engine for an OCPSpec on
-        `device`/`dtype` (`capture`, `group`: `LaneRTISolver`'s; the
-        instance engine runs op by op, and is sharded by
-        `parallel.make_sharded_batch_solver`)."""
+        `device`/`dtype`.  `capture`: both engines' switch (on a CUDA
+        device each tick replays a captured graph; False runs it op by
+        op).  `group`: `LaneRTISolver`'s; the instance engine takes none
+        and is sharded by `parallel.make_sharded_batch_solver`."""
         if self.engine == "instance":
             if group is not None:
                 raise ValueError("the instance engine takes no process "
@@ -120,7 +121,7 @@ class SolverConfig:
                              ipm_tol=self.ipm_tol,
                              qp_backend=self.qp_backend,
                              centering=self.centering, mu0=self.mu0,
-                             device=device, dtype=dtype)
+                             device=device, dtype=dtype, capture=capture)
         return LaneRTISolver(spec, ipm_iters=self.ipm_iters,
                              ipm_tol=self.ipm_tol, riccati=self.riccati,
                              centering=self.centering, mu0=self.mu0,
@@ -195,11 +196,11 @@ class FrameworkConfig:
     def build_spec(self):
         return builders.build(self.model, Tf=self.Tf, N=self.N)
 
-    def build_solver(self, *, device, dtype):
+    def build_solver(self, *, device, dtype, capture=True):
         """Instantiate the configured solver engine for this OCP on
-        `device`/`dtype` (`SolverConfig.build`)."""
+        `device`/`dtype` (`SolverConfig.build`, `capture` its switch)."""
         return self.solver.build(self.build_spec(), device=device,
-                                 dtype=dtype)
+                                 dtype=dtype, capture=capture)
 
     def to_dict(self) -> Dict[str, Any]:
         return dataclasses.asdict(self)

@@ -56,6 +56,14 @@ cudaError_t add_if_node(cudaGraph_t graph, const cudaGraphNode_t* deps,
                                     nullptr, 0, body_src);
 }
 
+// `err`, cleared from the runtime's last-error slot: a kernel entry of
+// this library reads that slot after its launch and would report a failed
+// composition as its own launch failure.
+int failed(cudaError_t err) {
+  cudaGetLastError();
+  return static_cast<int>(err);
+}
+
 }  // namespace
 
 extern "C" {
@@ -80,7 +88,7 @@ int nmpc_graph_compose(int n, void* const* segments, const int* conditional,
                        long long* nodes_out) {
   cudaGraph_t graph;
   cudaError_t err = cudaGraphCreate(&graph, 0);
-  if (err != cudaSuccess) return static_cast<int>(err);
+  if (err != cudaSuccess) return failed(err);
   cudaGraphNode_t prev = nullptr;
   long long nodes = 0;
   for (int i = 0; i < n && err == cudaSuccess; ++i) {
@@ -103,7 +111,7 @@ int nmpc_graph_compose(int n, void* const* segments, const int* conditional,
   cudaGraphExec_t exec = nullptr;
   if (err == cudaSuccess) err = cudaGraphInstantiate(&exec, graph, 0);
   cudaGraphDestroy(graph);
-  if (err != cudaSuccess) return static_cast<int>(err);
+  if (err != cudaSuccess) return failed(err);
   *exec_out = exec;
   *nodes_out = nodes;
   return 0;

@@ -4,11 +4,12 @@
 An independent second QP path over the condensed problem
 (`ops/condense.py`): a primal-dual interior-point method whose Newton step
 is ONE dense symmetric solve of size (N*nu, N*nu) per iteration (a
-`torch.linalg` Cholesky), with the soft-constraint slacks eliminated with
-the same zl/Zl/lsh/ush semantics as `ops/ipm.py`, so the two engines solve
-the same KKT system and agree to solver tolerance.  O(N^3 nu^3) per
-iteration against the Riccati engine's O(N (nx+nu)^3): it wins only for
-short horizons or as a cross-check.
+`torch.linalg` Cholesky, and two triangular solves on the card:
+`cholesky_solve`), with the soft-constraint slacks eliminated with the
+same zl/Zl/lsh/ush semantics as `ops/ipm.py`, so the two engines solve
+the same KKT system and agree to solver tolerance.
+O(N^3 nu^3) per iteration against the Riccati engine's O(N (nx+nu)^3): it
+wins only for short horizons or as a cross-check.
 
 Layouts: per-instance shapes with optional leading batch axes; the step
 size, duality measure, freeze mask and status are per instance.
@@ -24,6 +25,19 @@ from mpc_collisionavoidance_tpu_torch.ops.ipm import (IPMSolution, QPData,
                                                       effective_tol,
                                                       gap_floor, ratio)
 from mpc_collisionavoidance_tpu_torch.ops.riccati import cholesky, mv
+
+
+def cholesky_solve(B, Lf):
+    """X with (Lf Lf') X = B, for each matrix of a batch.  On a CUDA
+    tensor two triangular solves (cuBLAS), which a CUDA graph captures
+    as kernels: torch's `cholesky_solve` takes MAGMA for a batch, which
+    refuses the capture, and cuSOLVER's potrs for a single system, which
+    allocates in the stream (nodes that a captured tick's child graph
+    cannot hold)."""
+    if B.device.type != "cuda":
+        return torch.cholesky_solve(B, Lf)
+    Y = torch.linalg.solve_triangular(Lf, B, upper=False)
+    return torch.linalg.solve_triangular(Lf.mT, Y, upper=True)
 
 
 class DenseIPMSolution(NamedTuple):
@@ -106,7 +120,7 @@ def dense_ipm_solve(d: DenseQP, iters: int = 18, tau: float = 0.995,
         chol = cholesky(Hs)
 
         def nsolve(b):
-            return dscale * torch.cholesky_solve(
+            return dscale * cholesky_solve(
                 (dscale * b).unsqueeze(-1), chol).squeeze(-1)
 
         Dw = nsolve(-rhs)

@@ -152,9 +152,13 @@ class QPBuilder:
             to_lanes(ubar.movedim(-1, -2), batch),           # (nu, N, L)
             to_lanes(params.expand(*batch, params.shape[-1]), batch),
             model=m, dt=spec.dt, integrator_steps=spec.integrator_steps)
+        # every returned field contiguous: a caller's copy of the QP (the
+        # captured preparation's) then has its layout, and the feedback
+        # computes the same bits on either
         J = from_lanes(J, batch)                         # (..., N, nx, nx+nu)
-        A, B = J[..., :nx], J[..., nx:]
-        c = from_lanes(x_next, batch).movedim(-2, -1) - xbar[..., 1:, :]
+        A, B = J[..., :nx].contiguous(), J[..., nx:].contiguous()
+        c = (from_lanes(x_next, batch).movedim(-2, -1)
+             - xbar[..., 1:, :]).contiguous()
         hbar = from_lanes(hbar, batch).movedim(-2, -1)       # (..., N, nh)
         C = from_lanes(C, batch)                             # (..., N, nh, nx)
 
@@ -169,8 +173,9 @@ class QPBuilder:
         Q = torch.cat([full(self.Q_stage, N, nx, nx),
                        full(self.Q_N, 1, nx, nx)], dim=-3)
         qx = torch.cat([qx_path, qx_N.unsqueeze(-2)], dim=-2)
-        S = full(self.S_stage, N, nu, nx)
-        R = full(self.R_stage, N, nu, nu)
+        # copies: a returned QP holds no view of the builder's blocks
+        S = full(self.S_stage, N, nu, nx).clone()
+        R = full(self.R_stage, N, nu, nu).clone()
         lh_full = self.lh if lh is None else lh              # (..., nh)
         uh_full = self.uh
 
@@ -214,7 +219,7 @@ class QPBuilder:
             hofs.append((xs @ self.E_xs.T) * mvec)
             slh.append(full(torch.where(mask, self.lbx_s, -1.0), N, n_sbx))
             suh.append(full(torch.where(mask, self.ubx_s, 1.0), N, n_sbx))
-        zl, Zl, zu, Zu, lsh, ush = (full(v, v.shape[0])
+        zl, Zl, zu, Zu, lsh, ush = (full(v, v.shape[0]).clone()
                                     for v in self.slack)
 
         return QPData(

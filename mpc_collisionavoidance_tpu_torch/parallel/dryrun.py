@@ -65,7 +65,9 @@ def dryrun_multichip(*, device="cuda", N=100, Tf=5.0, lanes=512,
     one reduced over the mesh (equal on every rank).  Call
     `distributed.init` first on a multi-rank run; on a lone process the
     mesh is a one-rank group.  The lane engines capture their ticks on an
-    NCCL mesh and run eagerly on a gloo one (gloo cannot be captured).
+    NCCL mesh and run eagerly on a gloo one (gloo cannot be captured);
+    the per-instance engine, which reduces nothing, captures on a CUDA
+    device either way.
 
     1. the lane engine, `lanes` lanes sharded over the mesh, 3 closed-loop
        ticks: converged share > 0.9 (`fleet_metrics`);

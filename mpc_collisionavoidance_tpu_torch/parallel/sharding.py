@@ -83,10 +83,12 @@ def make_sharded_batch_solver(solver: RTISolver, mesh: DeviceMesh,
 
     Returns ``run(states, x0s, params, lhs=None) -> (states, outs)``: on
     each rank `solver.step` (which takes leading batch axes) on the local
-    shard, eagerly.  Inputs are this rank's slices (`shard_batch`) or
-    global `DTensor`s (`distributed.shard_batch_global`), and the outputs
-    take the same form.  No collective runs: the solves are independent.
-    `donate` is JAX's argument; the eager step never writes its inputs."""
+    shard, which on a CUDA device replays the solver's captured step.
+    Inputs are this rank's slices (`shard_batch`) or global `DTensor`s
+    (`distributed.shard_batch_global`), and the outputs take the same
+    form.  No collective runs: the solves are independent.  `donate` is
+    JAX's argument: the step never writes its inputs, and what it returns
+    is the caller's own (copied out of the captured program)."""
     device = mesh_device(mesh)
     if solver.device != device:
         raise ValueError(f"a solver on '{solver.device}' for a mesh whose "

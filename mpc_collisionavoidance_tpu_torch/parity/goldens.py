@@ -171,13 +171,13 @@ def _closed_loop(name, ticks, solver, advance):
 
 
 def compute_golden(name: str, ticks: int, sqp_iters: int = 10, *,
-                   device) -> GoldenRun:
+                   device, capture: bool = True) -> GoldenRun:
     """The float64 converged-SQP closed loop of `name` on `device`:
     `sqp_iters` full-step SQP iterations per tick, 30 IPM iterations at
-    tol 1e-10."""
+    tol 1e-10 (`capture`: `RTISolver`'s)."""
     solver = RTISolver(_build_spec(name), ipm_iters=30, ipm_tol=1e-10,
                        **SOLVER_OPTS.get(name, {}), device=device,
-                       dtype=torch.float64)
+                       dtype=torch.float64, capture=capture)
 
     def advance(st, x, params, lh, yref, yref_e):
         return solver.solve_converged(st, x, params, lh, yref, yref_e,
@@ -187,12 +187,13 @@ def compute_golden(name: str, ticks: int, sqp_iters: int = 10, *,
 
 
 def compute_golden_rti(name: str, ticks: int, ipm_iters: int = 18, *,
-                       device) -> GoldenRun:
+                       device, capture: bool = True) -> GoldenRun:
     """The float64 production RTI schedule of `name` on `device`: one
-    linearization, one QP and a full step per tick, warm-started."""
+    linearization, one QP and a full step per tick, warm-started
+    (`capture`: `RTISolver`'s)."""
     solver = RTISolver(_build_spec(name), ipm_iters=ipm_iters,
                        **SOLVER_OPTS.get(name, {}), device=device,
-                       dtype=torch.float64)
+                       dtype=torch.float64, capture=capture)
     return _closed_loop(name, ticks, solver, solver.step_fn)
 
 

@@ -29,10 +29,12 @@ hand-written kernels (the linearization kernel, then the Riccati kernel
 per IPM iteration, or the fused whole-IPM kernel with `riccati="fused"`;
 `riccati="pscan"` solves each iteration's LQR with the parallel-scan
 Riccati in plain PyTorch instead);
-the lane engine's ticks, preparations and feedbacks run as one captured
-CUDA graph each (`solver/capture.py`; `warmup()` captures them, as the JAX
-server's compiles its jitted ticks), the vmap engine's op by op.  On the
-CPU the kernels' plain PyTorch versions run, op by op.  A CUDA device that
+both engines' ticks, preparations and feedbacks run as one captured CUDA
+graph each (`solver/capture.py`; `warmup()` captures the lane engine's
+and the vmap engine's solo and bucket-2 ones, as the JAX server compiles
+its jitted ticks; a larger bucket captures at its first use, as JAX's
+compiles).  On the CPU the kernels' plain PyTorch versions run, op by
+op.  A CUDA device that
 is not there is an error, never a fallback.
 
 Run:  python -m mpc_collisionavoidance_tpu_torch.rt.server /tmp/nmpc.sock
@@ -103,7 +105,7 @@ class RTServer:
                  rti_split: bool = False, model: str = "usv_guidance_ca1",
                  mu0=1.0, extra_iters: int = 0,
                  stall_tol: Optional[float] = None, ipm_tol: float = 1e-7,
-                 *, device):
+                 *, device, capture: bool = True):
         """One server = one OCP `model` on one `device`, solved in float32
         by `engine`: "lane" (a lane engine of fixed width `max_batch`) or
         "vmap" (the per-instance engine over each window's requests, at
@@ -113,7 +115,9 @@ class RTServer:
         mehrotra centering, no escalation and the sweep backend).
         `rti_split`: after replying to a tick, linearize for the next one
         at once, so the next request pays only the IPM (its obstacle table
-        and references are then one tick old, the acados trade-off)."""
+        and references are then one tick old, the acados trade-off).
+        `capture`: either engine's switch (False: op by op on the card,
+        for comparisons)."""
         if engine not in ("lane", "vmap"):
             raise ValueError(f"unknown engine {engine!r}")
         if engine == "vmap" and centering == "adaptive":
@@ -160,13 +164,14 @@ class RTServer:
             self.solver = RTISolver(spec, ipm_iters=ipm_iters,
                                     ipm_tol=ipm_tol, centering=centering,
                                     mu0=mu0, device=self.device,
-                                    dtype=torch.float32)
+                                    dtype=torch.float32, capture=capture)
             self._vehicles: Dict[int, _Vehicle] = {}
             return
         self.lane_solver = LaneRTISolver(
             spec, ipm_iters=ipm_iters, ipm_tol=ipm_tol, riccati=riccati,
             centering=centering, mu0=mu0, extra_iters=extra_iters,
-            stall_tol=stall_tol, device=self.device, dtype=torch.float32)
+            stall_tol=stall_tol, device=self.device, dtype=torch.float32,
+            capture=capture)
 
         L = max_batch
         # the lock covers lane assignment and the host rows: the event-loop
@@ -275,8 +280,9 @@ class RTServer:
         first kernel use builds the CUDA kernels (nvcc), and on a CUDA
         device the lane engine's first tick, preparation and feedback
         capture their graphs: all of it lands here, not in a vehicle's
-        first tick.  The vmap engine runs a solo tick and a bucket-2 tick
-        of a far-away problem."""
+        first tick.  The vmap engine runs a solo tick (with a preparation
+        and a feedback under rti_split) and a bucket-2 tick of a far-away
+        problem, which on a CUDA device capture theirs."""
         if self.engine == "vmap":
             self._executor.submit(self._warm_vmap).result()
             return

@@ -14,11 +14,16 @@ skipped on the device.  (The torch on the card, 2.11, has no binding for
 conditional nodes, so the library builds them with the CUDA runtime.)
 
 Inputs and outputs are static tensors.  A caller's inputs are copied into
-the program's input tensors before the launch, never inside the graph;
-the lane state lives in one pair of tensors per batch width, and the
-captured step and feedback write the new state into them, as
-`donate_argnums=(0,)` lets XLA do.  So the state and outputs a tick
-returns stay valid until the next tick of the same solver.
+the program's input tensors before the launch, never inside the graph (a
+view, a broadcast reference among them, is copied into contiguous
+memory); the state lives in one set of tensors per state shape.  The
+lane engine's captured step and feedback write the new state into them,
+as `donate_argnums=(0,)` lets XLA do, so the state and outputs a lane
+tick returns stay valid until the next tick of the same solver.  The
+per-instance engine (`solver/sqp_rti.py`) captures the same way, one
+unconditional segment per program (its IPM has no escalation), and
+hands its caller `fresh` copies of the outputs, as `jax.jit` without
+donation returns new arrays.
 
 Launch counts: no kernel wrapper runs when a graph launches, so a launch
 adds to the kernels' counters what the wrappers counted while the fixed
@@ -44,6 +49,8 @@ from mpc_collisionavoidance_tpu_torch.ops.ipm_lanes import Escalation
 
 # the kernel wrappers whose `launches` a graph launch adds to
 _KERNELS = (riccati, linearize, ipm)
+
+_PACKAGE = __name__.split(".")[0]
 
 launches = 0
 _PROGRAMS = weakref.WeakSet()
@@ -239,6 +246,52 @@ class Program:
         self._steps.settle()
 
 
+def fresh(tree):
+    """`tree` (tensors in tuples) with every tensor copied into memory of
+    its own, one copy per distinct tensor (a tensor that appears twice,
+    the per-instance state's xbar and its output's xtraj, stays one
+    tensor): what a caller keeps of a program's outputs."""
+    copies = {}
+
+    def copy(a):
+        if isinstance(a, torch.Tensor):
+            if id(a) not in copies:
+                copies[id(a)] = a.clone(memory_format=torch.contiguous_format)
+            return copies[id(a)]
+        if isinstance(a, tuple):
+            vals = [copy(v) for v in a]
+            return type(a)(*vals) if hasattr(a, "_fields") else tuple(vals)
+        return a
+
+    return copy(tree)
+
+
+def state_key(state):
+    """The key of a state's static tensors: the shape of every field.  No
+    single axis tells states apart: the lane layout's xbar (nx, N+1, L)
+    ends in the width, the per-instance (..., N+1, nx) in nx, after any
+    batch axes."""
+    return tuple(tuple(t.shape) for t in state)
+
+
+def _held(obj, depth=2):
+    """The tensors `obj` holds: itself, its tuples' and lists' items, and
+    the attributes of this package's objects, `depth` objects down (a
+    per-instance solver's cost blocks live on its QP builder)."""
+    if isinstance(obj, torch.Tensor):
+        yield obj
+    elif isinstance(obj, (tuple, list)):
+        for v in obj:
+            yield from _held(v, depth)
+    elif depth and type(obj).__module__.startswith(_PACKAGE):
+        for v in vars(obj).values():
+            yield from _held(v, depth - 1)
+
+
+def _storage(t):
+    return t.untyped_storage().data_ptr()
+
+
 def _shape(a):
     """The cache key of an argument: None, a shape, or a tuple of them."""
     if a is None:
@@ -249,22 +302,25 @@ def _shape(a):
 
 
 class TickGraphs:
-    """A solver's captured ticks, keyed like jit's cache: the tick, its
-    batch width, and the shape of every argument (None for an optional
-    one not given).  `solver` gives dtype, device and the escalation's
-    process group (`LaneRTISolver.group`).  An output of one of
-    its programs serves as another program's input as it is (the prepared
-    QP feeds the feedback tick without a copy); the solver's own tensors
-    among them (the cost blocks in a QP) are never written."""
+    """A solver's captured ticks, keyed like jit's cache: the tick, the
+    state's shape (`state_key`), and the shape of every argument (None
+    for an optional one not given).  `solver` gives dtype, device and the
+    escalation's process group (`LaneRTISolver.group`; none on a solver
+    without one).  An output of one of its programs serves as another
+    program's input as it is (the lane engine's prepared QP feeds its
+    feedback tick without a copy); the solver's own tensors among them
+    (the cost blocks in a QP) are never written."""
 
     def __init__(self, solver):
         self.dtype, self.device = solver.dtype, solver.device
-        self.group = solver.group
+        self.group = getattr(solver, "group", None)
         self.programs = {}
         self.states = {}
         self._owned = {}
-        self._frozen = {id(t) for t in vars(solver).values()
-                        if isinstance(t, torch.Tensor)}
+        # the tensors stay referenced here, so that no other tensor takes
+        # their memory while their addresses mark the solver's own
+        self._frozen_tensors = [t for t in _held(solver) if t.numel()]
+        self._frozen = {_storage(t) for t in self._frozen_tensors}
 
     def _own(self, tree):
         if isinstance(tree, torch.Tensor):
@@ -302,19 +358,19 @@ class TickGraphs:
                                 and a.shape == static.shape
                                 and a.dtype == static.dtype)):
             return
-        if id(static) in self._frozen:
+        if static.numel() and _storage(static) in self._frozen:
             raise ValueError("a captured tick reads this solver's own "
                              "cost blocks: pass a QP from its prepare_fn")
         static.copy_(a if isinstance(a, torch.Tensor)
                      else torch.as_tensor(np.asarray(a)))
 
     def state(self, state):
-        """The static state of `state`'s batch width, holding `state`."""
-        L = state.xbar.shape[-1]
-        st = self.states.get(L)
+        """The static state of `state`'s shape, holding `state`."""
+        key = state_key(state)
+        st = self.states.get(key)
         if st is None:
             st = type(state)(*(self._static(t) for t in state))
-            self.states[L] = st
+            self.states[key] = st
             self._own(st)
         else:
             self._bind(st, state)
@@ -327,7 +383,7 @@ class TickGraphs:
         and `state` is only read).  Returns (the static state, the outputs)
         with `donate`, else the outputs; and the program."""
         st = self.state(state)
-        key = (name, st.xbar.shape[-1], tuple(_shape(a) for a in args))
+        key = (name, state_key(st), tuple(_shape(a) for a in args))
         program = self.programs.get(key)
         if program is None:
             statics = tuple(self._static(a) for a in args)

@@ -18,8 +18,17 @@ the goldens (`parity/goldens.py`) and of the server's "vmap" engine.
 
 The solver is bound to one device and dtype.  On a CUDA device the
 linearization runs K2 (`ops/linearize.py`) and each IPM iteration K1
-(`ops/riccati.py`); on the CPU their plain versions.  The tick runs op by
-op (it is not captured as a CUDA graph).
+(`ops/riccati.py`); on the CPU their plain versions.  On a CUDA device
+`step_fn` (and `step`), `prepare_fn` and `feedback_fn` each replay one
+captured CUDA graph (`solver/capture.py`, the counterpart of `jax.jit`
+over them): captured at the first call per entry, batch shape and
+argument shapes, one unconditional segment (a fixed number of IPM
+iterations, no escalation, no host read).  What they return belongs to
+the caller, as jit's fresh arrays do: the program's outputs are copied
+out after the launch, and the caller's state is copied in before it, so
+two states may take turns through one solver.  `capture=False` runs the
+tick op by op on the card, for comparisons; on the CPU it always runs op
+by op.
 """
 
 from typing import NamedTuple
@@ -30,6 +39,7 @@ from mpc_collisionavoidance_tpu_torch.ocp.spec import OCPSpec
 from mpc_collisionavoidance_tpu_torch.ops import linearize
 from mpc_collisionavoidance_tpu_torch.ops.dense_qp import dense_qp_solve
 from mpc_collisionavoidance_tpu_torch.ops.ipm import ipm_solve
+from mpc_collisionavoidance_tpu_torch.solver.capture import TickGraphs, fresh
 
 
 class SolverState(NamedTuple):
@@ -60,13 +70,17 @@ class RTISolver:
 
     def __init__(self, spec: OCPSpec, ipm_iters: int = 18,
                  ipm_tol: float = 1e-7, qp_backend: str = "riccati",
-                 centering: str = "fixed", mu0=1.0, *, device, dtype):
+                 centering: str = "fixed", mu0=1.0, *, device, dtype,
+                 capture: bool = True):
         """`qp_backend`: "riccati" (the stage-wise IPM, one Riccati solve
         per iteration: the HPIPM role) or "dense" (full condensing and a
         dense IPM: the qpOASES role).  `centering`: "fixed" or "mehrotra"
         (predictor-corrector, two Riccati solves per iteration; riccati
         backend only).  `mu0`: initial barrier weight, a float or "auto"
-        (gradient-scaled per instance)."""
+        (gradient-scaled per instance).  `capture`: on a CUDA device, run
+        each entry as a captured graph (the main path); False runs it op
+        by op (ignored on the CPU, which has no graphs).  A CUDA `device`
+        on a host without one raises ValueError."""
         if qp_backend not in ("riccati", "dense"):
             raise ValueError(f"unknown qp_backend {qp_backend!r}; "
                              "expected 'riccati' or 'dense'")
@@ -83,9 +97,15 @@ class RTISolver:
         self.centering = centering
         self.mu0 = mu0
         self.device = torch.device(device)
+        if self.device.type == "cuda" and not torch.cuda.is_available():
+            raise ValueError(f"device {str(device)!r}: no CUDA device on "
+                             "this host (torch.cuda.is_available() is "
+                             "False)")
         self.dtype = dtype
         self._build_qp = linearize.QPBuilder(spec, self.layout,
                                              device=self.device, dtype=dtype)
+        self._graphs = (TickGraphs(self) if capture
+                        and self.device.type == "cuda" else None)
 
     def _tensor(self, a):
         return torch.as_tensor(a, dtype=self.dtype, device=self.device)
@@ -127,16 +147,30 @@ class RTISolver:
                            status=sol.status)
         return SolverState(xbar=xbar, ubar=ubar), out
 
+    def _run(self, name, tick, state, args):
+        """`tick(state, *args) -> (None, result)`: its captured program's
+        replay with the result copied out on a CUDA device (unless
+        `capture=False`), else the tick itself."""
+        if self._graphs is None:
+            return tick(state, *args)[1]
+        result, _ = self._graphs.run(name, tick, state, args, donate=False)
+        return fresh(result)
+
     # ---- single RTI step ----
     def step_fn(self, state: SolverState, x0, params, lh=None,
                 yref=None, yref_e=None):
         """One RTI tick: linearize at the warm start, solve the QP pinned
         at x0, take the full step.  Returns (new state, SolverOutput)."""
+        return self._run("step", self._step, state,
+                         (x0, params, lh, yref, yref_e))
+
+    def _step(self, state, x0, params, lh, yref, yref_e, escalation=None):
         qp = self._qp(state, self._tensor(x0), params, lh, yref, yref_e)
-        return self._advance(state, self._qp_solve(qp))
+        return None, self._advance(state, self._qp_solve(qp))
 
     def step(self, state, x0, params, lh=None, yref=None, yref_e=None):
-        """`step_fn` (the tick runs op by op)."""
+        """`step_fn` (the JAX package's jitted wrapper; `step_fn` is
+        captured already)."""
         return self.step_fn(state, x0, params, lh, yref, yref_e)
 
     # ---- RTI preparation/feedback split ----
@@ -148,21 +182,29 @@ class RTISolver:
                    yref=None, yref_e=None):
         """Preparation phase: Gauss-Newton linearization at the warm-start
         iterate, pinned at the predicted state (dx0 = 0)."""
-        return self._qp(state, state.xbar[..., 0, :], params, lh, yref,
-                        yref_e)
+        return self._run("prepare", self._prepare, state,
+                         (params, lh, yref, yref_e))
+
+    def _prepare(self, state, params, lh, yref, yref_e, escalation=None):
+        return None, self._qp(state, state.xbar[..., 0, :], params, lh,
+                              yref, yref_e)
 
     def feedback_fn(self, state: SolverState, qp, x0):
         """Feedback phase: re-pin the prepared QP at the fresh measurement
         and solve.  `qp` comes from `prepare_fn` on the same state."""
+        return self._run("feedback", self._feedback, state, (qp, x0))
+
+    def _feedback(self, state, qp, x0, escalation=None):
         qp = qp._replace(dx0=self._tensor(x0) - state.xbar[..., 0, :])
-        return self._advance(state, self._qp_solve(qp))
+        return None, self._advance(state, self._qp_solve(qp))
 
     # ---- converged SQP (oracle / non-realtime mode) ----
     def solve_converged(self, state: SolverState, x0, params, lh=None,
                         yref=None, yref_e=None, sqp_iters: int = 30,
                         step_alpha: float = 1.0):
-        """Run `sqp_iters` SQP iterations (re-linearizing each time);
-        returns the last state and the last iteration's output.
+        """Run `sqp_iters` SQP iterations (re-linearizing each time; on a
+        CUDA device each a replay of the captured `step_fn`); returns the
+        last state and the last iteration's output.
 
         `step_alpha`: primal step damping.  Full-step SQP can enter a
         period-2 limit cycle on long-horizon nonconvex problems from a cold

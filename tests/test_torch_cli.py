@@ -121,13 +121,19 @@ def _options(main, sub):
     return set(re.findall(r"(?<![\w-])(--?[A-Za-z][\w-]*)", buf.getvalue()))
 
 
+# the port's own flags: the per-instance and lane ticks op by op instead
+# of captured (JAX's jitted CLI has no such switch)
+PORT_FLAGS = {"run": {"--eager"}, "race": {"--eager"}}
+
+
 @pytest.mark.parametrize("sub", ["run", "race", "mission", "models"])
 def test_flags_match_jax(sub):
-    """Each subcommand takes JAX's flags, `--platform` as `--device`
-    (JAX's `bench` runs its jax bench.py and is not ported)."""
+    """Each subcommand takes JAX's flags, `--platform` as `--device`, and
+    the port's `PORT_FLAGS` (JAX's `bench` runs its jax bench.py and is
+    not ported)."""
     want = {"--device" if o == "--platform" else o
             for o in _options(jcli.main, sub)}
-    assert _options(cli.main, sub) == want
+    assert _options(cli.main, sub) == want | PORT_FLAGS.get(sub, set())
 
 
 @pytest.mark.slow

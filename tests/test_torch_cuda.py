@@ -824,9 +824,10 @@ def test_instance_lqr_without_a_k1_instance_raises(card):
 
 @pytest.mark.parametrize("qp_backend", ["riccati", "dense"])
 def test_instance_ticks_on_card_match_cpu(card, qp_backend):
-    """Three float64 ticks of `RTISolver.step_fn` at B=4 on the card (K2
-    per tick, K1 per IPM iteration on the Riccati backend) against the
-    CPU plain path, atol 1e-10, identical status."""
+    """Three float64 ticks of `RTISolver.step_fn` at B=4 on the card, the
+    captured tick (K2 per tick, K1 per IPM iteration on the Riccati
+    backend; the first call also runs the capture's eager warm-up)
+    against the CPU plain path, atol 1e-10, identical status."""
     from mpc_collisionavoidance_tpu_torch.solver.sqp_rti import RTISolver
     sc = scenarios.guidance_ca1_default()
     spec = builders.usv_guidance_ca1(Tf=2.0, N=25)
@@ -845,15 +846,172 @@ def test_instance_ticks_on_card_match_cpu(card, qp_backend):
             x = out.x1
         outs.append(ticks)
         if device == card:
-            assert linearize.launches - n0[1] == 3
+            assert linearize.launches - n0[1] == 4
             assert riccati.launches - n0[0] == (
-                3 * 18 if qp_backend == "riccati" else 0)
+                4 * 18 if qp_backend == "riccati" else 0)
     for got, want in zip(*outs):
         for field in ("u0", "x1", "xtraj", "qp_gap"):
             torch.testing.assert_close(getattr(got, field).cpu(),
                                        getattr(want, field), rtol=0,
                                        atol=1e-10)
         assert torch.equal(got.status.cpu(), want.status)
+
+
+# ---------------------------------------------------------------------------
+# the per-instance engine's captured tick
+
+INSTANCE_RUNS = {
+    # label: (RTISolver keywords, K1 launches per replay)
+    "riccati": ({}, 18),
+    "mehrotra": ({"centering": "mehrotra"}, 36),
+    "dense": ({"qp_backend": "dense"}, 0),
+}
+
+
+def _instance(card, dtype, batch=(4,), capture_=True, N=25, **kw):
+    """The flagship (N=25) on the card and its warm start, x0 (ye spread),
+    params and lh on the card."""
+    from mpc_collisionavoidance_tpu_torch.solver.sqp_rti import RTISolver
+    sc = scenarios.guidance_ca1_default()
+    spec = builders.usv_guidance_ca1(Tf=N * 0.05, N=N)
+    x0s = np.broadcast_to(sc.x0, batch + (8,)).copy()
+    x0s[..., 2] += np.linspace(-0.5, 0.5, int(np.prod(batch))).reshape(
+        batch)
+    solver = RTISolver(spec, **kw, device=card, dtype=dtype,
+                       capture=capture_)
+
+    def t(a):
+        return torch.tensor(np.asarray(a), dtype=dtype, device=card)
+
+    return solver, solver.init_state(x0s), t(x0s), t(sc.params), t(sc.lh)
+
+
+def _assert_instance_bitwise(got, want):
+    for g, w in zip(_leaves(got), _leaves(want)):
+        assert g.shape == w.shape and torch.equal(_bits(g), _bits(w))
+
+
+def _leaves(tree):
+    if tree is None:
+        return []
+    if isinstance(tree, torch.Tensor):
+        return [tree]
+    return [t for v in tree for t in _leaves(v)]
+
+
+@pytest.mark.parametrize("batch", [(), (4,)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("run", sorted(INSTANCE_RUNS))
+def test_instance_captured_equals_eager(card, run, dtype, batch):
+    """The per-instance tick captured (the capturing call, then a replay
+    with no sync and one graph launch) equals the eager tick
+    (`capture=False`) bitwise, state and output, on the Riccati (fixed
+    and Mehrotra) and dense backends; prepare_fn + feedback_fn likewise.
+    Each replay counts K2 once and K1 once per Riccati solve."""
+    kw, k1 = INSTANCE_RUNS[run]
+    eager, st, x, p, lh = _instance(card, dtype, batch, False, **kw)
+    solver = _instance(card, dtype, batch, **kw)[0]
+    want = eager.step_fn(st, x, p, lh)
+    _assert_instance_bitwise(solver.step_fn(st, x, p, lh), want)
+    before = _counts()
+    got, graphs = _no_sync(lambda: solver.step_fn(st, x, p, lh))
+    assert graphs == 1
+    assert tuple(a - b for a, b in zip(_counts(), before)) == (k1, 1, 0)
+    _assert_instance_bitwise(got, want)
+    want = eager.feedback_fn(st, eager.prepare_fn(st, p, lh), x)
+    solver.feedback_fn(st, solver.prepare_fn(st, p, lh), x)   # captures
+    qp, n_prep = _no_sync(lambda: solver.prepare_fn(st, p, lh))
+    got, n_feed = _no_sync(lambda: solver.feedback_fn(st, qp, x))
+    assert (n_prep, n_feed) == (1, 1)
+    _assert_instance_bitwise(got, want)
+    programs = solver._graphs.programs
+    assert sorted(k[0] for k in programs) == ["feedback", "prepare", "step"]
+    assert all(p.conditional == 0 for p in programs.values())
+
+
+def _shifted(st, shift):
+    """`st` with every stage state shifted by `shift` (another vehicle)."""
+    return type(st)(st.xbar + shift, st.ubar.clone())
+
+
+def test_instance_two_states_in_turn_match_two_solvers(card):
+    """Two states taking ticks in turn through one captured solver (one
+    static state between them) give two eager solvers' results bitwise,
+    on full ticks and on the RTI split."""
+    solver, st, x, p, lh = _instance(card, torch.float32, ())
+    eager = [_instance(card, torch.float32, (), False)[0] for _ in range(2)]
+    sts = [[st, _shifted(st, 0.3)], [st, _shifted(st, 0.3)]]
+    xs = [[x, x + 0.3], [x, x + 0.3]]
+    logs = [[], []]
+    for k in range(4):
+        for i in range(2):
+            for run, s in ((0, solver), (1, eager[i])):
+                if k % 2:
+                    qp = s.prepare_fn(sts[run][i], p, lh)
+                    sts[run][i], out = s.feedback_fn(sts[run][i], qp,
+                                                     xs[run][i])
+                else:
+                    sts[run][i], out = s.step_fn(sts[run][i], xs[run][i], p,
+                                                 lh)
+                xs[run][i] = out.x1
+                logs[run] += _leaves(out)
+    assert len(solver._graphs.states) == 1
+    _assert_instance_bitwise(logs[0], logs[1])
+
+
+def test_instance_outputs_are_the_callers(card):
+    """What a captured entry returns is the caller's: it shares no
+    storage with the solver's tensors or its programs', and the state and
+    output kept from tick k are unchanged after tick k+1."""
+    solver, st, x, p, lh = _instance(card, torch.float64)
+    st1, out1 = solver.step_fn(st, x, p, lh)
+    kept = [t.clone() for t in _leaves((st1, out1))]
+    qp = solver.prepare_fn(st1, p, lh)
+    st2, out2 = solver.feedback_fn(st1, qp, out1.x1)
+    st3, out3 = solver.step_fn(st2, out2.x1, p, lh)
+    assert all(torch.equal(a, b) for a, b in zip(_leaves((st1, out1)),
+                                                 kept))
+    graphs = solver._graphs
+    held = list(capture._held(solver))
+    for program in graphs.programs.values():
+        held += _leaves(program.inputs) + _leaves(program.outputs)
+    for state in graphs.states.values():
+        held += _leaves(state)
+    own = {t.untyped_storage().data_ptr() for t in held if t.numel()}
+    returned = _leaves((st1, out1, qp, st2, out2, st3, out3))
+    assert not any(t.untyped_storage().data_ptr() in own for t in returned
+                   if t.numel())
+
+
+def test_instance_capture_that_syncs_raises(card, monkeypatch):
+    """A per-instance tick that reads the device on the host cannot be
+    captured: the capture raises, no program is kept, nothing launches
+    and nothing runs eagerly in its place."""
+    solver, st, x, p, lh = _instance(card, torch.float32)
+    real = solver._advance
+
+    def syncing(state, sol):
+        float(sol.gap.max())
+        return real(state, sol)
+
+    monkeypatch.setattr(solver, "_advance", syncing)
+    n0 = capture.launches
+    with pytest.raises(RuntimeError):
+        solver.step_fn(st, x, p, lh)
+    assert capture.launches == n0 and not solver._graphs.programs
+
+
+@pytest.mark.parametrize("run", sorted(INSTANCE_RUNS))
+def test_instance_program_counts_its_launches(card, run):
+    """A per-instance program is one unconditional segment whose replay
+    counts K1 `ipm_iters` times (twice that under Mehrotra; none on the
+    dense backend) and K2 once, with no escalation steps to settle."""
+    kw, k1 = INSTANCE_RUNS[run]
+    solver, st, x, p, lh = _instance(card, torch.float32, **kw)
+    solver.step_fn(st, x, p, lh)
+    (program,) = solver._graphs.programs.values()
+    assert program.fixed == (k1, 1, 0) and program.per_step == (0, 0, 0)
+    assert program.conditional == 0 and program.nodes > 0
 
 
 def test_vmap_server_on_card_serves(card, tmp_path):

@@ -437,15 +437,42 @@ def _fleet_loop(address, n_vehicles, ticks):
     return out
 
 
-@pytest.mark.parametrize("fleet,rti_split", [(1, False), (1, True),
-                                              (3, False)])
-def test_vmap_server_matches_jax_vmap_server(tmp_path, fleet, rti_split):
+def _turns_loop(address, n_vehicles, ticks):
+    """`ticks` closed-loop v1 ticks of each of `n_vehicles` vehicles on
+    their own connections, taken in turn: each request waits for the
+    previous vehicle's reply, so each is alone in its window (the solo
+    path).  Replies per vehicle."""
+    yes = np.linspace(-4.0, 2.0, n_vehicles)
+    xs = [(0.7, 0.0, float(ye), -AK, -AK, 0.0, 0.0, 0.0) for ye in yes]
+    out = [[] for _ in xs]
+    with contextlib.ExitStack() as stack:
+        socks = [stack.enter_context(contextlib.closing(_connect(address)))
+                 for _ in xs]
+        for k in range(ticks):
+            for i, s in enumerate(socks):
+                s.sendall(protocol.pack_request(protocol.Request(
+                    seq=k, x0=tuple(xs[i]), p_obs=SENTINEL_P, r_obs=NO_R)))
+                out[i].append(protocol.unpack_response(
+                    _read(s, protocol.RESP_SIZE)))
+                xs[i] = out[i][-1].x1
+    return out
+
+
+@pytest.mark.parametrize("fleet,rti_split,in_turn",
+                         [(1, False, False), (1, True, False),
+                          (3, False, False), (2, True, True)],
+                         ids=["1-False", "1-True", "3-False",
+                              "2-True-in-turn"])
+def test_vmap_server_matches_jax_vmap_server(tmp_path, fleet, rti_split,
+                                             in_turn):
     """The per-instance ("vmap") engine over the wire: one vehicle (the
-    solo path; under rti_split its feedback ticks) or a fleet of 3 in
-    lockstep (one batched tick per window, padded to a bucket of 4),
-    5 closed-loop ticks through the JAX package's vmap server and the
-    port's, identical arguments, both float32: identical statuses, u0/x1
-    within the lane servers' 1e-6 (measured within 9e-8)."""
+    solo path; under rti_split its feedback ticks), a fleet of 3 in
+    lockstep (one batched tick per window, padded to a bucket of 4), or
+    two vehicles taking solo ticks in turn under rti_split (each its own
+    prepared QP and state through the one solver), 5 closed-loop ticks
+    each through the JAX package's vmap server and the port's, identical
+    arguments, both float32: identical statuses, u0/x1 within the lane
+    servers' 1e-6 (measured within 9e-8)."""
     from mpc_collisionavoidance_tpu.rt.server import RTServer as JaxServer
     kw = dict(N=20, Tf=1.0, ipm_iters=6, max_batch=4, engine="vmap",
               batch_window_ms=200.0, rti_split=rti_split)
@@ -454,9 +481,11 @@ def test_vmap_server_matches_jax_vmap_server(tmp_path, fleet, rti_split):
                    RTServer(str(tmp_path / "t.sock"), device="cpu", **kw)):
         with _Serving(server) as srv:
             n0 = len(server.solve_ms)
-            replies.append(_fleet_loop(srv.address, fleet, 5))
+            replies.append((_turns_loop if in_turn else _fleet_loop)(
+                srv.address, fleet, 5))
             ticks.append(len(server.solve_ms) - n0)
-    assert ticks == [5, 5]          # one device tick per lockstep tick
+    # one device tick per lockstep tick, or per request in turn
+    assert ticks == [5 * fleet if in_turn else 5] * 2
     for ours, ref in zip(*reversed(replies)):
         assert all(r.status in (0, 1) for r in ours)
         _assert_replies_close(ours, ref, atol=1e-6)
