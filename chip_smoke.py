@@ -54,7 +54,7 @@ thirteen models.  Phases:
    `fused_ipm_lanes_plain` on the card, on QPs from the solver's own
    `_build_qp` at each OCP's default scenario (perturbed) and its
    builder's N: every structure (`K3_STRUCTURES`; usv_position_control's
-   QP too) at L = 130 (the ragged block) and 512 in float64 and at 512 in
+   QP too) at L = 130 (the ragged block) in float64 and at 512 in
    float32 (`K3_COMPARED`); float64 dx/du atol 1e-9, gap rtol 1e-9,
    identical status; float32 du atol 5e-3 (the float32 gap-floor ball)
    and status-0 shares within 0.02; one NaN lane -> status 2 in both, the
@@ -274,6 +274,33 @@ thirteen models.  Phases:
     the 512, identical status, the same escalation count on both ranks,
     and `fleet_metrics` equal on both and to one process's.  NCCL across
     GPUs and scaling are not measured: the host has one GPU.
+21. the native nodes (`rt_client/`, unchanged, `native_nodes`): (a) g++
+    builds `guidance_node_demo`, `cascade_demo` and
+    `libnmpc_low_level_node.so` into build/rt_client/ (no cmake); (b) the
+    two-leg avoidance mission, `guidance_node_demo <addr> 2500`, against
+    an in-process captured flagship server (N=100, Tf=5, 14 fixed IPM
+    iterations, 128 lanes) over a Unix socket, and (c) over TCP loopback
+    (a free port): exit 0, `switched 1`, `done 1`, exactly K1 14 and K2 1
+    per served tick (counted on the solve thread), ticks, wall s, ms per
+    tick, the node's worst latency and the server's solve_ms p50/p99
+    printed; (d) the native cascade, `cascade_demo g.sock ll.sock 1400`,
+    against two captured servers on the one card in this process
+    (guidance N=40, Tf=3, 14 iterations; `usv_low_level` N=40, Tf=1, 12):
+    exit 0, `progressed 1`, `thrust_violations 0`, K1 and K2 per served
+    tick per server, both servers' solve_ms p50/p99, ms per guidance tick
+    beside its 50 ms period; (e) the live thrust loop: `ll_tick` (v2
+    frames) over the JAX test's 40-tick script through a captured
+    `usv_low_level` server (N=30, Tf=1, 8 iterations, K1 8 and K2 1 per
+    served tick), each tick's thrusts within 1e-3 of the port's
+    `LowLevelController` (cuda, float32) ticked from the server's warm
+    start before that tick; (f) the NaN quarantine on the captured
+    flagship tick at B=512 with lane 3's x0 NaN, float64 and float32:
+    status 2 on that lane alone and every other lane finite, at 15 fixed
+    iterations the healthy lanes bitwise the clean batch's, at the
+    production schedule the float64 card tick within 5e-6 of the CPU
+    plain tick (run in a spawned worker meanwhile) with identical status
+    and the same escalation count.  A line `phase 21 table:` holds its
+    figures.
 
 Each main path is driven with every launch count set to 0 just before and
 read just after (phase 16's goldens, server and timed ticks each so), on
@@ -305,6 +332,7 @@ import itertools
 import json
 import os
 import pathlib
+import re
 import shutil
 import socket
 import struct
@@ -1058,9 +1086,10 @@ def structure_of(qp, idxbu, idxbx):
 
 
 # (L, dtype name) at which K3 is held against its plain version (whose
-# calls, ~0.5-3 s each, are most of phase 4's time), and at which it is
-# timed (tools/k3_compare.py adds float64 at 512)
-K3_COMPARED = ((130, "float64"), (B, "float64"), (B, "float32"))
+# calls, ~0.5-3 s each, are most of phase 4's time: float64 at the ragged
+# 130 only, since each lane is its own block and 512 would repeat it), and
+# at which it is timed (tools/k3_compare.py adds float64 at 512)
+K3_COMPARED = ((130, "float64"), (B, "float32"))
 K3_TIMED = ((1, "float32"), (128, "float32"), (B, "float32"))
 K3_ITERS = 12
 # K3's structures, each named by the first model that runs it, with the
@@ -1327,14 +1356,15 @@ def mission(ticks=1000):
 # ---- phase 11: the real-time server ----
 
 @contextlib.contextmanager
-def _serving(**kw):
-    """The port's RTServer on a Unix socket, warmed up, its event loop on
-    a background thread; stopped (solve thread included) on exit."""
+def _serving(address=None, **kw):
+    """The port's RTServer on a Unix socket (or on the TCP `address`,
+    `host:port`), warmed up, its event loop on a background thread;
+    stopped (solve thread included) on exit."""
     import asyncio
 
     from mpc_collisionavoidance_tpu_torch.rt.server import RTServer
     tmp = tempfile.mkdtemp(prefix="nmpc_rt")
-    server = RTServer(os.path.join(tmp, "rt.sock"), device=DEVICE,
+    server = RTServer(address or os.path.join(tmp, "rt.sock"), device=DEVICE,
                       max_batch=SERVER_LANES, batch_window_ms=2.0, **kw)
     server.warmup()
     loop = asyncio.new_event_loop()
@@ -1379,6 +1409,14 @@ def _served(label, drive, expect, **kw):
         result = drive(server)
         server._executor.submit(int).result()   # a preparation in flight
         counts = _read_counts()
+    _gate_calls(label, calls, expect)
+    print(f"  {label}: launches {counts}")
+    return counts, result
+
+
+def _gate_calls(label, calls, expect):
+    """Gate a server's recorded device phase calls (`_count_phases`) with
+    `expect[phase]`; a phase not in `expect` must not have run."""
     for phase, got in calls.items():
         want = expect.get(phase)
         if got:
@@ -1389,8 +1427,6 @@ def _served(label, drive, expect, **kw):
         if (want is None) != (not got) or not all(map(want or bool, got)):
             raise AssertionError(f"{label}: {phase} launch counts per call "
                                  f"{got[:4]} (of {len(got)})")
-    print(f"  {label}: launches {counts}")
-    return counts, result
 
 
 def _connect(path):
@@ -3891,6 +3927,414 @@ def mesh_phase(card):
     return counts
 
 
+# ---- phase 21: the native nodes ----
+
+NATIVE_TICKS = 2500          # guidance_node_demo's default
+CASCADE_GTICKS = 1400        # cascade_demo's default
+# the two-leg mission's server (tests/test_guidance_node_cpp.py:242-270)
+NATIVE_MISSION = dict(model=FLAGSHIP, N=100, Tf=5.0, ipm_iters=14)
+# the native cascade's two servers (tests/test_low_level_node_cpp.py:203-206)
+CASCADE_GUIDANCE = dict(model=FLAGSHIP, N=40, Tf=3.0, ipm_iters=14)
+CASCADE_LOW_LEVEL = dict(model=LOW_LEVEL, N=40, Tf=1.0, ipm_iters=12)
+# the live thrust loop (tests/test_low_level_node_cpp.py:137-190)
+THRUST_LOOP = dict(model=LOW_LEVEL, N=30, Tf=1.0, ipm_iters=8)
+THRUST_TICKS, THRUST_GUARD = 40, 20
+QUARANTINE_LANE = 3
+QUARANTINE_FIXED_ITERS = 15
+
+
+def _native_sources(*names):
+    src = REPO / "rt_client"
+    return [str(src / n) for n in names]
+
+
+def build_native_nodes():
+    """21a: the unchanged C++ nodes, built with g++ into build/rt_client/
+    (no cmake: the card's host may lack it), the three in parallel:
+    `guidance_node_demo`, `cascade_demo` and `libnmpc_low_level_node.so`
+    (the low-level node and the client in one library, for ctypes)."""
+    gxx = shutil.which("g++")
+    if gxx is None:
+        raise AssertionError("g++ not found: the native nodes cannot be "
+                             "built")
+    out = REPO / "build" / "rt_client"
+    out.mkdir(parents=True, exist_ok=True)
+    base = [gxx, "-std=c++17", "-O2", f"-I{REPO / 'rt_client'}"]
+    client, guidance, low = ("nmpc_rt_client.cpp", "nmpc_guidance_node.cpp",
+                             "nmpc_low_level_node.cpp")
+    targets = {
+        "guidance_node_demo": base + _native_sources(
+            "guidance_node_demo.cpp", guidance, client) + ["-lm"],
+        "cascade_demo": base + _native_sources(
+            "cascade_demo.cpp", guidance, low, client) + ["-lm"],
+        "libnmpc_low_level_node.so": base + ["-fPIC", "-shared"]
+        + _native_sources(low, client) + ["-lm"],
+    }
+    procs = {name: subprocess.Popen(argv + ["-o", str(out / name)],
+                                    stdout=subprocess.PIPE,
+                                    stderr=subprocess.STDOUT, text=True)
+             for name, argv in targets.items()}
+    for name, proc in procs.items():
+        log = proc.communicate(timeout=300)[0]
+        if proc.returncode != 0:
+            raise AssertionError(f"g++ {name} failed: {log[-2000:]}")
+    return {name: out / name for name in targets}
+
+
+def _tail_fields(line):
+    """The `key value` pairs of a demo's last line ("bad_status 3/700"
+    keeps its text)."""
+    return {k: (float(v) if re.fullmatch(r"-?[\d.]+", v) else v)
+            for k, v in re.findall(r"([a-z_]+) (-?[\d./]+)", line)}
+
+
+def _run_native(argv, what, timeout=600):
+    """Run a native demo to its end: (its last line's fields, wall s);
+    a non-zero exit fails the phase."""
+    t0 = time.perf_counter()
+    proc = subprocess.run([str(a) for a in argv], capture_output=True,
+                          text=True, timeout=timeout)
+    wall = time.perf_counter() - t0
+    last = (proc.stdout.strip().splitlines() or ["(no output)"])[-1]
+    print(f"  {what}: exit {proc.returncode} in {wall:.2f} s: {last}")
+    if proc.returncode != 0:
+        raise AssertionError(f"{what} failed: {proc.stdout[-2000:]}"
+                             f"{proc.stderr[-2000:]}")
+    return _tail_fields(last), wall
+
+
+def _exact(k1, k2):
+    """A served tick's launch counts: exactly `k1` K1 and `k2` K2."""
+    return lambda c: c == {"riccati_lanes": k1, "linearize_lanes": k2,
+                           "fused_ipm_lanes": 0}
+
+
+def _solve_pcts(server, n):
+    return _pcts(list(server.solve_ms)[-n:])
+
+
+def native_mission(card, demo, transport):
+    """21b/21c: `guidance_node_demo <addr> 2500` against an in-process
+    captured flagship server (N=100, Tf=5, 14 IPM iterations, the lane
+    engine) over a Unix socket or TCP loopback (a free port): exit 0, the
+    segment switch and the final capture; K1 14 and K2 1 per served
+    tick."""
+    address = "127.0.0.1:0" if transport == "tcp" else None
+
+    def drive(server):
+        addr = (f"127.0.0.1:{server.bound_port}" if transport == "tcp"
+                else server.path)
+        tail, wall = _run_native([demo, addr, NATIVE_TICKS],
+                                 f"guidance_node_demo over {transport}")
+        ticks = int(tail["ticks"])
+        if tail.get("switched") != 1 or tail.get("done") != 1:
+            raise AssertionError(f"the native mission over {transport} did "
+                                 f"not switch or finish: {tail}")
+        return dict(ticks=ticks, wall_s=wall, ms_per_tick=wall / ticks * 1e3,
+                    worst_latency_us=tail["worst_latency_us"],
+                    bad_status=tail["bad_status"],
+                    min_center_dist=tail["min_center_dist"],
+                    solve_ms_p50_p99=_solve_pcts(server, ticks))
+
+    counts, row = _served(f"native mission server ({transport})", drive,
+                          {"tick": _exact(14, 1)}, address=address,
+                          **NATIVE_MISSION)
+    print(f"  21{'c' if transport == 'tcp' else 'b'} two-leg mission over "
+          f"{transport}: {row['ticks']} ticks in {row['wall_s']:.2f} s, "
+          f"{row['ms_per_tick']:.3f} ms per tick, worst_latency_us "
+          f"{row['worst_latency_us']:.0f}, server solve_ms p50/p99 "
+          f"{row['solve_ms_p50_p99'][0]:.3f}/{row['solve_ms_p50_p99'][1]:.3f}"
+          f", K1 14 and K2 1 per served tick ({card})")
+    return counts, row
+
+
+def native_cascade(card, demo):
+    """21d: `cascade_demo g.sock ll.sock 1400` against two captured port
+    servers on the one card in this process (guidance N=40, Tf=3, 14
+    iterations; `usv_low_level` N=40, Tf=1, 12 iterations): exit 0,
+    progress past the buoy line, no thrust outside the box; K1 and K2
+    per served tick counted per server."""
+    with _serving(**CASCADE_GUIDANCE) as g, \
+            _serving(**CASCADE_LOW_LEVEL) as ll:
+        calls = {"guidance": _count_phases(g), "low level": _count_phases(ll)}
+        _reset_counts()
+        tail, wall = _run_native([demo, g.path, ll.path, CASCADE_GTICKS],
+                                 "cascade_demo")
+        counts = _read_counts()
+        gticks = int(tail["gticks"])
+        row = dict(gticks=gticks, wall_s=wall,
+                   ms_per_guidance_tick=wall / gticks * 1e3,
+                   bad_status=tail["bad_status"],
+                   min_center_dist=tail["min_center_dist"],
+                   guidance_solve_ms_p50_p99=_solve_pcts(g, gticks),
+                   low_level_solve_ms_p50_p99=_solve_pcts(ll, 5 * gticks))
+    if tail.get("progressed") != 1 or tail.get("thrust_violations") != 0:
+        raise AssertionError(f"the native cascade failed its gates: {tail}")
+    _gate_calls("cascade guidance server", calls["guidance"],
+                {"tick": _exact(14, 1)})
+    _gate_calls("cascade low-level server", calls["low level"],
+                {"tick": _exact(12, 1)})
+    per = {name: {k: sum(c[k] for c in got["tick"]) for k in counts}
+           for name, got in calls.items()}
+    if {k: per["guidance"][k] + per["low level"][k] for k in counts} \
+            != counts:
+        raise AssertionError(f"21d: the servers' ticks {per} do not add up "
+                             f"to the run's launches {counts}")
+    gp, lp = (row["guidance_solve_ms_p50_p99"],
+              row["low_level_solve_ms_p50_p99"])
+    print(f"  21d native cascade, two servers on one card: {gticks} guidance "
+          f"ticks and {5 * gticks} low-level requests in {wall:.2f} s, "
+          f"{row['ms_per_guidance_tick']:.3f} ms per guidance tick (its 1 "
+          f"guidance and 5 low-level solves, beside the 50 ms period); "
+          f"solve_ms p50/p99 guidance {gp[0]:.3f}/{gp[1]:.3f}, low level "
+          f"{lp[0]:.3f}/{lp[1]:.3f} (beside 10 ms); launches guidance "
+          f"{per['guidance']}, low level {per['low level']} ({card})")
+    return {(FLAGSHIP, "21d cascade guidance"): per["guidance"],
+            (LOW_LEVEL, "21d cascade low level"): per["low level"]}, row
+
+
+class _LlMeas(ctypes.Structure):
+    _fields_ = [("psi", ctypes.c_float), ("u", ctypes.c_float),
+                ("v", ctypes.c_float), ("r", ctypes.c_float)]
+
+
+class _LlCmds(ctypes.Structure):
+    _fields_ = [("t_port", ctypes.c_float), ("t_stbd", ctypes.c_float),
+                ("e_u", ctypes.c_float), ("e_psi", ctypes.c_float),
+                ("tx", ctypes.c_float), ("tz", ctypes.c_float),
+                ("solver_status", ctypes.c_uint32)]
+
+
+class _LlNode(ctypes.Structure):
+    _fields_ = [("past_t_port", ctypes.c_float),
+                ("past_t_stbd", ctypes.c_float),
+                ("have_cmd", ctypes.c_int), ("last", _LlCmds)]
+
+
+def _low_level_library(path):
+    """ctypes bindings of the low-level node (`nmpc_low_level_node.h`)
+    and the client's connect/close."""
+    lib = ctypes.CDLL(str(path))
+    lib.ll_init.argtypes = [ctypes.POINTER(_LlNode)]
+    lib.ll_tick.restype = ctypes.c_int
+    lib.ll_tick.argtypes = [ctypes.POINTER(_LlNode), ctypes.c_void_p,
+                            ctypes.c_uint32, ctypes.POINTER(_LlMeas),
+                            ctypes.c_float, ctypes.c_float,
+                            ctypes.POINTER(_LlCmds)]
+    lib.nmpc_rt_connect.restype = ctypes.c_void_p
+    lib.nmpc_rt_connect.argtypes = [ctypes.c_char_p, ctypes.c_int]
+    lib.nmpc_rt_close.argtypes = [ctypes.c_void_p]
+    return lib
+
+
+def thrust_script():
+    """The JAX test's 40-tick script (tests/test_low_level_node_cpp.py:
+    144-161): raw u (0 at tick 20), the guarded measurements (psi, u, v,
+    r), psi_d and u_d, float32."""
+    T = THRUST_TICKS
+    raw_u = [0.0 if t == THRUST_GUARD else 0.4 + 0.2 * np.sin(t / 5)
+             for t in range(T)]
+    meas = np.array([[0.3 * np.sin(t / 7),
+                      0.001 if raw_u[t] == 0.0 else raw_u[t],
+                      0.05 * np.cos(t / 9), 0.1 * np.sin(t / 4)]
+                     for t in range(T)], np.float32)
+    psi_ds = 0.4 * np.cos(np.arange(T) / 10).astype(np.float32)
+    u_ds = (0.8 + 0.1 * np.sin(np.arange(T) / 6)).astype(np.float32)
+    return np.asarray(raw_u, np.float32), meas, psi_ds, u_ds
+
+
+def thrust_loop(card, lib_path):
+    """21e: the live thrust loop on the card: `ll_tick` over the 40-tick
+    script through a captured `usv_low_level` server (N=30, Tf=1, 8
+    iterations), K1 8 and K2 1 per served tick; every tick's thrusts
+    against the port's `LowLevelController` (cuda, float32) ticked from
+    the server's warm start before that tick, the node's carried thrusts
+    and the measurement (all 40 in one batched tick), atol 1e-3."""
+    import torch
+
+    from mpc_collisionavoidance_tpu_torch.guidance.low_level import (
+        LowLevelController, LowLevelMeasurements, LowLevelState)
+    from mpc_collisionavoidance_tpu_torch.ocp import builders
+    from mpc_collisionavoidance_tpu_torch.solver.sqp_rti import SolverState
+    lib = _low_level_library(lib_path)
+    raw_u, meas, psi_ds, u_ds = thrust_script()
+
+    def drive(server):
+        c = lib.nmpc_rt_connect(server.path.encode(), 30000)
+        if not c:
+            raise AssertionError("21e: nmpc_rt_connect failed")
+        node, thrust, carried, warm = _LlNode(), [], [], []
+        lib.ll_init(ctypes.byref(node))
+        try:
+            for t in range(THRUST_TICKS):
+                if t:   # the server is idle between a reply and a request
+                    (lane,) = server._lane_of.values()
+                    st = server._lane_state
+                    warm.append((st.xbar[:, :, lane].T.clone(),
+                                 st.ubar[:, :, lane].T.clone()))
+                carried.append([node.past_t_port, node.past_t_stbd])
+                m = _LlMeas(float(meas[t, 0]), float(raw_u[t]),
+                            float(meas[t, 2]), float(meas[t, 3]))
+                cmd = _LlCmds()
+                rc = lib.ll_tick(ctypes.byref(node), c, t + 1,
+                                 ctypes.byref(m), float(psi_ds[t]),
+                                 float(u_ds[t]), ctypes.byref(cmd))
+                if rc != 0 or cmd.solver_status not in (0, 1):
+                    raise AssertionError(f"21e tick {t}: rc {rc}, status "
+                                         f"{cmd.solver_status}")
+                if raw_u[t] == 0.0 and abs(cmd.e_u - (u_ds[t] - 0.001)) \
+                        >= 1e-6:
+                    raise AssertionError(f"21e: e_u {cmd.e_u} at the guard")
+                thrust.append([cmd.t_port, cmd.t_stbd])
+        finally:
+            lib.nmpc_rt_close(c)
+        return np.asarray(thrust), warm, np.asarray(carried, np.float32)
+
+    counts, (native, warm, carried) = _served(
+        "thrust loop server", drive, {"tick": _exact(8, 1)}, **THRUST_LOOP)
+    spec = builders.usv_low_level(Tf=THRUST_LOOP["Tf"], N=THRUST_LOOP["N"])
+    ctrl = LowLevelController(spec, ipm_iters=THRUST_LOOP["ipm_iters"],
+                              device=DEVICE, dtype=torch.float32)
+    seed = ctrl.init_state(LowLevelMeasurements(*meas[0])).solver
+    state = LowLevelState(
+        SolverState(torch.stack([seed.xbar] + [x for x, _ in warm]),
+                    torch.stack([seed.ubar] + [u for _, u in warm])),
+        *torch.from_numpy(carried).to(DEVICE).T)
+    _, cmds = ctrl.tick(state, LowLevelMeasurements(*meas.T), psi_ds, u_ds)
+    port = torch.stack([cmds.t_port, cmds.t_stbd], -1).cpu().numpy()
+    err = float(np.abs(native - port).max())
+    print(f"  21e live thrust loop, {THRUST_TICKS} ticks through the card's "
+          f"server: max |thrust - LowLevelController| {err:.3e} (atol "
+          f"1e-3), K1 8 and K2 1 per served tick ({card})")
+    if err > 1e-3:
+        raise AssertionError("21e: the native node's thrusts differ from "
+                             "the controller's")
+    return counts, dict(ticks=THRUST_TICKS, max_abs_err=err)
+
+
+def _quarantine_tick(config, dtype, device, poisoned=True):
+    """One flagship tick at B=512 of `config` from the bench's inputs,
+    lane QUARANTINE_LANE's x0 NaN if `poisoned`: the outputs as CPU
+    tensors and the tick's escalation iterations."""
+    solver, st, x, p, lh, refs = _setup(FLAGSHIP, B, dtype, device, config)
+    if poisoned:
+        x = x.clone()
+        x[0, QUARANTINE_LANE] = float("nan")
+    _, out = solver.step_fn(st, x, p, lh, **refs)
+    return (type(out)(*(t.cpu().clone() for t in out)),
+            int(solver.last_esc_iters))
+
+
+def quarantine_cpu_reference():
+    """21f's float64 CPU plain production tick on the poisoned batch, as
+    numpy (run in a worker process while the card runs 21b-21e)."""
+    import torch
+    torch.set_num_threads(1)
+    t0 = time.perf_counter()
+    out, esc = _quarantine_tick(_production(), torch.float64, "cpu")
+    return ([t.numpy() for t in out], esc, time.perf_counter() - t0)
+
+
+def _quarantined(what, out, clean=None):
+    """The poisoned lane reads status 2, no other does, every other lane
+    is finite; with `clean`, the healthy lanes equal it bitwise."""
+    import torch
+    ok = torch.arange(B) != QUARANTINE_LANE
+    status = out.status
+    if status[QUARANTINE_LANE] != 2 or (status[ok] == 2).any():
+        raise AssertionError(f"{what}: status {status[QUARANTINE_LANE]} on "
+                             f"the poisoned lane, {int((status[ok] == 2).sum())}"
+                             " other lanes with status 2")
+    if not all(torch.isfinite(t[..., ok]).all() for t in (out.u0, out.x1,
+                                                           out.gap)):
+        raise AssertionError(f"{what}: a healthy lane is not finite")
+    if clean is not None and not all(
+            torch.equal(a[..., ok], b[..., ok])
+            for a, b in zip((out.u0, out.x1, out.gap),
+                            (clean.u0, clean.x1, clean.gap))):
+        raise AssertionError(f"{what}: a healthy lane differs from the "
+                             "clean batch")
+
+
+def quarantine(card, cpu):
+    """21f: the NaN quarantine on the captured flagship tick at B=512,
+    lane 3's x0 NaN, float64 and float32: at 15 fixed iterations the
+    healthy lanes equal the clean batch's bitwise; at the production
+    schedule status 2 on that lane alone, every other lane finite, and in
+    float64 the card's tick within 5e-6 of the CPU plain one (`cpu`, the
+    future of `quarantine_cpu_reference`), identical status, the same
+    escalation count."""
+    import torch
+
+    from mpc_collisionavoidance_tpu_torch.config import SolverConfig
+    fixed = SolverConfig(ipm_iters=QUARANTINE_FIXED_ITERS)
+    row, poisoned = {}, {}
+    for dtype in (torch.float64, torch.float32):
+        name = str(dtype).split(".")[1]
+        clean, _ = _quarantine_tick(fixed, dtype, DEVICE, poisoned=False)
+        bad, _ = _quarantine_tick(fixed, dtype, DEVICE)
+        _quarantined(f"21f {name} {QUARANTINE_FIXED_ITERS} iterations", bad,
+                     clean)
+        poisoned[name] = out, esc = _quarantine_tick(_production(), dtype,
+                                                     DEVICE)
+        _quarantined(f"21f {name} production", out)
+        _, esc_clean = _quarantine_tick(_production(), dtype, DEVICE,
+                                        poisoned=False)
+        row[name] = dict(escalation=esc, escalation_clean=esc_clean)
+        print(f"  21f {name}: lane {QUARANTINE_LANE} status 2 alone, the "
+              f"other {B - 1} finite; {QUARANTINE_FIXED_ITERS} fixed "
+              f"iterations: healthy lanes bitwise the clean batch's; "
+              f"production escalation {esc} (clean batch {esc_clean})")
+    (u0, x1, gap, status), esc_cpu, cpu_s = cpu.result()
+    want = type(out)(*(torch.from_numpy(a) for a in (u0, x1, gap, status)))
+    out, esc = poisoned["float64"]
+    ok = torch.arange(B) != QUARANTINE_LANE
+    err = max(float((a[..., ok] - b[..., ok]).abs().max())
+              for a, b in ((out.u0, want.u0), (out.x1, want.x1)))
+    same = bool(torch.equal(out.status, want.status))
+    row["float64"].update(card_vs_cpu=err, status_identical=same,
+                          escalation_cpu=esc_cpu)
+    print(f"  21f float64 production, card vs CPU plain ({cpu_s:.1f} s) on "
+          f"the poisoned batch: max |du0|, |dx1| {err:.3e} (atol 5e-6), "
+          f"status identical {same}, escalation {esc} vs {esc_cpu} ({card})")
+    if err > 5e-6 or not same or esc != esc_cpu:
+        raise AssertionError("21f: the card's poisoned production tick "
+                             "differs from the CPU's")
+    return row
+
+
+def native_nodes(card):
+    """Phase 21: the native C++ nodes served by the port (21a-21f).
+    Returns ({(model, label): launch counts} of its main-path runs, its
+    table)."""
+    t0 = time.perf_counter()
+
+    def step_done(label):
+        print(f"  [{time.perf_counter() - t0:.1f} s] 21{label} done")
+
+    with _cpu_worker() as pool:
+        cpu = pool.submit(quarantine_cpu_reference)
+        built = build_native_nodes()
+        step_done("a (g++)")
+        counts, table = {}, {}
+        for label, transport in (("b", "uds"), ("c", "tcp")):
+            c, table[label] = native_mission(
+                card, built["guidance_node_demo"], transport)
+            counts[(FLAGSHIP, f"21{label} native mission")] = c
+            step_done(f"{label} (the mission over {transport})")
+        print(f"  21b/21c ms per tick: UDS {table['b']['ms_per_tick']:.3f}, "
+              f"TCP {table['c']['ms_per_tick']:.3f} ({card})")
+        c, table["d"] = native_cascade(card, built["cascade_demo"])
+        counts.update(c)
+        step_done("d (the cascade)")
+        counts[(LOW_LEVEL, "21e thrust loop")], table["e"] = thrust_loop(
+            card, built["libnmpc_low_level_node.so"])
+        step_done("e (the thrust loop)")
+        table["f"] = quarantine(card, cpu)
+        step_done("f (the quarantine)")
+    return counts, table
+
+
 def _production_counts(c):
     return (c["riccati_lanes"] >= 4 and c["linearize_lanes"] == 1
             and c["fused_ipm_lanes"] == 0)
@@ -3991,6 +4435,10 @@ def main():
     phase_done("phase 19 (the command line)")
     counts.update(mesh_phase(card))
     phase_done("phase 20 (the mesh)")
+    native, table = native_nodes(card)
+    counts.update(native)
+    phase_done("phase 21 (the native nodes)")
+    print("phase 21 table: " + json.dumps(table))
 
     def launched(kernel, models):
         return sum(c[kernel] for (m, _), c in counts.items() if m in models)
