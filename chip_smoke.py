@@ -64,7 +64,9 @@ thirteen models.  Phases:
 5. the flagship production tick at B=512: float64 on the card vs the plain
    path on the CPU from the same inputs (u0/x1 atol 5e-6, identical
    status), then float32 on the card, with the kernels' launch counts for
-   that tick (K1 >= 4, K2 = 1, K3 = 0);
+   that tick (K1 >= 4, K2 = 1, K3 = 0).  The CPU ticks of phases 5-14
+   run in a worker process beside those phases (`tick_cpu_references`)
+   and are held against the card's after phase 14;
 6. a 30-tick warm-started float32 closed loop at B=512 (converged_frac of
    the last tick, gap < 1e-5, must exceed 0.9) and its median tick time;
 7. B=1 latency: p50/p99 over 50 ticks against the 50 ms budget at 20 Hz;
@@ -243,7 +245,7 @@ thirteen models.  Phases:
     `cli.py`) as a user runs it: (a) `models` as a subprocess, exit 0 and
     13 models; (b) `run --model usv_guidance_ca1` at its defaults (1000
     steps, N=100, B=1 on the captured production tick, float32) in a
-    child interpreter (`CLI_CHILD`: `runpy.run_module` as `-m` runs it)
+    child interpreter (`MODULE_CHILD`: `runpy.run_module` as `-m` runs it)
     that writes its launches and `device_memory_stats()` at exit: exit 0,
     finite, K2 >= 1 and K1 >= 4 per tick; `compile_plus_run_s`,
     `steady_run_s`, ms per tick and the peak device memory printed; (c)
@@ -301,6 +303,23 @@ thirteen models.  Phases:
     plain tick (run in a spawned worker meanwhile) with identical status
     and the same escalation count.  A line `phase 21 table:` holds its
     figures.
+22. the acados parity bridge (`parity/`, `acados_bridge`): (a) every K2
+    form (`CUDA_MODELS` and the curved race form) at phase 3's L=512
+    float64 inputs against the CasADi transcription of the reference's
+    models (`casadi_models.linearize_lanes`: `numeric_f` through the RK4
+    sensitivities of `ops/integrators.py`, `numeric_h` through
+    `torch.func.jacfwd`) at phase 3's float64 tolerances, with the
+    Jacobian columns outside f_dep exact identity (zero for controls) in
+    both, each form's max error printed (a line `phase 22 table:`); (b)
+    the flagship's 30-tick and the hull's 20-tick fixtures (the hull's
+    with its per-stage yref), recorded by the CPU's float64 `RTISolver`
+    in a worker process during phases 18-21, each replayed on the card
+    by a child `python -m mpc_collisionavoidance_tpu_torch.parity.
+    run_acados_parity --replay <file>` (its default device, captured
+    ticks): max_u_dev and max_x_dev within 1e-9, K1 30 and K2 1 per tick
+    read at the child's exit; (c) the runner without acados exits 2 with
+    the JAX package's message.  Its K2 launches in (a) are comparisons,
+    not counted; (b)'s count.
 
 Each main path is driven with every launch count set to 0 just before and
 read just after (phase 16's goldens, server and timed ticks each so), on
@@ -314,7 +333,7 @@ runs are named by the K2 form they take: `race_cars` on the straight
 track, `race_cars_track` and
 `race_cars_dev_track` on the curved one (`RACE`).  Times come from CUDA events (the server's from the
 client's clock); the plain versions' times are those of their checked
-calls at L=512 float32 (K2, K3: one call each) or the median of 5 (K1).
+calls at L=512 float32, one call each.
 The line before the last is a JSON object with one entry per kernel
 (per instance for K1, per model form for K2, per structure for K3), each
 with its launches on the main paths (every one must be launched), its
@@ -379,23 +398,6 @@ RACE_INTERVAL_MS = 20.0
 FAMILY_B1_TICKS = 20
 REPO = pathlib.Path(__file__).resolve().parent
 SERVER_LANES = 128                  # the server's default --max-batch
-
-
-def _tick_ms(fn, reps):
-    """Median CUDA-event time of `fn()` over `reps` runs, after one
-    warm-up run."""
-    import torch
-    fn()
-    times = []
-    for _ in range(reps):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        fn()
-        end.record()
-        end.synchronize()
-        times.append(start.elapsed_time(end))
-    return float(np.median(times))
 
 
 def _timed(fn):
@@ -807,8 +809,10 @@ def check_riccati():
                 d = _random_lqr(NL, nx, nu, L, seed=nx * 1000 + L,
                                 dtype=dtype)
                 got = riccati.lqr_solve_lanes_cuda(*d)
-                want = lqr_solve_lanes_plain(d)
+                want, want_ms = _timed(lambda: lqr_solve_lanes_plain(d))
                 torch.cuda.synchronize()
+                if (NL, L, dtype) == (N, B, torch.float32):
+                    plain_ms = want_ms
                 err = _max_err(got, want)
                 worst = max(worst, err)
                 print(f"K1 riccati nx={nx} nu={nu} N={NL} L={L} "
@@ -829,9 +833,7 @@ def check_riccati():
             if (L, dname) == (B, "float32"):
                 result[(nx, nu)] = dict(err=worst, ms=ms, bound_ms=bound_ms,
                                         bound_by=by)
-        d = _random_lqr(N, nx, nu, B, seed=1, dtype=torch.float32)
-        result[(nx, nu)]["plain_ms"] = _tick_ms(
-            lambda: lqr_solve_lanes_plain(d), 5)
+        result[(nx, nu)]["plain_ms"] = plain_ms
         print(f"K1 ({nx}, {nu}) plain sweep at L={B} float32: "
               f"{result[(nx, nu)]['plain_ms']:.4f} ms")
     return result
@@ -1224,15 +1226,61 @@ def compare_ticks(what, out, want, Bn, dims, against="CPU plain"):
                              f"{against} tick")
 
 
+# the float64 CPU plain ticks that phases 5-14 hold the card's against
+# (`card_vs_cpu_tick`), each (run, lanes, fused?): `main` computes them in
+# a worker process (`tick_cpu_references`) while the card runs the phases
+CPU_TICKS = ((FLAGSHIP, B, False), (HULL, HULL_CPU_B, False),
+             *((name, FAMILY_CPU_B, False) for name in FAMILY + GUIDANCE),
+             *((name, B, fused)
+               for name in ("race_cars_track", "race_cars_dev_track")
+               for fused in (False, True)))
+# card_vs_cpu_tick's card outputs, by CPU_TICKS entry, until checked
+_CARD_TICKS = {}
+
+
+def tick_cpu_references():
+    """The float64 CPU plain ticks of `CPU_TICKS` on one thread, as numpy:
+    {entry: (u0, x1, status, seconds)}."""
+    import torch
+    torch.set_num_threads(1)
+    out = {}
+    for name, Bn, fused in CPU_TICKS:
+        o, _, sec = f64_tick(name, Bn, _fused() if fused else _production(),
+                             "cpu")
+        out[(name, Bn, fused)] = (o.u0.numpy(), o.x1.numpy(),
+                                  o.status.numpy(), sec)
+    return out
+
+
 def card_vs_cpu_tick(name, Bn, config=None):
     """One float64 tick (the production schedule unless `config` says
-    otherwise) on the card vs the plain path on the CPU from the same
-    inputs."""
+    otherwise) on the card, kept for `check_cpu_ticks`, which holds it
+    against the CPU plain tick from the same inputs."""
+    import types
     config = config or _production()
     out, solver, _ = f64_tick(name, Bn, config, DEVICE)
-    out_c, _, cpu_s = f64_tick(name, Bn, config, "cpu")
-    compare_ticks(f"{name} {_backend(solver)}", out, out_c, Bn,
-                  _dims(name), against=f"CPU plain ({cpu_s:.1f} s)")
+    _CARD_TICKS[(name, Bn, solver.riccati == "fused")] = (
+        f"{name} {_backend(solver)}",
+        types.SimpleNamespace(**{k: getattr(out, k).cpu() for k in
+                                 ("u0", "x1", "gap", "status")}))
+
+
+def check_cpu_ticks(ref):
+    """Every card tick of `card_vs_cpu_tick` against its CPU plain tick
+    (`ref`, from `tick_cpu_references`)."""
+    import types
+
+    import torch
+    if set(ref) != set(_CARD_TICKS):
+        raise AssertionError(f"card ticks {sorted(_CARD_TICKS)} and CPU "
+                             f"ticks {sorted(ref)} differ")
+    for key, (u0, x1, status, sec) in ref.items():
+        what, out = _CARD_TICKS.pop(key)
+        want = types.SimpleNamespace(u0=torch.as_tensor(u0),
+                                     x1=torch.as_tensor(x1),
+                                     status=torch.as_tensor(status))
+        compare_ticks(what, out, want, key[1], _dims(key[0]),
+                      against=f"CPU plain ({sec:.1f} s, worker)")
 
 
 def main_path_tick(name, config, expect):
@@ -3429,13 +3477,14 @@ def lane_options(card, baseline):
 # ---- phase 19: the command line ----
 
 CLI = "mpc_collisionavoidance_tpu_torch"
-# 19b: `python -m mpc_collisionavoidance_tpu_torch ARGS` (runpy.run_module
-# with alter_sys, which is what -m runs) in a child interpreter that writes
-# its kernel launch counts and device memory to the file named by its
-# first argument when it exits
-CLI_CHILD = """
+# 19b and 22b: `python -m MODULE ARGS` (runpy.run_module with alter_sys,
+# which is what -m runs) in a child interpreter that writes its kernel
+# launch counts and device memory to the file named by its first argument
+# when it exits; MODULE is its second argument
+MODULE_CHILD = """
 import atexit, json, runpy, sys
 report_path = sys.argv.pop(1)
+module = sys.argv.pop(1)
 
 
 def report():
@@ -3455,9 +3504,8 @@ def report():
 
 
 atexit.register(report)
-sys.argv[0] = "mpc_collisionavoidance_tpu_torch"
-runpy.run_module("mpc_collisionavoidance_tpu_torch", run_name="__main__",
-                 alter_sys=True)
+sys.argv[0] = module
+runpy.run_module(module, run_name="__main__", alter_sys=True)
 """
 # 19c: `run --config` on the per-instance engine: the JAX suite's config
 # (tests/test_cli.py:25-36) for 30 steps and the flagship at its N=100 for
@@ -3574,9 +3622,9 @@ def command_line(card):
         argv = ["run", "--model", FLAGSHIP]
         if mpl:
             argv += ["--plots", str(tmp / "flagship")]
-        run = subprocess.run([sys.executable, "-c", CLI_CHILD, str(report),
-                              *argv], cwd=REPO, capture_output=True,
-                             text=True, timeout=600)
+        run = subprocess.run([sys.executable, "-c", MODULE_CHILD,
+                              str(report), CLI, *argv], cwd=REPO,
+                             capture_output=True, text=True, timeout=600)
         if run.returncode != 0:
             raise AssertionError(f"19b {' '.join(argv)}: exit "
                                  f"{run.returncode}: {run.stderr[-2000:]}")
@@ -4335,6 +4383,192 @@ def native_nodes(card):
     return counts, table
 
 
+# ---- phase 22: the acados parity bridge ----
+
+PARITY = "mpc_collisionavoidance_tpu_torch.parity.run_acados_parity"
+# 22b: the fixtures that the port's eager float64 RTISolver records on the
+# CPU (`record_fixture`) and the card replays, with their ticks
+REPLAY_TICKS = {FLAGSHIP: 30, HULL: 20}
+# 22b: the card's replay against the CPU's recording, float64
+REPLAY_TOL = 1e-9
+# 22b: K1 launches per replay tick, one per IPM iteration (REPLAY_SOLVER)
+REPLAY_K1 = 30
+# 22c: what the runner prints without acados (the JAX package's message)
+NO_ACADOS = "acados_template/casadi not installed"
+
+
+def parity_fixtures(outdir):
+    """22b's fixtures, recorded on the CPU in float64 on one thread (`main`
+    runs this in a worker process while the card runs phases 18-21):
+    {model: path}."""
+    import torch
+
+    from mpc_collisionavoidance_tpu_torch.parity.run_acados_parity import (
+        record_fixture)
+    torch.set_num_threads(1)
+    return {name: record_fixture(os.path.join(outdir, f"{name}.npz"), name,
+                                 ticks, device="cpu")
+            for name, ticks in REPLAY_TICKS.items()}
+
+
+def _skipped_columns(what, J, C, m):
+    """The Jacobian columns outside f_dep: exact identity (states) or zero
+    (controls); C's outside h_dep: exact zero.  Returns the failures."""
+    import torch
+    bad = []
+    for k in sorted(set(range(m.nx + m.nu)) - set(m.f_dep)):
+        col = torch.zeros(m.nx, dtype=J.dtype, device=J.device)
+        if k < m.nx:
+            col[k] = 1.0
+        if not torch.equal(J[:, :, k, :], col[None, :, None].expand(
+                J.shape[0], m.nx, J.shape[-1])):
+            bad.append(f"{what} J column {k} (outside f_dep)")
+    for k in sorted(set(range(m.nx)) - set(m.h_dep or ())):
+        if C.numel() and bool(C[:, :, k, :].any()):
+            bad.append(f"{what} C column {k} (outside h_dep)")
+    return bad
+
+
+def transcription_vs_k2():
+    """22a: every K2 form on the card against the CasADi transcription
+    (`parity/casadi_models.py::linearize_lanes`: `numeric_f` through
+    `ops.integrators`' RK4 sensitivities, `numeric_h` through
+    `torch.func.jacfwd`), at phase 3's L=512 float64 inputs and tolerances
+    (atol 1e-10, rtol 1e-12 on the hydrodynamic J), and the columns that
+    K2 skips exact in both.  Every form is checked before a miss fails the
+    phase; a miss prints its worst point.  Returns {form: {"max_abs_err":
+    ...}}."""
+    import torch
+
+    from mpc_collisionavoidance_tpu_torch.kernels import linearize
+    from mpc_collisionavoidance_tpu_torch.parity import casadi_models
+    from mpc_collisionavoidance_tpu_torch.utils import track
+    errs, misses = {}, []
+    forms = [*linearize.CUDA_MODELS,
+             *(f"{name}_track" for name in linearize.TRACK_FORMS)]
+    for form in forms:
+        spec = _spec(form)
+        m = spec.model
+        name, curved = RACE.get(form, (form, False))
+        kappa_fn = (track.make_kappa_fn(track.make_synthetic_track())
+                    if curved else None)
+        rng = np.random.default_rng(100 + B)        # phase 3's seed at L=B
+        args = [torch.as_tensor(a, dtype=torch.float64, device=DEVICE)
+                for a in _linearize_inputs(form, m, spec.N, B, rng, spec.dt)]
+        kw = dict(dt=spec.dt, integrator_steps=spec.integrator_steps)
+        got = linearize.linearize_lanes_cuda(*args, model=m, **kw)
+        want = casadi_models.linearize_lanes(name, *args, kappa_fn=kappa_fn,
+                                             **kw)
+        torch.cuda.synchronize()
+        per = {}
+        for out, g, w in zip(("xn", "J", "hbar", "C"), got, want):
+            rtol = 1e-12 if (form != FLAGSHIP and out == "J") else 0.0
+            per[out] = _max_err([g], [w])
+            if g.shape != w.shape or not torch.isfinite(g).all() or \
+                    not torch.allclose(g, w, rtol=rtol, atol=1e-10):
+                excess = ((g - w).abs() - rtol * w.abs()) if \
+                    g.shape == w.shape else None
+                where = (tuple(int(i) for i in np.unravel_index(
+                    int(excess.argmax()), g.shape))
+                    if excess is not None and excess.numel() else ())
+                misses.append(f"{form} {out}: max |err| {per[out]:.3e} over "
+                              f"rtol {rtol}, atol 1e-10, worst at {where} "
+                              f"(layout {tuple(g.shape)}): K2 "
+                              f"{float(g[where]) if where else None}, "
+                              f"transcription "
+                              f"{float(w[where]) if where else None}; "
+                              f"inputs: phase 3's at L={B}, seed {100 + B}")
+        skipped = _skipped_columns(f"{form} K2", got[1], got[3], m) + \
+            _skipped_columns(f"{form} transcription", want[1], want[3], m)
+        misses += skipped
+        errs[form] = {"max_abs_err": max(per.values())}
+        print(f"22a {form} N={spec.N} L={B} float64, K2 vs the "
+              f"transcription: max|err| {errs[form]['max_abs_err']:.3e} (xn "
+              f"{per['xn']:.3e}, J {per['J']:.3e}, hbar {per['hbar']:.3e}, C "
+              f"{per['C']:.3e}); the {m.nx + m.nu - len(m.f_dep)} J columns "
+              f"outside f_dep exact in both: {not skipped}")
+    if misses:
+        raise AssertionError("22a: K2 apart from the transcription:\n" +
+                             "\n".join(misses))
+    return errs
+
+
+def acados_bridge(card, fixtures):
+    """Phase 22: the acados parity bridge.  (b) and (c) start as child
+    interpreters, then (a) runs here: (a) `transcription_vs_k2`; (b) each
+    fixture of `parity_fixtures` (the future `fixtures`) replayed on the
+    card by `python -m ...run_acados_parity --replay <file>` with no
+    `--device`, within REPLAY_TOL of the CPU's recording, its K1 and K2
+    launches read at the child's exit (K1 30 and K2 1 per tick, one tick
+    more for the capture's eager warm-up); (c) `run_acados_parity
+    usv_guidance_ca1` exits 2 with the no-acados message.  Returns
+    ({(model, label): launch counts}, {form: 22a's figures})."""
+    t0 = time.perf_counter()
+
+    def step_done(label):
+        print(f"  [{time.perf_counter() - t0:.1f} s] 22{label} done")
+
+    paths = fixtures.result()
+    step_done(" CPU fixtures (waited for)")
+    counts = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = pathlib.Path(tmp)
+
+        def child(label, argv):
+            out = open(tmp / f"{label}.out", "w")
+            err = open(tmp / f"{label}.err", "w")
+            return subprocess.Popen([sys.executable, *argv], cwd=REPO,
+                                    stdout=out, stderr=err), out, err
+
+        def finish(label, started):
+            proc, out, err = started
+            rc = proc.wait(timeout=300)
+            out.close()
+            err.close()
+            return (rc, (tmp / f"{label}.out").read_text(),
+                    (tmp / f"{label}.err").read_text())
+
+        replays = {name: child(name, ["-c", MODULE_CHILD,
+                                      str(tmp / f"{name}.json"), PARITY,
+                                      "--replay", path])
+                   for name, path in paths.items()}
+        no_acados = child("no_acados", ["-m", PARITY, FLAGSHIP])
+        errs = transcription_vs_k2()
+        step_done("a")
+        for name, started in replays.items():
+            rc, out, err = finish(name, started)
+            if rc != 0:
+                raise AssertionError(f"22b --replay {name}: exit {rc}: "
+                                     f"{err[-2000:]}")
+            res = json.loads(out.strip().splitlines()[-1])
+            c = json.loads((tmp / f"{name}.json").read_text())["counts"]
+            ticks = REPLAY_TICKS[name]
+            print(f"22b python -m {PARITY} --replay {name}.npz ({ticks} ticks "
+                  f"recorded by the CPU's float64 RTISolver, replayed on "
+                  f"{card}, captured): max_u_dev {res['max_u_dev']:.3e}, "
+                  f"max_x_dev {res['max_x_dev']:.3e} (gate {REPLAY_TOL}); "
+                  f"K1 {c['riccati_lanes']} and K2 {c['linearize_lanes']} "
+                  f"launches, {c['riccati_lanes'] / (ticks + 1):g} and "
+                  f"{c['linearize_lanes'] / (ticks + 1):g} per tick over "
+                  f"the {ticks} replayed ticks and the capture's warm-up "
+                  f"tick")
+            if res["variant"] != name or res["ticks"] != ticks \
+                    or not res["ok"] or res["max_u_dev"] > REPLAY_TOL \
+                    or res["max_x_dev"] > REPLAY_TOL:
+                raise AssertionError(f"22b {name}: {res}")
+            _expect(f"22b {name}", c, REPLAY_K1, ticks)
+            counts[(name, "22b replay")] = c
+        step_done("b")
+        rc, out, err = finish("no_acados", no_acados)
+        print(f"22c python -m {PARITY} {FLAGSHIP}: exit {rc}, stderr "
+              f"{err.strip()[:120]!r}...")
+        if rc != 2 or NO_ACADOS not in err or out.strip():
+            raise AssertionError(f"22c: exit {rc}, stdout {out!r}, stderr "
+                                 f"{err[-2000:]!r}")
+        step_done("c")
+    return counts, errs
+
+
 def _production_counts(c):
     return (c["riccati_lanes"] >= 4 and c["linearize_lanes"] == 1
             and c["fused_ipm_lanes"] == 0)
@@ -4367,46 +4601,54 @@ def main():
     k3 = check_fused_ipm()
     phase_done("phase 4 (K3)")
 
-    # the flagship production tick
-    card_vs_cpu_tick(FLAGSHIP, B)
-    counts = {(FLAGSHIP, "sweep"): main_path_tick(FLAGSHIP, _production(),
-                                                  _production_counts)}
-    # M=1 of phase 18's condensed runs: the production loop and B=1 tick
-    baseline = {}
+    # the float64 CPU ticks that phases 5-14 hold the card's against run
+    # in a worker process, started after the kernels' timings, while the
+    # card runs those phases; they are checked after phase 14
+    with _cpu_worker() as pool:
+        cpu_ticks = pool.submit(tick_cpu_references)
+        # the flagship production tick
+        card_vs_cpu_tick(FLAGSHIP, B)
+        counts = {(FLAGSHIP, "sweep"): main_path_tick(
+            FLAGSHIP, _production(), _production_counts)}
+        # M=1 of phase 18's condensed runs: the production loop and B=1
+        # tick
+        baseline = {}
 
-    def keep(name, loop, b1):
-        baseline[(name, "M=1")] = dict(tick_ms=loop[0], frac=loop[1],
-                                       b1_p50=b1[0], b1_p99=b1[1])
+        def keep(name, loop, b1):
+            baseline[(name, "M=1")] = dict(tick_ms=loop[0], frac=loop[1],
+                                           b1_p50=b1[0], b1_p99=b1[1])
 
-    keep(FLAGSHIP, closed_loop(FLAGSHIP, _production(), gate=True),
-         latency_b1(FLAGSHIP, _production(), 50.0))
-    mission()
-    phase_done("phases 5-8 (the flagship)")
-    # the hull production tick
-    card_vs_cpu_tick(HULL, HULL_CPU_B)
-    counts[(HULL, "sweep")] = main_path_tick(HULL, _production(),
-                                             _production_counts)
-    keep(HULL, closed_loop(HULL, _production(), gate=True),
-         latency_b1(HULL, _production(), 10.0))
-    # the fused tick of both OCPs
-    for name in (FLAGSHIP, HULL):
-        counts[(name, "fused")] = main_path_tick(name, _fused(),
-                                                 _fused_counts)
-        closed_loop(name, _fused(), gate=name == FLAGSHIP)
-        latency_b1(name, _fused(), 50.0 if name == FLAGSHIP else 10.0)
-    phase_done("phases 9-10 (the hull, the fused ticks)")
-    # the real-time server
-    counts.update(serving(card))
-    phase_done("phase 11 (serving)")
-    # the hull family's models with no rows
-    counts.update(hull_family(card))
-    phase_done("phase 12 (the hull family)")
-    # the kinematic guidance family
-    counts.update(guidance_family(card))
-    phase_done("phase 13 (the guidance family)")
-    # the race car
-    counts.update(race_family(card))
-    phase_done("phase 14 (the race car)")
+        keep(FLAGSHIP, closed_loop(FLAGSHIP, _production(), gate=True),
+             latency_b1(FLAGSHIP, _production(), 50.0))
+        mission()
+        phase_done("phases 5-8 (the flagship)")
+        # the hull production tick
+        card_vs_cpu_tick(HULL, HULL_CPU_B)
+        counts[(HULL, "sweep")] = main_path_tick(HULL, _production(),
+                                                 _production_counts)
+        keep(HULL, closed_loop(HULL, _production(), gate=True),
+             latency_b1(HULL, _production(), 10.0))
+        # the fused tick of both OCPs
+        for name in (FLAGSHIP, HULL):
+            counts[(name, "fused")] = main_path_tick(name, _fused(),
+                                                     _fused_counts)
+            closed_loop(name, _fused(), gate=name == FLAGSHIP)
+            latency_b1(name, _fused(), 50.0 if name == FLAGSHIP else 10.0)
+        phase_done("phases 9-10 (the hull, the fused ticks)")
+        # the real-time server
+        counts.update(serving(card))
+        phase_done("phase 11 (serving)")
+        # the hull family's models with no rows
+        counts.update(hull_family(card))
+        phase_done("phase 12 (the hull family)")
+        # the kinematic guidance family
+        counts.update(guidance_family(card))
+        phase_done("phase 13 (the guidance family)")
+        # the race car
+        counts.update(race_family(card))
+        phase_done("phase 14 (the race car)")
+        check_cpu_ticks(cpu_ticks.result())
+    phase_done("phases 5-14's card ticks vs the CPU's")
     captured_ticks()
     phase_done("phase 15 (captured ticks)")
     # phase 17's float64 CPU runs start in a worker with phase 16, so
@@ -4426,19 +4668,28 @@ def main():
         phase_done("phase 16 (the per-instance engine)")
         counts.update(guidance_stack(card, guidance_cpu))
     phase_done("phase 17 (the guidance stack)")
-    options, table = lane_options(card, baseline)
-    counts.update(options)
-    phase_done("phase 18 (the lane engine's options)")
-    print("phase 18 table: " + json.dumps(
-        {f"{n} {label}": v for (n, label), v in table.items()}))
-    counts.update(command_line(card))
-    phase_done("phase 19 (the command line)")
-    counts.update(mesh_phase(card))
-    phase_done("phase 20 (the mesh)")
-    native, table = native_nodes(card)
-    counts.update(native)
-    phase_done("phase 21 (the native nodes)")
-    print("phase 21 table: " + json.dumps(table))
+    # phase 22's fixtures: recorded on the CPU in a worker process while
+    # the card runs phases 18-21
+    with tempfile.TemporaryDirectory() as parity_dir, \
+            _cpu_worker() as parity_pool:
+        fixtures = parity_pool.submit(parity_fixtures, parity_dir)
+        options, table = lane_options(card, baseline)
+        counts.update(options)
+        phase_done("phase 18 (the lane engine's options)")
+        print("phase 18 table: " + json.dumps(
+            {f"{n} {label}": v for (n, label), v in table.items()}))
+        counts.update(command_line(card))
+        phase_done("phase 19 (the command line)")
+        counts.update(mesh_phase(card))
+        phase_done("phase 20 (the mesh)")
+        native, table = native_nodes(card)
+        counts.update(native)
+        phase_done("phase 21 (the native nodes)")
+        print("phase 21 table: " + json.dumps(table))
+        bridge, bridge_errs = acados_bridge(card, fixtures)
+        counts.update(bridge)
+        phase_done("phase 22 (the acados parity bridge)")
+        print("phase 22 table: " + json.dumps(bridge_errs))
 
     def launched(kernel, models):
         return sum(c[kernel] for (m, _), c in counts.items() if m in models)

@@ -72,41 +72,45 @@ def lqr_solve(d: LQRData, reg: float = 0.0):
 
 def lqr_solve_plain(d: LQRData, reg: float = 0.0):
     """The backward recursion and forward rollout as a loop over the
-    stages, each a few batched products (any device)."""
+    stages, each a few batched products (any device).  The stages are
+    split once up front and the vectors kept as columns (..., n, 1), so
+    that a stage costs few operator calls: the CPU tick is bound by
+    their count."""
     N, nx = d.A.shape[-3], d.A.shape[-1]
     nu = d.B.shape[-1]
     eye_u = torch.eye(nu, dtype=d.B.dtype, device=d.B.device)
-    P, p = d.Q[..., N, :, :], d.qx[..., N, :]
+    As, Bs, Qs, Ss, Rs = (t.unbind(-3) for t in (d.A, d.B, d.Q, d.S, d.R))
+    cs, qxs, qus = (t.unsqueeze(-1).unbind(-3) for t in (d.c, d.qx, d.qu))
+    P, p = Qs[N], qxs[N]
     Ks, kffs = [None] * N, [None] * N
     for s in reversed(range(N)):
-        A, B, c = d.A[..., s, :, :], d.B[..., s, :, :], d.c[..., s, :]
+        A, B = As[s], Bs[s]
         Bt = B.mT
         PA = P @ A                                     # (..., nx, nx)
         PB = P @ B                                     # (..., nx, nu)
-        Pc_p = mv(P, c) + p                            # (..., nx)
-        Huu = d.R[..., s, :, :] + Bt @ PB + reg * eye_u
-        Hux = d.S[..., s, :, :] + Bt @ PA              # (..., nu, nx)
-        hu = d.qu[..., s, :] + mv(Bt, Pc_p)            # (..., nu)
+        Pc_p = P @ cs[s] + p                           # (..., nx, 1)
+        Huu = Rs[s] + Bt @ PB + reg * eye_u
+        Hux = Ss[s] + Bt @ PA                          # (..., nu, nx)
+        hu = qus[s] + Bt @ Pc_p                        # (..., nu, 1)
         # one factorization and one solve for both the gain and the
         # feed-forward term
-        sol = torch.cholesky_solve(torch.cat([Hux, hu.unsqueeze(-1)], -1),
-                                   cholesky(Huu))
-        K, kff = -sol[..., :nx], -sol[..., nx]
-        P = d.Q[..., s, :, :] + A.mT @ PA + Hux.mT @ K
+        sol = torch.cholesky_solve(torch.cat([Hux, hu], -1), cholesky(Huu))
+        K, kff = -sol[..., :nx], -sol[..., nx:]
+        P = Qs[s] + A.mT @ PA + Hux.mT @ K
         P = 0.5 * (P + P.mT)
-        p = d.qx[..., s, :] + mv(A.mT, Pc_p) + mv(Hux.mT, kff)
+        p = qxs[s] + A.mT @ Pc_p + Hux.mT @ kff
         Ks[s], kffs[s] = K, kff
 
-    dx = d.dx0
+    dx = d.dx0.unsqueeze(-1)
     dxs, dus = [], []
     for s in range(N):
-        du = mv(Ks[s], dx) + kffs[s]
+        du = Ks[s] @ dx + kffs[s]
         dxs.append(dx)
         dus.append(du)
-        dx = mv(d.A[..., s, :, :], dx) + mv(d.B[..., s, :, :], du) \
-            + d.c[..., s, :]
+        dx = As[s] @ dx + Bs[s] @ du + cs[s]
     dxs.append(dx)
-    return torch.stack(dxs, dim=-2), torch.stack(dus, dim=-2)
+    return (torch.stack(dxs, dim=-3).squeeze(-1),
+            torch.stack(dus, dim=-3).squeeze(-1))
 
 
 def _lqr_solve_lanes(d: LQRData, reg):

@@ -7,10 +7,18 @@ that re-solve the SAME OCP through independent machinery:
 - `nlp_oracle`: the full nonlinear OCP as a dense scipy SLSQP program with
   exact acados slack semantics — the control-trajectory parity target is
   <1e-3 (BASELINE.md) against the converged SQP solver;
-- `kkt`: NLP feasibility/fixed-point reporting for any solver iterate.
+- `kkt`: NLP feasibility/fixed-point reporting for any solver iterate;
+- the acados bridge: `casadi_models` (the reference variants' CasADi
+  models, transcribed once and bound to casadi and to torch),
+  `acados_oracle` (the reference's AcadosOcp for an OCPSpec) and
+  `run_acados_parity` (the closed-loop diff against acados, its fixtures,
+  and their replay on the port's `RTISolver`).
 
-The JAX package's acados bridge is not ported: it needs casadi and
-acados_template, which are not installed.
+Only the acados run itself (`acados_oracle.build_acados_solver`,
+`run_acados_parity.run_variant`, `casadi_models.make_casadi_model_fn`'s
+model) needs acados_template and casadi; those modules import them inside
+the functions that need them.  The torch binding of the transcriptions and
+the fixtures' replay run without them.
 """
 
 from mpc_collisionavoidance_tpu_torch.parity.kkt import kkt_report  # noqa: F401

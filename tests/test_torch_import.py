@@ -136,3 +136,48 @@ def test_instance_engine_runs_with_jax_blocked():
                           capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stderr
     assert proc.stdout.strip() == "ok"
+
+
+# the acados parity bridge: casadi and acados_template only inside the
+# functions that call acados
+PARITY_BRIDGE = {
+    f"mpc_collisionavoidance_tpu_torch.parity.{m}" for m in (
+        "casadi_models", "acados_oracle", "run_acados_parity")}
+
+
+def test_parity_bridge_imports_neither_jax_nor_casadi():
+    """In a fresh interpreter where `import jax`, `import casadi` and
+    `import acados_template` fail, the bridge's modules import, the torch
+    binding of the flagship's transcription runs, and none of the three
+    enters sys.modules; `make_casadi_model_fn` builds and raises
+    ImportError only when called."""
+    assert PARITY_BRIDGE <= set(MODULES)
+    code = "\n".join([
+        "import importlib, sys",
+        "for m in ('jax', 'mpc_collisionavoidance_tpu', 'casadi',",
+        "          'acados_template'):",
+        "    sys.modules[m] = None",
+        f"for name in {sorted(PARITY_BRIDGE)!r}:",
+        "    importlib.import_module(name)",
+        "import torch",
+        "from mpc_collisionavoidance_tpu_torch.parity import (",
+        "    acados_oracle, casadi_models)",
+        "f = casadi_models.numeric_f('usv_guidance_ca1')",
+        "assert f(torch.zeros(8), torch.zeros(1), torch.zeros(16)).shape "
+        "== (8,)",
+        "assert not acados_oracle.acados_available()",
+        "fn = casadi_models.make_casadi_model_fn('usv_guidance_ca1')",
+        "try:",
+        "    fn()",
+        "    raise SystemExit('no ImportError')",
+        "except ImportError:",
+        "    pass",
+        "loaded = [m for m in sys.modules if sys.modules[m]]",
+        "assert not {'jax', 'casadi', 'acados_template'} & set(loaded), "
+        "loaded",
+        "print('ok')",
+    ])
+    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.strip() == "ok"
