@@ -86,6 +86,9 @@ _ENTRIES = {
     "nmpc_graph_launch": [_PTR, _PTR],
     # (exec)
     "nmpc_graph_destroy": [_PTR],
+    # csrc/stamp.cu, the tracer's device stamp (utils/profiling.py):
+    # (ring, count, capacity, tag, stream)
+    "nmpc_stamp": [_PTR, _PTR, ctypes.c_longlong, ctypes.c_longlong, _PTR],
 }
 _RESTYPES = {"nmpc_fused_ipm_scratch": ctypes.c_longlong,
              "nmpc_cuda_error_string": ctypes.c_char_p}

@@ -121,14 +121,18 @@ def _s(x):
 
 def ipm_solve(qp: QPData, iters: int = 18, tau: float = 0.995,
               sigma: float = 0.1, tol: float = 1e-7,
-              mu0=1.0, centering: str = "fixed") -> IPMSolution:
+              mu0=1.0, centering: str = "fixed",
+              stamp=None) -> IPMSolution:
     """Solve the QP with `iters` fixed path-following iterations.
 
     `centering="mehrotra"` runs the Mehrotra predictor-corrector: an
     affine probe (sigma = 0), sigma = (mu_aff / mu)^3 and the second-order
     correction — two Riccati solves per iteration.  `mu0="auto"` scales the
     initial barrier weight to the QP's gradient magnitude per instance,
-    clipped to [1, 1e6]."""
+    clipped to [1, 1e6].  `stamp(point, value)`: the tracer's device stamp
+    of a captured tick (`solver/capture.py`), called before the first
+    iteration ("ipm.start") and after the last ("ipm.end", value
+    `iters`)."""
     if centering not in ("fixed", "mehrotra"):
         raise ValueError(f"unknown centering '{centering}'")
     N, nI = qp.gl.shape[-2:]
@@ -172,6 +176,8 @@ def ipm_solve(qp: QPData, iters: int = 18, tau: float = 0.995,
         return sum(_fsum(li * ti) for li, ti in zip(ls, ts)) / n_total
 
     fam = (-2, -1)
+    if stamp:
+        stamp("ipm.start")
     for _ in range(iters):
         gv = g_soft_val(dx)
         r_tg = g_hard(dx, du) - tg
@@ -290,6 +296,8 @@ def ipm_solve(qp: QPData, iters: int = 18, tau: float = 0.995,
             upd(su, Dsu)
         tg, tl, tu, tsl, tsu = (upd(t, D) for t, D in zip(ts, Dts))
         lg, ll, lu, lsl, lsu = (upd(lv, D) for lv, D in zip(ls, Dls))
+    if stamp:
+        stamp("ipm.end", iters)
 
     gap = measure((lg, ll, lu, lsl, lsu), (tg, tl, tu, tsl, tsu))
     cbar = mv(qp.A, dx[..., :-1, :]) + mv(qp.B, du) + qp.c - dx[..., 1:, :]

@@ -169,6 +169,10 @@ class Escalation:
             step()
             self.iters += 1
 
+    def stamp(self, point, value=0):
+        """A device stamp at `point` of the tick: nothing here; a captured
+        tick's escalation (`solver/capture.py`) stamps while tracing."""
+
 
 def check_group(group, device: torch.device, capture: bool):
     """Raise ValueError for an escalation `group` (a process group, or

@@ -37,6 +37,15 @@ compiles).  On the CPU the kernels' plain PyTorch versions run, op by
 op.  A CUDA device that
 is not there is an error, never a fallback.
 
+Tracing (`utils/profiling.py`): with the tracer on, each request that
+reaches a tick leaves six spans that share one id and follow one another:
+`server.queue` (the frame read to the batch loop's take), `server.window`
+(to the solve thread's start of the batch), `server.upload` (the rows
+packed and on the device), `server.tick` (the tick's launch until the
+device has run it), `server.fetch` (the outputs to the host) and
+`server.reply` (until the reply is written to the connection).
+`solve_ms` holds each tick's `server.tick` duration, traced or not.
+
 Run:  python -m mpc_collisionavoidance_tpu_torch.rt.server /tmp/nmpc.sock
   or: python -m mpc_collisionavoidance_tpu_torch.rt.server 0.0.0.0:8490
 """
@@ -65,10 +74,15 @@ from mpc_collisionavoidance_tpu_torch.rt import protocol
 from mpc_collisionavoidance_tpu_torch.solver.batch import LaneRTISolver
 from mpc_collisionavoidance_tpu_torch.solver.sqp_rti import (RTISolver,
                                                              SolverState)
+from mpc_collisionavoidance_tpu_torch.utils import profiling
 
 #: reply status when every lane is taken; distinct from the solver's
 #: 0 ok / 1 not converged / 2 NaN codes
 STATUS_OVER_CAPACITY = 3
+
+#: a request's spans, each from one of its times (`_Req`) to the next
+STAGES = ("server.queue", "server.window", "server.upload", "server.tick",
+          "server.fetch", "server.reply")
 
 _log = logging.getLogger(__name__)
 
@@ -90,6 +104,11 @@ class _Req:
     params: tuple
     lh: tuple
     yref: tuple        # () = builder's static references
+    # host ns (time.perf_counter_ns): the frame read, the batch loop's
+    # take, and the batch's (start, uploaded, ticked, fetched)
+    arrive: int = 0
+    take: int = 0
+    stages: tuple = ()
 
 
 def _resolve(fut, buf):
@@ -149,10 +168,15 @@ class RTServer:
         self.max_batch = max_batch
         self.rti_split = bool(rti_split)
         self.engine = engine
-        # per-tick device time [ms] (upload, solve, fetch), appended by the
-        # solve thread: a client-side latency minus this is the serving
-        # stack's own cost
+        # per-tick time [ms], appended by the solve thread: the span
+        # `server.tick`, from the tick's launch (its rows on the device)
+        # until the device has run it; a client-side latency minus this is
+        # the serving stack's own cost
         self.solve_ms = collections.deque(maxlen=4096)
+        self._times = ()      # the last tick's (uploaded, ticked, fetched)
+        # the solve thread's CUDA stream, kept at its first tick
+        # (`torch.cuda.current_stream()` costs microseconds a call)
+        self._stream = None
         self._queue: asyncio.Queue = asyncio.Queue()
         self._server: Optional[asyncio.AbstractServer] = None
         self._next_id = 0
@@ -220,12 +244,25 @@ class RTServer:
         self._staged.record()
         return dev
 
-    def _fetch(self, outs):
+    def _fetch(self, outs, uploaded):
         """u0, x1 and status as ONE (nu + nx + 1, L) host array (one
-        device->host copy, which also waits for the tick)."""
-        out = torch.cat([outs.u0, outs.x1,
-                         outs.status[None].to(outs.u0.dtype)], dim=0)
-        return out.cpu().numpy()
+        device->host copy), after the tick that began at `uploaded` (host
+        ns) has run (`_finish`)."""
+        return self._finish(torch.cat(
+            [outs.u0, outs.x1, outs.status[None].to(outs.u0.dtype)], dim=0),
+            uploaded)
+
+    def _finish(self, out, uploaded):
+        """`out` on the host once the device has run the tick that wrote
+        it; (uploaded, ticked, fetched) host ns go to `_times`."""
+        if out.device.type == "cuda":
+            if self._stream is None:
+                self._stream = torch.cuda.current_stream(out.device)
+            self._stream.synchronize()
+        ticked = time.perf_counter_ns()
+        host = out.cpu().numpy()
+        self._times = (uploaded, ticked, time.perf_counter_ns())
+        return host
 
     def _split_params(self, d):
         """(L, np+nh+ny) device rows -> params (np, L), lh (nh, L),
@@ -237,17 +274,20 @@ class RTServer:
         """Full RTI step of every lane from the packed (L, nx+np+nh+ny)
         host rows; returns the host outputs."""
         d = self._upload(packed)
+        uploaded = time.perf_counter_ns()
         pL, lhL, yL = self._split_params(d[:, self.nx:])
         self._lane_state, outs = self.lane_solver.step_fn(
             self._lane_state, d[:, :self.nx].T, pL, lhL, yref=yL,
             yref_e=yL[:self._yref_e_len])
-        return self._fetch(outs)
+        return self._fetch(outs, uploaded)
 
     def _feedback(self, x0_rows):
         """Feedback phase of the prepared QP at fresh (L, nx) x0 rows."""
+        x0 = self._upload(x0_rows).T
+        uploaded = time.perf_counter_ns()
         self._lane_state, outs = self.lane_solver.feedback_fn(
-            self._lane_state, self._lane_qp, self._upload(x0_rows).T)
-        return self._fetch(outs)
+            self._lane_state, self._lane_qp, x0)
+        return self._fetch(outs, uploaded)
 
     def _prepare(self, packed_pl):
         """Preparation phase for the next tick from (L, np+nh+ny) rows."""
@@ -400,9 +440,12 @@ class RTServer:
                     req = _Req(2, seq, r2.x0, r2.params, r2.lh, r2.yref)
                 else:
                     raise ValueError(f"bad request magic 0x{magic:08x}")
+                req.arrive = time.perf_counter_ns()
                 fut = asyncio.get_running_loop().create_future()
                 await self._queue.put((vid, req, fut))
                 writer.write(await fut)       # fut resolves to wire bytes
+                if req.stages and profiling.tracing():
+                    _trace_request(req)
                 await writer.drain()
         except (asyncio.IncompleteReadError, ConnectionResetError):
             pass
@@ -422,6 +465,7 @@ class RTServer:
         loop = asyncio.get_running_loop()
         while True:
             vid, req, fut = await self._queue.get()
+            req.take = time.perf_counter_ns()
             batch = [(vid, req, fut)]
             deadline = loop.time() + self.batch_window
             while len(batch) < self.max_batch:
@@ -433,16 +477,18 @@ class RTServer:
                         self._queue.get(), timeout))
                 except asyncio.TimeoutError:
                     break
+                batch[-1][1].take = time.perf_counter_ns()
             await loop.run_in_executor(self._executor, self._solve_batch,
                                        batch)
 
     def _solve_batch(self, batch):
+        start = time.perf_counter_ns()
         if self.engine == "vmap":
-            self._solve_batch_vmap(batch)
+            self._solve_batch_vmap(batch, start)
         else:
-            self._solve_batch_lane(batch)
+            self._solve_batch_lane(batch, start)
 
-    def _solve_batch_lane(self, batch):
+    def _solve_batch_lane(self, batch, start):
         """One fixed-width lane-engine tick serving every queued request.
 
         All `max_batch` lanes solve every tick (flat cost); requests update
@@ -476,16 +522,17 @@ class RTServer:
             else:
                 packed = self._packed()
 
-        t_solve = time.perf_counter()
         # feedback only when a QP was prepared after the previous tick's
         # replies (one-tick-old params/yref, fresh x0)
         out = self._feedback(x0_rows) if use_split else self._tick(packed)
         self._lane_qp = None
-        self.solve_ms.append((time.perf_counter() - t_solve) * 1e3)
+        stages = (start, *self._times)
+        self.solve_ms.append((stages[2] - stages[1]) * 1e-6)
         nu = out.shape[0] - self.nx - 1
         u0, x1 = out[:nu], out[nu:nu + self.nx]
         status = out[-1].astype(np.int32)
         for lane, req, fut in live:
+            req.stages = stages
             self._reply(fut, req, status[lane], u0[:, lane], x1[:, lane])
 
         if self.rti_split:
@@ -549,10 +596,10 @@ class RTServer:
 
     @staticmethod
     def _vmap_fetch(out):
-        """u0, x1 and status of a tick as ONE host array (..., nu + nx +
-        1) (one device->host copy, which also waits for the tick)."""
+        """u0, x1 and status of a tick as ONE device array (..., nu + nx +
+        1), for one device->host copy."""
         return torch.cat([out.u0, out.x1, out.status.unsqueeze(-1).to(
-            out.u0.dtype)], dim=-1).cpu().numpy()
+            out.u0.dtype)], dim=-1)
 
     def _vmap_tick(self, reqs, states, prepared=None):
         """One tick of the requests `reqs` from `states` (one per request):
@@ -569,19 +616,19 @@ class RTServer:
         else:
             st = states + [states[0]] * (bucket - n)
             st = SolverState(*(torch.stack(f) for f in zip(*st)))
-        t_solve = time.perf_counter()
+        uploaded = time.perf_counter_ns()
         if prepared is not None:
             st, out = self.solver.feedback_fn(st, prepared, x0)
         else:
             st, out = self.solver.step_fn(st, x0, p, lh, yref, yref_e)
-        host = self._vmap_fetch(out)
-        self.solve_ms.append((time.perf_counter() - t_solve) * 1e3)
+        host = self._finish(self._vmap_fetch(out), uploaded)
+        self.solve_ms.append((self._times[1] - uploaded) * 1e-6)
         if n == 1:
             return [st], host[None], (p, lh, yref, yref_e)
         return ([SolverState(st.xbar[i], st.ubar[i]) for i in range(n)],
                 host[:n], None)
 
-    def _solve_batch_vmap(self, batch):
+    def _solve_batch_vmap(self, batch, start):
         """One vmap-engine tick serving every queued request; a vehicle's
         first request seeds its warm start at its x0."""
         for vid, req, _ in batch:
@@ -596,7 +643,9 @@ class RTServer:
         states, host, args = self._vmap_tick(
             [req for _, req, _ in batch], [v.state for v in vehs], prepared)
         nu = host.shape[-1] - self.nx - 1
+        stages = (start, *self._times)
         for veh, st, (_, req, fut), row in zip(vehs, states, batch, host):
+            req.stages = stages
             veh.state = st
             # a batched tick advanced the warm start: a QP prepared before
             # it is stale, and the next solo tick takes the full step
@@ -625,6 +674,15 @@ class RTServer:
                 seq=req.seq, status=int(status),
                 u0=tuple(u0), x1=tuple(x1)))
         fut.get_loop().call_soon_threadsafe(_resolve, fut, buf)
+
+
+def _trace_request(req):
+    """The request's six spans (`STAGES`), under one new id, up to now
+    (its reply written)."""
+    rid = profiling.new_id()
+    times = (req.arrive, req.take, *req.stages, time.perf_counter_ns())
+    for name, a, b in zip(STAGES, times, times[1:]):
+        profiling.add_span(name, a, b, rid)
 
 
 def resolve_engine_args(riccati=None, centering=None, ipm_iters=None,

@@ -10,6 +10,11 @@ Per tick, for B vehicles at once:
   on the card one captured graph per tick (`solver/capture.py`);
 - the only glue is a pair of O(nx*B) transposes per tick.
 
+With tracing on (`utils/profiling.py`) a tick is the span `fleet.tick`
+around `fleet.waypoints`, `fleet.perceive`, `fleet.pack`, `fleet.solve`
+(the lane engine's `step_fn`), `fleet.plant` (its RK4 integrator the
+span `fleet.integrate`) and `fleet.log`.
+
 The full flagship node behavior (waypoint manager, top-8 LiDAR intake,
 command memory) runs per vehicle.  The captured tick's outputs are the
 solver's own buffers and hold only until its next tick, so what the log
@@ -33,6 +38,7 @@ from mpc_collisionavoidance_tpu_torch.solver.batch import (LaneState,
                                                            from_lanes,
                                                            to_lanes)
 from mpc_collisionavoidance_tpu_torch.utils.angles import wrap_once
+from mpc_collisionavoidance_tpu_torch.utils.profiling import span
 
 IPSIED = 4  # ca1 state index of psi_e_d
 
@@ -115,40 +121,52 @@ class FleetMissionEngine:
         field (M, 3) shared or (B, M, 3) per vehicle and its mask.
         Returns (new state, (pos, ye, psi_d, active, collision, status)),
         each of the log's tensors the tick's own."""
+        with span("fleet.tick"):
+            return self._tick(state, waypoints, n_wp, obstacle_field,
+                              field_valid)
+
+    def _tick(self, state, waypoints, n_wp, obstacle_field, field_valid):
         meas = state.meas
-        mission = MissionState(k=state.mission_k,
-                               past_psied=state.past_psied,
-                               active=state.active)
-        mission, frame = waypoint_manager(mission, waypoints, n_wp,
-                                          meas.nedx, meas.nedy)
-        slots = obs.perceive(obstacle_field, field_valid, meas.nedx,
-                             meas.nedy, meas.psi)
-        x0 = GuidanceController._pack_x0(
-            meas, mission.past_psied, frame.ye, frame.ak)     # (B, nx)
+        with span("fleet.waypoints"):
+            mission = MissionState(k=state.mission_k,
+                                   past_psied=state.past_psied,
+                                   active=state.active)
+            mission, frame = waypoint_manager(mission, waypoints, n_wp,
+                                              meas.nedx, meas.nedy)
+        with span("fleet.perceive"):
+            slots = obs.perceive(obstacle_field, field_valid, meas.nedx,
+                                 meas.nedy, meas.psi)
+        with span("fleet.pack"):
+            x0 = GuidanceController._pack_x0(
+                meas, mission.past_psied, frame.ye, frame.ak)  # (B, nx)
+            # the vehicle axis -> minor-most
+            args = (to_lanes(x0), to_lanes(slots.p_obs),
+                    to_lanes(slots.r_obs))
 
-        # --- lane-engine solve (vehicle axis -> minor-most) ---
-        solver_state, out = self.solver.step_fn(
-            state.solver, to_lanes(x0), to_lanes(slots.p_obs),
-            to_lanes(slots.r_obs))
-        u0 = from_lanes(out.u0)[:, 0]                          # (B,)
-        x1 = from_lanes(out.x1)                                # (B, nx)
+        # --- lane-engine solve ---
+        with span("fleet.solve"):
+            solver_state, out = self.solver.step_fn(state.solver, *args)
 
-        psi_d = wrap_once(x1[:, IPSIED] + frame.ak)
-        active = mission.active
-        past_psied = torch.where(active, x1[:, IPSIED], mission.past_psied)
-
-        # --- plant: integrate guidance kinematics; perfect speed loop ---
-        x_next = self._plant(x0, u0[:, None], self._params0)
-        meas_next = Measurements(u=frame.u_d, v=x_next[:, 1],
-                                 nedx=x_next[:, 5], nedy=x_next[:, 6],
-                                 psi=x_next[:, 7])
-
-        new_state = FleetState(mission_k=mission.k, past_psied=past_psied,
-                               active=active, solver=solver_state,
-                               meas=meas_next)
-        log = (torch.stack([meas.nedx, meas.nedy], dim=-1), frame.ye,
-               psi_d, active, slots.collision.any(dim=-1),
-               out.status.clone())
+        with span("fleet.plant"):
+            u0 = from_lanes(out.u0)[:, 0]                      # (B,)
+            x1 = from_lanes(out.x1)                            # (B, nx)
+            psi_d = wrap_once(x1[:, IPSIED] + frame.ak)
+            active = mission.active
+            past_psied = torch.where(active, x1[:, IPSIED],
+                                     mission.past_psied)
+            # integrate guidance kinematics; perfect speed loop
+            with span("fleet.integrate"):
+                x_next = self._plant(x0, u0[:, None], self._params0)
+            meas_next = Measurements(u=frame.u_d, v=x_next[:, 1],
+                                     nedx=x_next[:, 5], nedy=x_next[:, 6],
+                                     psi=x_next[:, 7])
+            new_state = FleetState(mission_k=mission.k,
+                                   past_psied=past_psied, active=active,
+                                   solver=solver_state, meas=meas_next)
+        with span("fleet.log"):
+            log = (torch.stack([meas.nedx, meas.nedy], dim=-1), frame.ye,
+                   psi_d, active, slots.collision.any(dim=-1),
+                   out.status.clone())
         return new_state, log
 
     # ------------------------------------------------------------------

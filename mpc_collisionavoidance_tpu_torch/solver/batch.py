@@ -45,6 +45,7 @@ from mpc_collisionavoidance_tpu_torch.ops.ipm_lanes import (
 from mpc_collisionavoidance_tpu_torch.ops.linearize_lanes import (
     linearize_lanes)
 from mpc_collisionavoidance_tpu_torch.solver.capture import TickGraphs
+from mpc_collisionavoidance_tpu_torch.utils.profiling import span
 
 
 class LaneState(NamedTuple):
@@ -216,7 +217,7 @@ class LaneRTISolver:
                                    device=self.device)
         self.last_esc_iters = torch.zeros((), dtype=torch.int32,
                                           device=self.device)
-        self._graphs = (TickGraphs(self) if capture
+        self._graphs = (TickGraphs(self, "lane") if capture
                         and self.device.type == "cuda" else None)
 
     # ------------------------------------------------------------------
@@ -369,7 +370,9 @@ class LaneRTISolver:
         return new_state, out
 
     def _captured(self, name, tick, state, args, donate=True):
-        result, program = self._graphs.run(name, tick, state, args, donate)
+        with span(f"lane.{name}"):
+            result, program = self._graphs.run(name, tick, state, args,
+                                               donate)
         self.last_esc_iters = program.escalation.iters
         return result
 

@@ -25,6 +25,18 @@ unconditional segment per program (its IPM has no escalation), and
 hands its caller `fresh` copies of the outputs, as `jax.jit` without
 donation returns new arrays.
 
+Tracing (`utils/profiling.py`): a program captured while tracing is on
+stamps the device at the tick's start and end and at the start and end of
+each escalation step's body (inside its IF node), plus the points the
+tick itself stamps through `escalation.stamp` (the per-instance tick's
+QP and IPM); the warm-up call stamps nothing.  `nodes` leaves the stamp
+nodes out and `stamp_nodes` counts them, so a graph captured with tracing
+off is today's graph.  `TickGraphs` records the spans `<layer>.copy_in`
+(the caller's inputs into the program's tensors, and the capture at a
+first call) and `<layer>.launch` around each call; the solvers wrap each
+call in a span `<layer>.<entry>` (`lane.step`, `instance.step`, ...), so
+the call's spans share its id.
+
 Launch counts: no kernel wrapper runs when a graph launches, so a launch
 adds to the kernels' counters what the wrappers counted while the fixed
 segments were captured, and `settle_launch_counts()` adds each escalation
@@ -46,6 +58,7 @@ import torch
 from mpc_collisionavoidance_tpu_torch.kernels import (_build, ipm, linearize,
                                                       riccati)
 from mpc_collisionavoidance_tpu_torch.ops.ipm_lanes import Escalation
+from mpc_collisionavoidance_tpu_torch.utils import profiling
 
 # the kernel wrappers whose `launches` a graph launch adds to
 _KERNELS = (riccati, linearize, ipm)
@@ -115,16 +128,22 @@ class SegmentedCapture(Escalation):
     group every replay runs all `n` of its all-reduces, also after the
     predicate has turned False.  `iters` counts the steps of the last
     tick (zeroed in the first segment), `total` those of every tick.  Each
-    segment records the kernel launches its wrappers counted."""
+    segment records the kernel launches its wrappers counted.  `stamper`:
+    the tracer's `Stamper` of the program, or None (no stamps)."""
 
-    def __init__(self, device, group=None):
+    def __init__(self, device, group=None, stamper=None):
         super().__init__(device, group)
         self.total = torch.zeros((), dtype=torch.int64, device=device)
         self.pred = torch.zeros((), dtype=torch.bool, device=device)
         self.pool = torch.cuda.graph_pool_handle()
         self.segments = []       # (CUDAGraph, conditional)
         self.counts = []         # launches counted in each segment
+        self.stamper = stamper
         self._start = None
+
+    def stamp(self, point, value=0):
+        if self.stamper is not None:
+            self.stamper.stamp(point, value)
 
     def begin(self, conditional):
         graph = torch.cuda.CUDAGraph(keep_graph=True)
@@ -138,13 +157,15 @@ class SegmentedCapture(Escalation):
                                  zip(self._start, _counts())))
 
     def loop(self, n, stalled, step):
-        for _ in range(n):
+        for k in range(n):
             self.pred.copy_(self.predicate(stalled))
             self.end()
             self.begin(conditional=True)
+            self.stamp("esc.start", k)
             step()
             self.iters += 1
             self.total += 1
+            self.stamp("esc.end", k)
         self.end()
         self.begin(conditional=False)
 
@@ -155,10 +176,10 @@ class Program:
     copies last (the new state into the state's tensors; the warm-up call
     skips them).  `group`: the escalation's process group (a sharded lane
     axis); its all-reduce is captured in the segment that writes the
-    predicate, after the warm-up has set up the communicator.  `launch()`
-    runs it on the current stream."""
+    predicate, after the warm-up has set up the communicator.  `name`
+    names its stamps.  `launch()` runs it on the current stream."""
 
-    def __init__(self, fn, device, group=None):
+    def __init__(self, fn, device, group=None, name="tick"):
         self.device = device
         stream = torch.cuda.Stream(device)
         stream.wait_stream(torch.cuda.current_stream(device))
@@ -177,14 +198,17 @@ class Program:
             gc.disable()
             reserved = torch.cuda.memory_reserved(device)
             t1 = time.perf_counter()
-            seg = SegmentedCapture(device, group)
+            seg = SegmentedCapture(device, group,
+                                   profiling.stamper(name, device))
             before = _counts()
             try:
                 seg.begin(conditional=False)
+                seg.stamp("tick.start")
                 seg.iters.zero_()
                 self.outputs, writes = fn(seg)
                 for dst, src in writes:
                     dst.copy_(src)
+                seg.stamp("tick.end")
                 seg.end()
             except BaseException:
                 # end a capture the error left open, then re-raise
@@ -224,7 +248,11 @@ class Program:
                                f"launches: {steps}")
         self.per_step = steps.pop() if steps else (0,) * len(_KERNELS)
         self.escalation = seg
-        self.nodes = nodes.value
+        # the stamp kernels are one node each
+        self.stamp_nodes = seg.stamper.launched if seg.stamper else 0
+        self.nodes = nodes.value - self.stamp_nodes
+        if seg.stamper is not None:
+            seg.stamper.watch("esc_steps", seg.total)
         self.conditional = sum(flags)
         self.warmup_s, self.capture_s = warmup_s, t2 - t1
         self.instantiate_s = time.perf_counter() - t2
@@ -309,9 +337,12 @@ class TickGraphs:
     without one).  An output of one of its programs serves as another
     program's input as it is (the lane engine's prepared QP feeds its
     feedback tick without a copy); the solver's own tensors among them
-    (the cost blocks in a QP) are never written."""
+    (the cost blocks in a QP) are never written.  `layer` names the
+    spans and the programs (`lane`, `instance`)."""
 
-    def __init__(self, solver):
+    def __init__(self, solver, layer="tick"):
+        self.layer = layer
+        self._copy_in, self._launch = f"{layer}.copy_in", f"{layer}.launch"
         self.dtype, self.device = solver.dtype, solver.device
         self.group = getattr(solver, "group", None)
         self.programs = {}
@@ -382,22 +413,25 @@ class TickGraphs:
         state is written into (`donate`; else `tick` returns None for it
         and `state` is only read).  Returns (the static state, the outputs)
         with `donate`, else the outputs; and the program."""
-        st = self.state(state)
-        key = (name, state_key(st), tuple(_shape(a) for a in args))
-        program = self.programs.get(key)
-        if program is None:
-            statics = tuple(self._static(a) for a in args)
+        with profiling.span(self._copy_in):
+            st = self.state(state)
+            key = (name, state_key(st), tuple(_shape(a) for a in args))
+            program = self.programs.get(key)
+            if program is None:
+                statics = tuple(self._static(a) for a in args)
 
-            def fn(escalation):
-                new, out = tick(st, *statics, escalation=escalation)
-                writes = () if new is None else tuple(zip(st, new))
-                return out, writes
+                def fn(escalation):
+                    new, out = tick(st, *statics, escalation=escalation)
+                    writes = () if new is None else tuple(zip(st, new))
+                    return out, writes
 
-            program = Program(fn, self.device, self.group)
-            program.inputs = statics
-            self.programs[key] = program
-            self._own(program.outputs)
-        else:
-            self._bind(program.inputs, args)
-        program.launch()
+                program = Program(fn, self.device, self.group,
+                                  name=f"{self.layer}.{name}")
+                program.inputs = statics
+                self.programs[key] = program
+                self._own(program.outputs)
+            else:
+                self._bind(program.inputs, args)
+        with profiling.span(self._launch):
+            program.launch()
         return ((st, program.outputs) if donate else program.outputs), program

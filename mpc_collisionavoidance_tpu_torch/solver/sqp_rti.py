@@ -40,6 +40,7 @@ from mpc_collisionavoidance_tpu_torch.ops import linearize
 from mpc_collisionavoidance_tpu_torch.ops.dense_qp import dense_qp_solve
 from mpc_collisionavoidance_tpu_torch.ops.ipm import ipm_solve
 from mpc_collisionavoidance_tpu_torch.solver.capture import TickGraphs, fresh
+from mpc_collisionavoidance_tpu_torch.utils.profiling import span
 
 
 class SolverState(NamedTuple):
@@ -104,7 +105,7 @@ class RTISolver:
         self.dtype = dtype
         self._build_qp = linearize.QPBuilder(spec, self.layout,
                                              device=self.device, dtype=dtype)
-        self._graphs = (TickGraphs(self) if capture
+        self._graphs = (TickGraphs(self, "instance") if capture
                         and self.device.type == "cuda" else None)
 
     def _tensor(self, a):
@@ -123,10 +124,11 @@ class RTISolver:
             ubar=torch.zeros(batch + (N, self.spec.model.nu),
                              dtype=self.dtype, device=self.device))
 
-    def _qp_solve(self, qp):
+    def _qp_solve(self, qp, escalation=None):
         if self.qp_backend == "riccati":
             return ipm_solve(qp, iters=self.ipm_iters, tol=self.ipm_tol,
-                             centering=self.centering, mu0=self.mu0)
+                             centering=self.centering, mu0=self.mu0,
+                             stamp=escalation and escalation.stamp)
         return dense_qp_solve(qp, iters=self.ipm_iters, tol=self.ipm_tol)
 
     def _qp(self, state, x0, params, lh, yref, yref_e):
@@ -153,8 +155,11 @@ class RTISolver:
         `capture=False`), else the tick itself."""
         if self._graphs is None:
             return tick(state, *args)[1]
-        result, _ = self._graphs.run(name, tick, state, args, donate=False)
-        return fresh(result)
+        with span(f"instance.{name}"):
+            result, _ = self._graphs.run(name, tick, state, args,
+                                         donate=False)
+            with span("instance.fresh"):
+                return fresh(result)
 
     # ---- single RTI step ----
     def step_fn(self, state: SolverState, x0, params, lh=None,
@@ -166,7 +171,9 @@ class RTISolver:
 
     def _step(self, state, x0, params, lh, yref, yref_e, escalation=None):
         qp = self._qp(state, self._tensor(x0), params, lh, yref, yref_e)
-        return None, self._advance(state, self._qp_solve(qp))
+        if escalation is not None:
+            escalation.stamp("qp.built")
+        return None, self._advance(state, self._qp_solve(qp, escalation))
 
     def step(self, state, x0, params, lh=None, yref=None, yref_e=None):
         """`step_fn` (the JAX package's jitted wrapper; `step_fn` is
@@ -196,7 +203,7 @@ class RTISolver:
 
     def _feedback(self, state, qp, x0, escalation=None):
         qp = qp._replace(dx0=self._tensor(x0) - state.xbar[..., 0, :])
-        return None, self._advance(state, self._qp_solve(qp))
+        return None, self._advance(state, self._qp_solve(qp, escalation))
 
     # ---- converged SQP (oracle / non-realtime mode) ----
     def solve_converged(self, state: SolverState, x0, params, lh=None,

@@ -57,7 +57,7 @@ def _leaves(tree):
 class ReplayOnCPU:
     """`capture.Program` on the CPU (see the module docstring)."""
 
-    def __init__(self, fn, device, group=None):
+    def __init__(self, fn, device, group=None, name=None):
         self.fn, self.device = fn, device
         self.outputs, writes = fn(Escalation(device, group))
         for dst, src in writes:

@@ -24,9 +24,11 @@ workload, x0 <- x1), in one process:
   ticks.  Those run the kernels of the eager loop's profiled window (the
   two loops are bitwise equal, `chip_smoke.py` phase 15, and both report
   the window's escalation iterations), so its busy share is that window's
-  kernel time over the same ticks' time here.  It is not profiled: the
-  profiler does not report the kernels inside a graph's conditional
-  nodes.
+  kernel time over the same ticks' time here.  It is not profiled here,
+  though torch.profiler does report a captured tick's kernels, those
+  inside its conditional nodes too (K1's profiled launches of a captured
+  hull lane tick are its 4 fixed ones plus one per escalation step that
+  ran, as the tracer's device stamps count them).
 
 With --json, one JSON line per configuration and mode goes to PATH as it
 is measured.  Needs a CUDA device.
