@@ -25,8 +25,9 @@ thirteen models.  Phases:
    the CUDA runtime and driver versions (conditional graph nodes, which
    the captured ticks' escalation needs, want 12.4 or later of both), and
    the kernels' build (nvcc at first use, into build/torch_kernels/);
-   ptxas must report 0 bytes spill stores and loads for the thirty-four
-   K1, the twenty-eight K2 and the twenty-six K3 instances (`NO_SPILL`);
+   ptxas must report 0 bytes spill stores and loads for the fifty-six
+   K1 (thirty-four of the warp design, twenty-two of the CTA design), the
+   twenty-eight K2 and the twenty-six K3 instances (`NO_SPILL`);
 2. K1 (Riccati sweep) vs its plain PyTorch version on the card: random
    SPD LQRs at each instance's main-path horizons (`K1_SHAPES`: (8, 1),
    (14, 2) at N=100, (8, 2) at N=100 and 20, (5, 2) at N=20, the guidance
@@ -35,11 +36,14 @@ thirteen models.  Phases:
    condensed QPs: (8, 4) at N=25, (8, 5) at 20, (8, 10) at 10, (14, 4) at
    50, (14, 8) at 25, (6, 4) at 25; the flagship's M=2 runs on (8, 2)),
    L in {1, 130, 512}, float32 (rtol 2e-4, atol 2e-5) and float64 (atol
-   1e-10);
+   1e-10), in both designs where the instance has both (nu <= 2: the warp
+   per lane and the CTA per lane; the rule's pick through the wrapper, the
+   other through `lqr_solve_lanes_cuda_as`);
    one lane's A set to NaN leaves every other lane's dx/du bitwise
-   unchanged; each instance's time at L in {1, 128, 512} float32 and 512
-   float64 (CUDA events over 50 back-to-back launches of the C entry)
-   beside its bound;
+   unchanged, in each design; each instance's time at L in {1, 128, 512}
+   float32 and 512 float64 (CUDA events over 50 back-to-back launches of
+   the C entry) beside its bound, in each design, with the design the rule
+   picks and the faster one (a `phase 2 designs:` JSON line);
 3. K2 (fused linearization) vs its plain version on the card, for every
    model form at its builder's N (the race car's straight-track form and
    its curved-track form, which reads the curvature table, with 3
@@ -346,6 +350,7 @@ float32 matrix products run in full float32 (TF32 off, set below).
 
 import contextlib
 import ctypes
+import functools
 import dataclasses
 import itertools
 import json
@@ -505,10 +510,12 @@ def environment():
 
 
 # kernels whose every instance must compile without spills, and how many
-# instances each has (K1: 17 shapes, K2: 14 forms, K3: 13 structures, each
-# in two types)
-NO_SPILL = {"riccati_lanes_kernel": 34, "linearize_lanes_kernel": 28,
-            "fused_ipm_kernel": 26}
+# instances each has, matched as a part of the name (K1: 17 shapes in the
+# warp design and the 11 with nu <= 2 in the CTA design, whose
+# riccati_lanes_kernel_cta counts under both names; K2: 14 forms, K3: 13
+# structures; each in two types)
+NO_SPILL = {"riccati_lanes_kernel": 56, "riccati_lanes_kernel_cta": 22,
+            "linearize_lanes_kernel": 28, "fused_ipm_kernel": 26}
 
 
 def spill_report(log):
@@ -688,11 +695,11 @@ def launch_ms(call, launches=50, reps=3):
     return float(np.median(times))
 
 
-def riccati_launcher(lib, d):
+def riccati_launcher(lib, d, design=None):
     """A call of `lib`'s K1 C entry on the LaneLQR `d` with its outputs and
     scratch allocated once (the kernel's time without the wrapper's checks
-    and allocations, and not counted as a launch).  Returns (call,
-    (dx, du))."""
+    and allocations, and not counted as a launch), in the design the rule
+    picks or in `design` ("warp" or "cta").  Returns (call, (dx, du))."""
     import torch
 
     from mpc_collisionavoidance_tpu_torch.kernels import _build
@@ -704,8 +711,15 @@ def riccati_launcher(lib, d):
     args = (int(d.A.dtype == torch.float64), nx, nu, N, L,
             *_build.launch_args(d.A.device, *d, *out))
 
+    if design is not None:
+        from mpc_collisionavoidance_tpu_torch.kernels import riccati
+        entry = functools.partial(lib.nmpc_riccati_lanes_as,
+                                  riccati.DESIGNS.index(design))
+    else:
+        entry = lib.nmpc_riccati_lanes
+
     def call():
-        _build.check(lib.nmpc_riccati_lanes(*args), "riccati_lanes")
+        _build.check(entry(*args), "riccati_lanes")
     return call, out[:2]
 
 
@@ -763,79 +777,111 @@ K1_TIMED = ((1, "float32"), (128, "float32"), (512, "float32"),
             (512, "float64"))
 
 
-def _riccati_nan_lane(nx, nu, N, L=130, lane=7):
+def _riccati_nan_lane(nx, nu, N, design, L=130, lane=7):
     """One lane's A set to NaN: that lane goes non-finite and every other
-    lane's dx/du stays bitwise as it was (lane 7 shares its block with
-    lanes 4-6)."""
+    lane's dx/du stays bitwise as it was (lane 7 shares its warp design's
+    block with lanes 4-6)."""
     import torch
 
     from mpc_collisionavoidance_tpu_torch.kernels import riccati
     d = _random_lqr(N, nx, nu, L, seed=7, dtype=torch.float32)
-    ref = riccati.lqr_solve_lanes_cuda(*d)
+    ref = riccati.lqr_solve_lanes_cuda_as(design, *d)
     A = d.A.clone()
     A[..., lane] = float("nan")
-    got = riccati.lqr_solve_lanes_cuda(*d._replace(A=A))
+    got = riccati.lqr_solve_lanes_cuda_as(design, *d._replace(A=A))
     torch.cuda.synchronize()
     keep = torch.arange(L, device=DEVICE) != lane
     same = all(torch.equal(g[..., keep], r[..., keep])
                for g, r in zip(got, ref))
     poisoned = not all(bool(torch.isfinite(g[..., lane]).all())
                        for g in got)
-    print(f"K1 ({nx}, {nu}) NaN in lane {lane}'s A at L={L}: lane "
+    print(f"K1 ({nx}, {nu}) {design} NaN in lane {lane}'s A at L={L}: lane "
           f"non-finite {poisoned}, the other lanes bitwise unchanged {same}")
     if not (same and poisoned):
-        raise AssertionError(f"K1 ({nx}, {nu}): a NaN lane touched another "
-                             "lane, or stayed finite")
+        raise AssertionError(f"K1 ({nx}, {nu}) {design}: a NaN lane touched "
+                             "another lane, or stayed finite")
+
+
+def k1_designs(nu):
+    """K1's designs for an instance: the warp's, and the CTA's for nu <= 2."""
+    return ("warp", "cta") if nu <= 2 else ("warp",)
 
 
 def check_riccati():
-    """K1 vs lqr_solve_lanes_plain on the card, the NaN-lane isolation, and
-    the kernel's time beside its bound; returns {(nx, nu): dict(err, ms,
-    plain_ms, bound_ms, bound_by)} (times at the instance's first
-    horizon, L=512, float32)."""
+    """K1 vs lqr_solve_lanes_plain on the card in each design, the NaN-lane
+    isolation, and each design's time beside the bound; returns {(nx, nu):
+    dict(err, ms, plain_ms, bound_ms, bound_by)} (times at the instance's
+    first horizon, L=512, float32, in the design the rule picks there)."""
     import torch
 
     from mpc_collisionavoidance_tpu_torch.kernels import _build, riccati
     from mpc_collisionavoidance_tpu_torch.ops.riccati_lanes import (
         lqr_solve_lanes_plain)
     lib = _build.library()
-    result = {}
+    result, table = {}, []
     for (nx, nu), (horizons, _) in K1_SHAPES.items():
         worst = 0.0
         N = horizons[0]
+        designs = k1_designs(nu)
         for NL, L in itertools.product(horizons, (1, 130, 512)):
             for dtype, rtol, atol in ((torch.float32, 2e-4, 2e-5),
                                       (torch.float64, 0.0, 1e-10)):
                 d = _random_lqr(NL, nx, nu, L, seed=nx * 1000 + L,
                                 dtype=dtype)
-                got = riccati.lqr_solve_lanes_cuda(*d)
                 want, want_ms = _timed(lambda: lqr_solve_lanes_plain(d))
-                torch.cuda.synchronize()
                 if (NL, L, dtype) == (N, B, torch.float32):
                     plain_ms = want_ms
-                err = _max_err(got, want)
-                worst = max(worst, err)
-                print(f"K1 riccati nx={nx} nu={nu} N={NL} L={L} "
-                      f"{str(dtype)[6:]}: max|err| {err:.3e}")
-                _check_close(f"K1 ({nx},{nu}) N={NL} L={L} {dtype}", got,
-                             want, rtol, atol)
-        _riccati_nan_lane(nx, nu, N)
+                lanes = riccati.cta_lanes(DEVICE, dtype, nx, nu)
+                rule = "cta" if L <= lanes else "warp"
+                for design in designs:
+                    before = dict(riccati.launches_by_design)
+                    got = (riccati.lqr_solve_lanes_cuda(*d) if design == rule
+                           else riccati.lqr_solve_lanes_cuda_as(design, *d))
+                    torch.cuda.synchronize()
+                    if riccati.launches_by_design[design] != (
+                            before[design] + 1):
+                        raise AssertionError(f"K1 ({nx},{nu}) L={L}: "
+                                             f"{design} not launched")
+                    err = _max_err(got, want)
+                    worst = max(worst, err)
+                    print(f"K1 riccati nx={nx} nu={nu} N={NL} L={L} "
+                          f"{str(dtype)[6:]} {design}"
+                          f"{' (rule)' if design == rule else ''}: "
+                          f"max|err| {err:.3e}")
+                    _check_close(f"K1 ({nx},{nu}) N={NL} L={L} {dtype} "
+                                 f"{design}", got, want, rtol, atol)
+        for design in designs:
+            _riccati_nan_lane(nx, nu, N, design)
         for L, dname in K1_TIMED:
             dtype = getattr(torch, dname)
             d = _random_lqr(N, nx, nu, L, seed=1, dtype=dtype)
-            ms = launch_ms(riccati_launcher(lib, d)[0])
             bound_ms, by = bound(*riccati_work(N, nx, nu, L,
                                                d.A.element_size()),
                                  d.A.element_size())
-            print(f"K1 ({nx}, {nu}) N={N} L={L} {dname}: {ms:.4f} ms, "
-                  f"bound {bound_ms:.4f} ms ({by}), "
-                  f"{100 * bound_ms / ms:.2f}% of the bound")
+            lanes = riccati.cta_lanes(DEVICE, dtype, nx, nu)
+            rule = "cta" if L <= lanes else "warp"
+            times = {}
+            for design in designs:
+                times[design] = launch_ms(riccati_launcher(lib, d,
+                                                           design)[0])
+                print(f"K1 ({nx}, {nu}) N={N} L={L} {dname} {design}: "
+                      f"{times[design]:.4f} ms, bound {bound_ms:.4f} ms "
+                      f"({by}), {100 * bound_ms / times[design]:.2f}% of "
+                      "the bound")
+            fastest = min(times, key=times.get)
+            print(f"K1 ({nx}, {nu}) N={N} L={L} {dname}: the rule picks "
+                  f"{rule} (CTA design up to L={lanes}), the faster is "
+                  f"{fastest}")
+            table.append(dict(shape=[nx, nu], N=N, L=L, dtype=dname,
+                              cta_lanes=lanes, rule=rule, fastest=fastest,
+                              ms=times, bound_ms=bound_ms))
             if (L, dname) == (B, "float32"):
-                result[(nx, nu)] = dict(err=worst, ms=ms, bound_ms=bound_ms,
-                                        bound_by=by)
+                result[(nx, nu)] = dict(err=worst, ms=times[rule],
+                                        bound_ms=bound_ms, bound_by=by)
         result[(nx, nu)]["plain_ms"] = plain_ms
         print(f"K1 ({nx}, {nu}) plain sweep at L={B} float32: "
               f"{result[(nx, nu)]['plain_ms']:.4f} ms")
+    print("phase 2 designs: " + json.dumps(table))
     return result
 
 

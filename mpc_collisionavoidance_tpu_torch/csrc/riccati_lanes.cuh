@@ -1,4 +1,4 @@
-// Lane-batched Riccati LQR sweep (K1) for sm_90a: the kernel and its
+// Lane-batched Riccati LQR sweep (K1) for sm_90a: the kernels and their
 // launch, instantiated per (nx, nu) in riccati_lanes_<nx>x<nu>_<type>.cu,
 // one translation unit each, so that nvcc compiles the instances in
 // parallel; the C entry is riccati_lanes.cu.
@@ -14,16 +14,18 @@
 // minor-most; the G lanes of one block are G neighbouring addresses of
 // every entry.
 //
-// Design.  One warp per lane (riccati_team.cuh) and kLanes = 4 lanes per
-// block: 128 threads, 128 blocks at L = 512.  The warp splits each stage's
-// matrix work by rows and column parts (halves at nx = 14, quarters at
-// nx = 8), so a thread runs ~2 nx / SPLIT dot products of length nx per
-// stage instead of the lane's ~2 nx^2.  P's row stays in the thread's
-// registers; PA, the new P, PB, P c + p and K sit in shared memory, so
-// nothing spills.  Each stage's blocks (A, B, c, Q, S, R, qx, qu) are
-// copied for the block's lanes into a ring of kRing tiles in shared memory
-// with cp.async, kRing - 1 stages ahead of the math; one __syncthreads()
-// per stage hands a tile over.
+// Design: two kernels, and `launch` picks one from what it sees.
+//
+// The warp design (riccati_lanes_kernel below): one warp per lane
+// (riccati_team.cuh) and kLanes = 4 lanes per block: 128 threads, 128
+// blocks at L = 512.  The warp splits each stage's matrix work by rows and
+// column parts (halves at nx = 14, quarters at nx = 8), so a thread runs
+// ~2 nx / SPLIT dot products of length nx per stage instead of the lane's
+// ~2 nx^2.  P's row stays in the thread's registers; PA, the new P, PB,
+// P c + p and K sit in shared memory, so nothing spills.  Each stage's
+// blocks (A, B, c, Q, S, R, qx, qu) are copied for the block's lanes into a
+// ring of kRing tiles in shared memory with cp.async, kRing - 1 stages
+// ahead of the math; one __syncthreads() per stage hands a tile over.
 // The copies are 16 bytes when L and every pointer allow it (a row of 4
 // float lanes, or two rows of 2 double lanes), else one element each;
 // both give the same tile.  The forward rollout reuses the ring's bytes
@@ -34,24 +36,45 @@
 // zeros, compute on them and store nothing: no edge padding, and a lane's
 // result does not depend on its neighbours or on its place in the block.
 //
+// The CTA design (riccati_lanes_kernel_cta, riccati_cta.cuh; nu <= 2): one
+// CTA per lane, one entry of a stage's products per thread, three block
+// barriers per backward stage; the forward rollout on one warp.
+//
+// The rule: the CTA design for nu <= 2 up to one CTA per SM, L <= the SM
+// count (where cudaOccupancyMaxActiveBlocksPerMultiprocessor finds room for
+// one), else the warp design; the wide instances (nu > 2) always take the
+// warp design.  Timed on the H100 (chip_smoke.py phase 2), the CTA design
+// wins at L = 1 and 128 for every nu <= 2 instance (1.7-2.5x), and at
+// L = 512 for all but (14, 2), whose 512 CTAs of 256 threads fit in one
+// wave (4 an SM) but share each SM's issue slots and shared-memory port:
+// 0.49 against the warp design's 0.39 ms in float32.  A rule by the
+// resident wave alone would slow the hull's fleet, so the CTA design stops
+// at one CTA per SM, where it wins for every instance.
+//
 // What bounds it on the H100: per lane and stage the sweep reads 2 nx^2 +
 // 2 nx nu + 2 nx + nu^2 + nu inputs once (482 values at (14, 2)) and does
 // ~4 nx^3 FLOP, so at L = 512 the bytes set the bound (30.6 us for the
-// hull in float32, 10.5 us for the flagship).  The kernel does not reach
-// it: each lane's warp walks its 100 dependent stages, and one stage's
-// chain (shared-memory loads feeding the two products, the Cholesky's
-// square roots and reciprocals, three warp syncs, one block barrier) sets
-// the time at every L up to a few hundred blocks.  Plain FP32/FP64 FMAs:
-// the products are 8-14 wide and differ per lane, and the float32 IPM
+// hull in float32, 10.5 us for the flagship), and at L = 1 they set it at
+// well under a microsecond.  Neither design reaches it: each lane walks
+// its 100 dependent stages.  In the warp design one stage's chain (shared-
+// memory loads feeding the two products, the Cholesky's square roots and
+// reciprocals, three warp syncs, one block barrier) sets the time at every
+// L up to a few hundred blocks, with one live warp on one SM at L = 1.  The
+// CTA design shortens a stage to three dot products of length nx in
+// sequence plus the Cholesky, at the price of three block barriers and a
+// CTA per lane, so it serves up to one CTA per SM.  Plain FP32/FP64
+// FMAs: the products are 8-14 wide and differ per lane, and the float32 IPM
 // needs full float32.
 
 #pragma once
 
 #include <cuda_runtime.h>
 
+#include <atomic>
 #include <cstddef>
 #include <cstdint>
 
+#include "riccati_cta.cuh"
 #include "riccati_team.cuh"
 
 namespace nmpc {
@@ -246,13 +269,67 @@ inline bool aligned16(const void* p) {
   return reinterpret_cast<std::uintptr_t>(p) % 16 == 0;
 }
 
-// Launches the instance on `stream`; returns cudaGetLastError(), or the
-// error of raising the kernel's shared-memory limit.
+// The designs `launch` takes: the rule's, the warp's or the CTA's.
+enum Design { kRule = -1, kWarpDesign = 0, kCtaDesign = 1 };
+
+// The most lanes the CTA design takes on the current device: one CTA per
+// SM (the SM count where an SM holds one of its CTAs), 0 for a wide
+// instance.  Returns 0 or a CUDA error.  Computed once per device.
 template <typename T, int NX, int NU>
-int launch(const void* A, const void* B, const void* c, const void* Q,
-           const void* S, const void* R, const void* qx, const void* qu,
-           const void* dx0, void* dx, void* du, void* K, void* k, int N,
-           int L, cudaStream_t stream) {
+int cta_lanes(int* lanes) {
+  *lanes = 0;
+  if constexpr (NU <= 2) {
+    constexpr int kDevices = 64;
+    static std::atomic<int> known[kDevices];
+    int dev = 0;
+    cudaError_t err = cudaGetDevice(&dev);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    if (dev < kDevices && (*lanes = known[dev].load()) > 0) return 0;
+    int sms = 0, per_sm = 0;
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    if (err == cudaSuccess)
+      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+          &per_sm, riccati_lanes_kernel_cta<T, NX, NU>,
+          cta::Shape<T, NX, NU>::THREADS, cta::shared_bytes<T, NX, NU>());
+    if (err != cudaSuccess) return static_cast<int>(err);
+    *lanes = per_sm > 0 ? sms : 0;
+    if (dev < kDevices) known[dev].store(*lanes);
+  }
+  return 0;
+}
+
+// Launches the instance on `stream` in `design` (a Design); returns
+// cudaGetLastError(), the error of raising the kernel's shared-memory limit
+// or of the rule's occupancy query, or -3 for a design the instance lacks.
+template <typename T, int NX, int NU>
+int launch(int design, const void* A, const void* B, const void* c,
+           const void* Q, const void* S, const void* R, const void* qx,
+           const void* qu, const void* dx0, void* dx, void* du, void* K,
+           void* k, int N, int L, cudaStream_t stream) {
+  if (design == kRule) {
+    int lanes = 0;
+    const int err = cta_lanes<T, NX, NU>(&lanes);
+    if (err != 0) return err;
+    design = L <= lanes ? kCtaDesign : kWarpDesign;
+  }
+  if (design == kCtaDesign) {
+    if constexpr (NU <= 2) {
+      constexpr size_t smem = cta::shared_bytes<T, NX, NU>();
+      static_assert(smem <= 48 * 1024, "launched without opting in");
+      const auto kernel = riccati_lanes_kernel_cta<T, NX, NU>;
+      kernel<<<L, cta::Shape<T, NX, NU>::THREADS, smem, stream>>>(
+          static_cast<const T*>(A), static_cast<const T*>(B),
+          static_cast<const T*>(c), static_cast<const T*>(Q),
+          static_cast<const T*>(S), static_cast<const T*>(R),
+          static_cast<const T*>(qx), static_cast<const T*>(qu),
+          static_cast<const T*>(dx0), static_cast<T*>(dx),
+          static_cast<T*>(du), static_cast<T*>(K), static_cast<T*>(k), N,
+          L);
+      return static_cast<int>(cudaGetLastError());
+    }
+    return -3;
+  }
+  if (design != kWarpDesign) return -3;
   constexpr size_t smem = shared_bytes<T, NX, NU>();
   const auto kernel = riccati_lanes_kernel<T, NX, NU>;
   if (smem > 48 * 1024) {
@@ -292,14 +369,21 @@ int launch(const void* A, const void* B, const void* c, const void* Q,
   X(8, 1) X(14, 2) X(8, 2) X(5, 2) X(9, 1) X(10, 1) X(12, 1) X(11, 1) \
   X(4, 1) X(5, 1) X(6, 2) X(8, 4) X(8, 5) X(8, 10) X(14, 4) X(14, 8)  \
   X(6, 4)
-#define NMPC_K1_LAUNCH(T, NX, NU)                                           \
-  int launch<T, NX, NU>(const void*, const void*, const void*, const void*, \
+#define NMPC_K1_LAUNCH(T, NX, NU)                                          \
+  int launch<T, NX, NU>(int, const void*, const void*, const void*,        \
                         const void*, const void*, const void*, const void*, \
-                        const void*, void*, void*, void*, void*, int, int,  \
-                        cudaStream_t)
+                        const void*, const void*, void*, void*, void*,     \
+                        void*, int, int, cudaStream_t)
+#define NMPC_K1_LANES(T, NX, NU) int cta_lanes<T, NX, NU>(int*)
+// what an instance file instantiates
+#define NMPC_K1_INSTANCE(T, NX, NU)    \
+  template NMPC_K1_LAUNCH(T, NX, NU); \
+  template NMPC_K1_LANES(T, NX, NU);
 #define NMPC_K1_DECLARE(NX, NU)                   \
   extern template NMPC_K1_LAUNCH(float, NX, NU); \
-  extern template NMPC_K1_LAUNCH(double, NX, NU);
+  extern template NMPC_K1_LAUNCH(double, NX, NU); \
+  extern template NMPC_K1_LANES(float, NX, NU);  \
+  extern template NMPC_K1_LANES(double, NX, NU);
 NMPC_K1_SHAPES(NMPC_K1_DECLARE)
 #undef NMPC_K1_DECLARE
 

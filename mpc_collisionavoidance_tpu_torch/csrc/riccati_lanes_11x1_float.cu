@@ -7,7 +7,7 @@
 namespace nmpc {
 namespace k1 {
 
-template NMPC_K1_LAUNCH(float, 11, 1);
+NMPC_K1_INSTANCE(float, 11, 1)
 
 }  // namespace k1
 }  // namespace nmpc

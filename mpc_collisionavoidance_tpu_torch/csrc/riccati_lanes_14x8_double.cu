@@ -7,7 +7,7 @@
 namespace nmpc {
 namespace k1 {
 
-template NMPC_K1_LAUNCH(double, 14, 8);
+NMPC_K1_INSTANCE(double, 14, 8)
 
 }  // namespace k1
 }  // namespace nmpc

@@ -7,7 +7,7 @@
 namespace nmpc {
 namespace k1 {
 
-template NMPC_K1_LAUNCH(float, 14, 8);
+NMPC_K1_INSTANCE(float, 14, 8)
 
 }  // namespace k1
 }  // namespace nmpc

@@ -7,7 +7,7 @@
 namespace nmpc {
 namespace k1 {
 
-template NMPC_K1_LAUNCH(double, 6, 4);
+NMPC_K1_INSTANCE(double, 6, 4)
 
 }  // namespace k1
 }  // namespace nmpc

@@ -7,7 +7,7 @@
 namespace nmpc {
 namespace k1 {
 
-template NMPC_K1_LAUNCH(float, 6, 4);
+NMPC_K1_INSTANCE(float, 6, 4)
 
 }  // namespace k1
 }  // namespace nmpc

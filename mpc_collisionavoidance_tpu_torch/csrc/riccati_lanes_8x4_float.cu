@@ -8,7 +8,7 @@
 namespace nmpc {
 namespace k1 {
 
-template NMPC_K1_LAUNCH(float, 8, 4);
+NMPC_K1_INSTANCE(float, 8, 4)
 
 }  // namespace k1
 }  // namespace nmpc

@@ -8,7 +8,7 @@
 namespace nmpc {
 namespace k1 {
 
-template NMPC_K1_LAUNCH(float, 8, 5);
+NMPC_K1_INSTANCE(float, 8, 5)
 
 }  // namespace k1
 }  // namespace nmpc

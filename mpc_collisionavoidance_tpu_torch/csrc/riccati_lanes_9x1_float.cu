@@ -7,7 +7,7 @@
 namespace nmpc {
 namespace k1 {
 
-template NMPC_K1_LAUNCH(float, 9, 1);
+NMPC_K1_INSTANCE(float, 9, 1)
 
 }  // namespace k1
 }  // namespace nmpc

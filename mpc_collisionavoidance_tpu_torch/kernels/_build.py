@@ -57,6 +57,10 @@ _ENTRIES = {
     # (is_double, nx, nu, N, L, A, B, c, Q, S, R, qx, qu, dx0,
     #  dx, du, K, k, stream)
     "nmpc_riccati_lanes": [_INT] * 5 + [_PTR] * 14,
+    # (design, is_double, nx, nu, N, L, A, ..., stream) as the above
+    "nmpc_riccati_lanes_as": [_INT] * 6 + [_PTR] * 14,
+    # (is_double, nx, nu, lanes out)
+    "nmpc_riccati_lanes_cta_lanes": [_INT] * 3 + [ctypes.POINTER(_INT)],
     # (is_double, N, L, dt, integrator_steps, xs, ubar, params,
     #  xn, J, hbar, C, stream), one entry per model form
     **{f"nmpc_linearize_{name}": _LINEARIZE_ARGS for name in (

@@ -95,6 +95,30 @@ def _random_lqr(N, nx, nu, L, seed, dtype, device):
     return interop.lane_lqr_from_numpy(*fields, device=device, dtype=dtype)
 
 
+# K1's instances with the CTA design (nu <= 2) and their main-path N
+CTA_INSTANCES = [(8, 1, 100), (14, 2, 100), (8, 2, 100), (5, 2, 20),
+                 (9, 1, 100), (10, 1, 100), (12, 1, 100), (11, 1, 100),
+                 (4, 1, 100), (5, 1, 100), (6, 2, 50)]
+# L = MOST: the most lanes the rule gives the CTA design (the SM count)
+MOST = 0
+
+
+def _k1(design, d):
+    """K1 on `d` in `design`, through the wrapper where the rule picks it
+    (asserting that it did), else through `lqr_solve_lanes_cuda_as`; one
+    launch counted either way."""
+    nx, nu, L = d.A.shape[1], d.B.shape[2], d.A.shape[3]
+    rule = ("cta" if L <= riccati.cta_lanes(d.A.device, d.A.dtype, nx, nu)
+            else "warp")
+    before = (riccati.launches, dict(riccati.launches_by_design))
+    got = (riccati.lqr_solve_lanes_cuda(*d) if design == rule
+           else riccati.lqr_solve_lanes_cuda_as(design, *d))
+    assert riccati.launches == before[0] + 1
+    assert riccati.launches_by_design[design] == before[1][design] + 1
+    return got
+
+
+@pytest.mark.parametrize("design", ["warp", "cta"])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
 @pytest.mark.parametrize("nx,nu,L,N", [
     (8, 1, 1, 30), (8, 1, 33, 30), (8, 1, 130, 30),
@@ -102,24 +126,48 @@ def _random_lqr(N, nx, nu, L, seed, dtype, device):
     (8, 2, 1, 20), (8, 2, 130, 100), (5, 2, 33, 20), (5, 2, 130, 2),
     (9, 1, 33, 100), (10, 1, 130, 100), (12, 1, 1, 100), (12, 1, 130, 100),
     (11, 1, 33, 100), (4, 1, 130, 100), (4, 1, 33, 2), (5, 1, 1, 100),
-    (5, 1, 130, 100), (6, 2, 1, 50), (6, 2, 130, 50), (6, 2, 33, 2)])
-def test_riccati_kernel_matches_plain(card, nx, nu, L, N, dtype):
-    """Ragged lane groups: L=1 (one lane of a 4-lane block), 33 and 130
-    (a last block of 1 and 2 lanes); L=130 in float64 also takes the
-    16-byte copies, the other widths the element copies.  (8, 2) and
-    (5, 2) also at N=20 (usv_acados, usv_position_control) and N=2,
-    shorter than the tile rings; the guidance family's instances at
-    their N=100, (4, 1) also at N=2; the race car's (6, 2) at its N=50
-    and N=2."""
+    (5, 1, 130, 100), (6, 2, 1, 50), (6, 2, 130, 50), (6, 2, 33, 2),
+    *((nx, nu, L, N) for nx, nu, N in CTA_INSTANCES for L in (3, MOST))])
+def test_riccati_kernel_matches_plain(card, nx, nu, L, N, dtype, design):
+    """Both designs.  The warp design on ragged lane groups: L=1 (one lane
+    of a 4-lane block), 3, 33 and 130 (a last block of 1, 3 and 2 lanes);
+    L=130 in float64 also takes the 16-byte copies, the other widths the
+    element copies.  The CTA design at L=1 (its fields contiguous: 16-,
+    8- and 4-byte pieces), at 3, 33 and 130 (pieces L apart), and at MOST,
+    the most lanes the rule gives it.  (8, 2) and (5, 2) also at N=20
+    (usv_acados, usv_position_control) and N=2, shorter than the tile
+    rings; the guidance family's instances at their N=100, (4, 1) also at
+    N=2; the race car's (6, 2) at its N=50 and N=2."""
+    if L == MOST:
+        L = riccati.cta_lanes(card, dtype, nx, nu)
     d = _random_lqr(N, nx, nu, L, seed=L, dtype=dtype, device=card)
-    before = riccati.launches
-    got = riccati.lqr_solve_lanes_cuda(*d)
+    got = _k1(design, d)
     want = lqr_solve_lanes_plain(d)
     torch.cuda.synchronize()
-    assert riccati.launches == before + 1
     rtol, atol = TOLS[dtype]
     for g, w in zip(got, want):
         torch.testing.assert_close(g, w, rtol=rtol, atol=atol)
+
+
+@pytest.mark.parametrize("nx,nu", riccati.SUPPORTED)
+def test_riccati_kernel_design_by_lanes(card, nx, nu):
+    """The rule: the CTA design for nu <= 2 up to one CTA per SM, the warp
+    design past it and for the wide instances, as `launches_by_design`
+    counts the wrapper's launches."""
+    sms = torch.cuda.get_device_properties(card).multi_processor_count
+    for dtype in (torch.float32, torch.float64):
+        most = riccati.cta_lanes(card, dtype, nx, nu)
+        assert most == (sms if nu <= 2 else 0)
+        for L in sorted({1, 3, most, most + 1, 512} - {0}):
+            d = _random_lqr(4, nx, nu, L, seed=L, dtype=dtype, device=card)
+            before = dict(riccati.launches_by_design)
+            riccati.lqr_solve_lanes_cuda(*d)
+            want = "cta" if L <= most else "warp"
+            assert {k: riccati.launches_by_design[k] - before[k]
+                    for k in before} == {"warp": int(want == "warp"),
+                                         "cta": int(want == "cta")}, (L,
+                                                                      dtype)
+    torch.cuda.synchronize()
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
@@ -140,16 +188,20 @@ def test_riccati_macro_instances_match_plain(card, nx, nu, L, N, dtype):
         torch.testing.assert_close(g, w, rtol=rtol, atol=atol)
 
 
-@pytest.mark.parametrize("nx,nu", riccati.SUPPORTED)
-def test_riccati_kernel_nan_lane_leaves_the_others_bitwise(card, nx, nu):
+@pytest.mark.parametrize("nx,nu,design", [
+    (nx, nu, design) for nx, nu in riccati.SUPPORTED
+    for design in ("warp", "cta") if design == "warp" or nu <= 2])
+def test_riccati_kernel_nan_lane_leaves_the_others_bitwise(card, nx, nu,
+                                                           design):
     """One lane's A set to NaN: that lane goes non-finite, and every other
-    lane (its block's neighbours included) is bitwise what it was."""
+    lane (its warp design block's neighbours included) is bitwise what it
+    was, in each design."""
     L, lane = 130, 6
     d = _random_lqr(25, nx, nu, L, seed=3, dtype=torch.float32, device=card)
-    ref = riccati.lqr_solve_lanes_cuda(*d)
+    ref = _k1(design, d)
     A = d.A.clone()
     A[..., lane] = float("nan")
-    got = riccati.lqr_solve_lanes_cuda(*d._replace(A=A))
+    got = _k1(design, d._replace(A=A))
     torch.cuda.synchronize()
     keep = torch.arange(L, device=card) != lane
     for g, r in zip(got, ref):

@@ -83,3 +83,14 @@ def test_kernel_wrapper_refuses_cpu_tensors():
     with pytest.raises(ValueError, match="CUDA device"):
         riccati.lqr_solve_lanes_cuda(*d_t)
     assert riccati.launches == before
+
+
+@pytest.mark.parametrize("design", ["tile", "CTA", None])
+def test_kernel_wrapper_refuses_an_unknown_design(design):
+    """`lqr_solve_lanes_cuda_as` takes "warp" or "cta" alone, and refuses
+    anything else before it looks at the tensors."""
+    d_t, _ = _both(random_lqr(N=4, nx=8, nu=1, L=2, seed=3))
+    before = (riccati.launches, dict(riccati.launches_by_design))
+    with pytest.raises(ValueError, match="design"):
+        riccati.lqr_solve_lanes_cuda_as(design, *d_t)
+    assert (riccati.launches, riccati.launches_by_design) == before

@@ -5,9 +5,12 @@ what only nvcc knows (the cp.async PTX, the dynamic shared memory
 declaration, the `<<<...>>>` launch), against a stand-in header: every CUDA
 thread is a std::thread, a block's __syncthreads() and __syncwarp() are one
 std::barrier (the kernels' control flow is uniform, so every thread of a
-block meets the same syncs), a warp shuffle goes through the barrier, and
-cp.async is a synchronous copy (its groups complete early, which the
-kernels' waits allow).  Blocks run one after another.  This checks a
+block meets the same syncs, and a thread that returns early leaves the
+barrier: K1's CTA design ends its other warps before warp 0's forward
+rollout), a warp shuffle goes through the barrier, and cp.async is a
+synchronous copy (its groups complete early, which the kernels' waits
+allow).  Blocks run one after another.  The occupancy
+query sees 132 SMs holding one block of any kernel each.  This checks a
 kernel's indexing where no card exists; timing and the card's compiler are
 the business of tests/test_torch_cuda.py and chip_smoke.py.
 """
@@ -65,6 +68,19 @@ typedef int cudaError_t;
 constexpr int cudaSuccess = 0, cudaFuncAttributeMaxDynamicSharedMemorySize = 8;
 template <typename F> int cudaFuncSetAttribute(F, int, int) { return 0; }
 inline int cudaGetLastError() { return 0; }
+// a card of STAND_IN_SMS SMs that holds one block of any kernel per SM
+constexpr int STAND_IN_SMS = 132;
+enum cudaDeviceAttr { cudaDevAttrMultiProcessorCount = 16 };
+inline int cudaGetDevice(int* dev) { *dev = 0; return 0; }
+inline int cudaDeviceGetAttribute(int* v, cudaDeviceAttr, int) {
+  *v = STAND_IN_SMS;
+  return 0;
+}
+template <typename F>
+int cudaOccupancyMaxActiveBlocksPerMultiprocessor(int* n, F, int, size_t) {
+  *n = 1;
+  return 0;
+}
 inline unsigned __cvta_generic_to_shared(const void*) { return 0; }
 inline void stand_in_copy(void* dst, const void* src, int bytes, bool valid) {
   if (valid) std::memcpy(dst, src, bytes); else std::memset(dst, 0, bytes);
@@ -84,6 +100,8 @@ void stand_in_launch(K kernel, int grid, int threads, size_t smem,
       pool.emplace_back([&, t] {
         threadIdx.x = t; blockIdx.x = b; blockDim.x = threads; block = &blk;
         kernel(args...);
+        // a thread that has left no longer counts at the block's syncs
+        bar.arrive_and_drop();
       });
     for (auto& th : pool) th.join();
   }

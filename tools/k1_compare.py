@@ -30,6 +30,7 @@ import concurrent.futures
 import ctypes
 import json
 import pathlib
+import re
 import subprocess
 import sys
 
@@ -89,8 +90,10 @@ def sass_census(lib):
     for line in dump.splitlines():
         if "Function :" in line:
             fn = line.split("Function :")[1].strip()
-            name = (fn[fn.index("kernelI") + 7:fn.index("EEEv")]
-                    if "riccati_lanes_kernel" in fn else None)
+            m = re.search(r"riccati_lanes_kernel(_cta)?I(.*?)EEEv", fn)
+            # the warp design's instances by their template arguments, the
+            # CTA design's with "cta " before them
+            name = ("cta " * bool(m[1]) + m[2]) if m else None
             if name:
                 census[name] = dict.fromkeys(OPCODES, 0)
         elif name and "/*" in line and ";" in line:
